@@ -1,0 +1,9 @@
+"""PyTorch / CUDA port of sept_tpu for NVIDIA Hopper (H100).
+
+A package of its own beside the JAX reference ``sept_tpu``: it imports torch
+and numpy and nothing of JAX or of ``sept_tpu``.  Ported so far: the serving
+path (mel frontend, Conv2dBiRNN eval forward, the cloak noise layer, the HTTP
+server), with the mel chain and the first conv block as hand-written CUDA
+kernels (``sept_tpu_torch/csrc``).  What is still to be ported is listed in
+ROADMAP.md.
+"""

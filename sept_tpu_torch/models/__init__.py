@@ -1,0 +1,37 @@
+"""PyTorch models of the port: Conv2dBiRNN (eval) and the cloak noise layer."""
+
+from sept_tpu_torch.models.backbone import (
+    NUM_EMO_CLASSES,
+    NUM_GENDER_CLASSES,
+    Conv2dBiRNN,
+)
+from sept_tpu_torch.models.cloak import CloakNoise
+
+__all__ = [
+    "NUM_EMO_CLASSES",
+    "NUM_GENDER_CLASSES",
+    "CloakNoise",
+    "Conv2dBiRNN",
+    "build_backbone",
+    "pooling_for",
+]
+
+_PORTED = ("cnn-lstm-att", "2d-cnn-lstm")
+_NOT_YET = ("deep-2d-cnn-lstm", "1d-cnn-lstm-att", "2d-cnn")
+
+
+def build_backbone(model_type: str, **kwargs) -> Conv2dBiRNN:
+    """Model factory over the reference trainers' --model_type switch."""
+    if model_type in _PORTED:
+        return Conv2dBiRNN(**kwargs)
+    if model_type in _NOT_YET:
+        raise NotImplementedError(
+            f"model_type {model_type!r} is not ported to PyTorch yet; it is "
+            "queued in ROADMAP.md")
+    raise ValueError(f"unknown model_type: {model_type!r}")
+
+
+def pooling_for(model_type: str):
+    """Temporal pooling per --model_type: the 'deep' variants flatten the RNN
+    sequence (None), every other type mean-pools."""
+    return None if "deep" in model_type else "mean"

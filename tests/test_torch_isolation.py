@@ -1,0 +1,78 @@
+"""The PyTorch port stands alone: no JAX, no sept_tpu, no silent CPU fallback."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "sept_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sept_tpu")
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'sept_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import sept_tpu_torch.serve, sept_tpu_torch.compat.from_jax\n"
+        "import sept_tpu_torch.ops.conv_block1, sept_tpu_torch.ops.cuda_lib\n"
+        "import chip_smoke\n"
+        "assert not any(m.startswith(('jax', 'flax')) for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_predictor_without_device_needs_cuda(monkeypatch):
+    from sept_tpu_torch.serve import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor({})
+    with pytest.raises(ValueError, match="unsupported device"):
+        Predictor({}, device="meta")
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from sept_tpu_torch.ops import cuda_lib
+
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_lib.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_lib, "_NVCC_DEFAULT", str(tmp_path / "no" / "nvcc"))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_lib.build(["mel"])
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without CUDA, and alone in an empty directory, the smoke script exits
+    non-zero and prints no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (ROOT, tmp_path):
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
