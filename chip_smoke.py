@@ -1,39 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, in order; any failure raises and exits non-zero with no result line:
+Phases, in order; any failure raises and exits non-zero with no result line.
+Every main path runs with the kernels' launch counts set to 0 just before
+and read just after; each kernel the path must use has to have launched
+(and block 1's backward kernels must not launch where they are not needed).
 
-1. build   compile every CUDA kernel of the path from sept_tpu_torch/csrc
-           (one nvcc per source, all at once).
-2. model   a full-width Conv2dBiRNN (hidden 64, 128 mels, win 200, shift 50,
-           n_fft 800, emotion head) from seeded random weights, served through
-           a CloakedPredictor with seeded noise parameters and a 40-percentile
-           suppression mask.
-3. serve   PredictionServer on 127.0.0.1: 8 float utterances of 2.5-6 s, a
-           pcm16 batch, a /stream session, then 6 concurrent pcm16 requests
-           (two seeds) under micro-batching on a second server.  The kernels' launch counts are
-           set to 0 just before and read just after; every kernel of the path
-           must have launched.  Probabilities must be finite, sum to 1, and
-           the /metrics counters must match the requests sent.
-4. cpu     the same requests answered by the port on the CPU (plain versions,
-           same weights, same noise): probabilities within 1e-4.
-5. kernels each kernel against its plain version on the card, on the tensors
-           the main path gives it (mel 1e-3 dB; conv output 1e-4 and moments
-           rel 1e-5; pooled 1e-4), then timed with CUDA events beside its
-           plain version, a PyTorch yardstick and its roofline bound; then
-           again at edge shapes (ragged tiles, odd sizes, n_fft 1600).
-6. latency /predict round trips at 1 and 8 utterances (pcm16), beside the
-           server's device-call time.
-7. profile device time by kernel over predict calls of 1 and of 8 utterances,
-           the device's busy share of the wall time (torch.profiler), and the
-           f32 rate of the blocks 2-3 convolutions.
+1. build       compile every CUDA kernel from sept_tpu_torch/csrc (one nvcc
+               per source, all at once).
+2. serve       a full-width Conv2dBiRNN (hidden 64, 128 mels, win 200, shift
+               50, n_fft 800, emotion head) from seeded random weights, served
+               through a CloakedPredictor (seeded noise, 40-percentile mask)
+               by a PredictionServer on 127.0.0.1: 8 float utterances of
+               2.5-6 s, a pcm16 batch, a /stream session, then 6 concurrent
+               pcm16 requests under micro-batching.  Probabilities finite,
+               summing to 1, /metrics counters matching the requests.
+3. cpu         the same requests answered on the CPU: probabilities within 1e-4.
+4. train-ingest device_ingest of 64 seeded utterances of 2.5-6 s, 4 speakers
+               (mel kernel, per-speaker z-norm, windows).
+5. train       one epoch of 4 batches of 32 of each workload at full width,
+               dropout 0.2: baseline (make_epoch_runner, K1-K4, no K5), plain
+               cloak on a frozen backbone (make_cloak_epoch_runner, K1-K3 and
+               K5, no K4), cloak + GRL with the antithetic pair (K1-K5).
+               Losses finite; frozen backbones bit-unchanged; the GRU's
+               bias_hh r/z rows still 0.
+6. train-cpu   3 steps of each step function on the card and on the CPU
+               (plain versions), dropout 0, one injected epsilon, lr 1e-2, 4
+               windows a batch: losses within 1e-4 relative, parameters and
+               running statistics within 1e-4 * max(|p|, 1).
+7. kernels     each kernel against its plain version on the tensors the main
+               path gives it (mel 1e-3 dB; conv output 1e-4 and moments rel
+               1e-5; pooled 1e-4; K3 dy equal, its sums within 1e-5 of the
+               sums of |terms|; K4 and K5 in train and eval BN mode, dW 1e-4
+               and dx 1e-5 of max |plain|, db 1e-4 in eval mode and, in train
+               mode where it is 0 in exact arithmetic, within B*H*W*2^-24 *
+               max |dconv| of 0), then
+               timed with CUDA events beside its plain version, one PyTorch
+               call and its roofline bound; block 1's forward + backward
+               beside autograd through the cuDNN chain; then again at edge
+               shapes (ragged tiles, odd sizes, n_fft 1600).
+8. latency     /predict round trips at 1 and 8 utterances (pcm16), beside the
+               server's device-call time.
+9. profile     device time by kernel over predict calls of 1 and of 8
+               utterances and over 3 baseline and 3 cloak + GRL steps, the
+               device's busy share of the wall time (torch.profiler), and the
+               f32 rate of the blocks 2-3 convolutions when serving.
 
-Output: a ``{"block1_eval": ...}`` line, a ``{"latency_ms": ...}`` line, a
-``{"profile": ...}`` line, the card's ``name, power.limit`` from nvidia-smi,
-a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Progress goes to stderr.
+Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
+...}``, ``{"train": ...}``, ``{"block1_train": ...}`` and
+``{"train_profile": ...}`` lines, the card's ``name, power.limit`` from
+nvidia-smi, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``.  Progress goes to stderr.
 """
 
 import base64
@@ -49,12 +69,19 @@ import numpy as np
 import torch
 
 SEED = 0
+DEV = "cuda"  # the card every phase runs on
 WIN, SHIFT, N_FFT, HOP, N_MELS, HIDDEN = 200, 50, 800, 160, 128, 64
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 TOL = {"mel_db": 1e-3, "block1_conv_stats": 1e-4, "block1_norm_pool": 1e-4}
 MOMENTS_RTOL = 1e-5
 PROBS_ATOL = 1e-4
+# training slice: 64 utterances of 4 speakers, epochs of 4 batches of 32
+N_TRAIN, N_SPK, T_BATCH, T_BATCHES, CPU_BATCH = 64, 4, 32, 4, 4
+# K3 dy equal to its plain version; dW, db and dx of max |plain|
+TRAIN_TOL = {"block1_route": 0.0, "block1_weight_grads": 1e-4, "block1_input_grad": 1e-5}
+SUMS_RTOL = 1e-5   # K3's per-channel sums, of the sum of |terms|
+TRAIN_RTOL = 1e-4  # GPU vs CPU training: losses relative, parameters of max(|p|, 1)
 
 
 def log(msg):
@@ -330,7 +357,9 @@ def kernel_phase(predictor, floats, launches):
         for name, src, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
             kernels.append({
                 "name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": err[name],
+                "launches": sum(p[name] for p in launches.values()),
+                "launches_by_path": {k: p[name] for k, p in launches.items()},
+                "max_abs_err": err[name],
                 "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None if lib is None else cuda_ms(lib),
             })
@@ -423,6 +452,27 @@ def conv23_gflop(predictor, waves):
     return total / 1e9
 
 
+def profile_rows(prof, reps):
+    """(device rows, host rows) of a trace as (name, ms per rep, count per
+    rep), largest first: device activities (kernels, copies) only, since an
+    operator's own device time repeats its kernels', and no annotations."""
+    rows, host = [], []
+    for evt in prof.key_averages():
+        # ranges such as "Optimizer.step#SGD.step" are annotations over the
+        # device timeline, not activities: their time repeats the kernels'
+        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
+            continue
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", 0)
+            if us > 0:
+                rows.append((evt.key, us / 1e3 / reps, evt.count // reps))
+        elif evt.self_cpu_time_total > 0:
+            host.append((evt.key, evt.self_cpu_time_total / 1e3 / reps, evt.count // reps))
+    rows.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
+    return rows, host
+
+
 def profile_phase(predictor, rng, n=8, reps=3):
     """Device time by kernel over ``reps`` predict calls of ``n`` 4 s pcm16
     utterances, the device's busy share of the wall time, and the rate of
@@ -437,18 +487,7 @@ def profile_phase(predictor, rng, n=8, reps=3):
         for _ in range(reps):
             predictor.predict(waves, seed=1)
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows, host = [], []
-    for evt in prof.key_averages():
-        # device activities only (kernels, copies): an operator's own device
-        # time repeats its kernels'
-        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", 0)
-            if us > 0:
-                rows.append((evt.key, us / 1e3 / reps, evt.count // reps))
-        elif evt.self_cpu_time_total > 0:
-            host.append((evt.key, evt.self_cpu_time_total / 1e3 / reps, evt.count // reps))
-    rows.sort(key=lambda r: -r[1])
-    host.sort(key=lambda r: -r[1])
+    rows, host = profile_rows(prof, reps)
     busy = sum(r[1] for r in rows)
     # cuDNN's forward convolution kernels (xmma_fprop / implicit_convolve)
     conv_ms = sum(r[1] for r in rows if re.search(r"fprop|convolve", r[0]))
@@ -463,6 +502,458 @@ def profile_phase(predictor, rng, n=8, reps=3):
             "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:12]],
             "host_top": [{"op": k[:60], "self_cpu_ms": ms, "calls": c}
                          for k, ms, c in host[:10]]}
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by kernel name."""
+    from sept_tpu_torch.ops import conv_block1 as K
+    from sept_tpu_torch.ops import mel as M
+
+    return {"mel_db": M.mel_db, "block1_conv_stats": K.block1_conv_stats,
+            "block1_norm_pool": K.block1_norm_pool, "block1_route": K.block1_route,
+            "block1_weight_grads": K.block1_weight_grads,
+            "block1_input_grad": K.block1_input_grad}
+
+
+def drive(fn, must, must_not=()):
+    """Run one main path with every launch count set to 0 just before and
+    read just after: (result, launches, wall ms).  Each kernel in ``must``
+    has to have launched, none in ``must_not``."""
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: f.launches for name, f in counters.items()}
+    for name in must:
+        require(launches[name] > 0, f"kernel {name} never launched on this path: {launches}")
+    for name in must_not:
+        require(launches[name] == 0, f"kernel {name} launched on this path: {launches}")
+    return out, launches, ms
+
+
+def train_ingest_phase(rng):
+    """device_ingest of N_TRAIN seeded utterances of 2.5-6 s, N_SPK speakers."""
+    from sept_tpu_torch.data.device_pipeline import device_ingest
+
+    waves = [speechlike(rng, int(rng.uniform(2.5, 6.0) * 16000)) for _ in range(N_TRAIN)]
+    spk = np.arange(N_TRAIN) % N_SPK
+    le, lg = rng.integers(0, 4, N_TRAIN), spk % 2
+    ds, launches, ms = drive(lambda: device_ingest(
+        waves, spk, le, lg, n_fft=N_FFT, n_mels=N_MELS, win_len=WIN, shift_len=SHIFT,
+        device=DEV), must=("mel_db",))
+    require(ds.windows.shape[1:] == (WIN, N_MELS) and ds.windows.device.type == DEV,
+            "ingest shape or device")
+    require(bool(torch.isfinite(ds.windows).all()), "non-finite training windows")
+    n_real = int((ds.weight > 0).sum())
+    require(n_real >= T_BATCH * T_BATCHES, f"only {n_real} real windows")
+    return ds, launches, {"utterances": N_TRAIN, "speakers": N_SPK,
+                          "windows": list(ds.windows.shape), "real_windows": n_real,
+                          "wall_ms": ms}
+
+
+def train_weights():
+    """Seeded state_dicts of the emotion backbone (the serving weights) and a
+    gender backbone."""
+    from sept_tpu_torch.models import Conv2dBiRNN
+
+    torch.manual_seed(SEED + 2)
+    gender = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred="gender")
+    return build_weights()[0], gender.state_dict()
+
+
+def backbone(sd, pred="emotion", dropout=0.2):
+    from sept_tpu_torch.models import Conv2dBiRNN
+
+    m = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred=pred, dropout_rate=dropout)
+    m.load_state_dict(sd)
+    return m
+
+
+def snapshot(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def unchanged(module, before):
+    return all(torch.equal(v, before[k]) for k, v in module.state_dict().items())
+
+
+def rz_rows_zero(module):
+    return all(bool((p[:2 * HIDDEN] == 0).all()) for n, p in module.rnn.named_parameters()
+               if n.startswith("bias_hh"))
+
+
+def train_states(sds, device, dropout=0.2, lr=None, antithetic=True):
+    """(name, state, step factory args) of the three workloads, presets
+    baseline / cloak / cloak_grl, on ``device``."""
+    from sept_tpu_torch.models import CloakedModel, CloakedModelGRL
+    from sept_tpu_torch.train.config import preset
+    from sept_tpu_torch.train.optim import make_cloak_optimizer, make_optimizer
+    from sept_tpu_torch.train.steps import init_state
+
+    emo_sd, gen_sd = sds
+    over = {} if lr is None else {"learning_rate": lr}
+    cfg = preset("baseline", **over)
+    m = backbone(emo_sd, dropout=dropout)
+    base = init_state(m, make_optimizer(cfg, T_BATCHES, m), SEED, device)
+    cfg = preset("cloak", **over)
+    m = CloakedModel(backbone(emo_sd, dropout=dropout), WIN, N_MELS, cfg.noise_min_scale,
+                     cfg.noise_max_scale)
+    cloak = init_state(m, make_cloak_optimizer(cfg, T_BATCHES, m, ("noise",)), SEED + 1, device)
+    cloak_kw = {"scale_lambda": cfg.scale_lambda}
+    cfg = preset("cloak_grl", antithetic_noise=antithetic, **over)
+    m = CloakedModelGRL(backbone(emo_sd, dropout=dropout),
+                        backbone(gen_sd, "gender", dropout=dropout), cfg.grl_lambda, WIN,
+                        N_MELS, cfg.noise_min_scale, cfg.noise_max_scale)
+    grl = init_state(m, make_cloak_optimizer(cfg, T_BATCHES, m, ("noise", "gender_backbone")),
+                     SEED + 2, device)
+    grl_kw = {"scale_lambda": cfg.scale_lambda, "gender_lambda": cfg.gender_lambda,
+              "antithetic": cfg.antithetic_noise}
+    return base, (cloak, cloak_kw), (grl, grl_kw)
+
+
+def train_phase(ds, sds):
+    """One epoch of T_BATCHES batches of each workload through its epoch
+    runner, full width; returns (per-path info, per-path launches, order)."""
+    from sept_tpu_torch.train.steps import make_cloak_epoch_runner, make_epoch_runner
+
+    valid = torch.nonzero(ds.weight > 0)[:, 0]
+    g = torch.Generator(device=valid.device).manual_seed(SEED)
+    order = valid[torch.randperm(len(valid), generator=g, device=valid.device)]
+    order = order[:T_BATCH * T_BATCHES]
+    base, (cloak, cloak_kw), (grl, grl_kw) = train_states(sds, DEV)
+    kw = {"n_batches": T_BATCHES, "batch_size": T_BATCH}
+    info, launches = {}, {}
+
+    def summary(name, out, ms):
+        _, losses, correct, counts = out
+        losses = losses.cpu().numpy()
+        require(np.isfinite(losses).all(), f"{name}: non-finite losses {losses}")
+        require(int(counts.sum()) == T_BATCH * T_BATCHES, f"{name}: counts {counts}")
+        info[name] = {"losses": losses.tolist(), "correct": int(correct.sum()),
+                      "epoch_wall_ms": ms}
+
+    out, launches["train_baseline"], ms = drive(
+        lambda: make_epoch_runner()(base, ds.windows, ds.labels_emo, ds.weight, order, **kw),
+        must=("block1_conv_stats", "block1_norm_pool", "block1_route",
+              "block1_weight_grads"), must_not=("block1_input_grad",))
+    summary("baseline", out, ms)
+    require(rz_rows_zero(base.model), "baseline: bias_hh r/z rows moved")
+
+    frozen = snapshot(cloak.model.backbone)
+    locs = cloak.model.noise.locs.detach().clone()
+    out, launches["train_cloak"], ms = drive(
+        lambda: make_cloak_epoch_runner(**cloak_kw)(
+            cloak, ds.windows, ds.labels_emo, ds.labels_gen, ds.weight, order, None, **kw),
+        must=("block1_conv_stats", "block1_norm_pool", "block1_route", "block1_input_grad"),
+        must_not=("block1_weight_grads",))
+    summary("cloak", out, ms)
+    require(unchanged(cloak.model.backbone, frozen), "cloak: the frozen backbone moved")
+    require(not torch.equal(cloak.model.noise.locs, locs), "cloak: the noise did not train")
+
+    frozen = snapshot(grl.model.emotion_backbone)
+    gen_before = snapshot(grl.model.gender_backbone)
+    out, launches["train_cloak_grl"], ms = drive(
+        lambda: make_cloak_epoch_runner(grl=True, **grl_kw)(
+            grl, ds.windows, ds.labels_emo, ds.labels_gen, ds.weight, order, None, **kw),
+        must=("block1_conv_stats", "block1_norm_pool", "block1_route",
+              "block1_weight_grads", "block1_input_grad"))
+    summary("cloak_grl", out, ms)
+    require(unchanged(grl.model.emotion_backbone, frozen), "grl: the emotion backbone moved")
+    require(not unchanged(grl.model.gender_backbone, gen_before), "grl: the adversary is still")
+    require(rz_rows_zero(grl.model.gender_backbone), "grl: bias_hh r/z rows moved")
+    info["batch"], info["batches"] = T_BATCH, T_BATCHES
+    return info, launches, order
+
+
+def train_cpu_phase(ds, order, sds):
+    """Three steps of each step function on the card and on the CPU (plain
+    versions) from the same weights on the same CPU_BATCH windows, dropout 0,
+    one injected epsilon: losses within TRAIN_RTOL relative, every parameter
+    and running statistic within TRAIN_RTOL * max(|p|, 1).  cuDNN's
+    algorithm choice is pinned (deterministic, no autotuning) for this phase,
+    so the GPU side gives the same numbers from run to run."""
+    from sept_tpu_torch.train.steps import (make_baseline_step, make_cloak_grl_step,
+                                            make_cloak_step)
+
+    data = {k: v.cpu() for k, v in ds.batch(order[:3 * CPU_BATCH]).items()}
+    eps = torch.from_numpy((0.1 * np.random.default_rng(SEED + 5).standard_normal(
+        (1, WIN, N_MELS))).astype(np.float32))
+    runs = {}
+    cudnn = torch.backends.cudnn
+    pinned = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for dev in (DEV, "cpu"):
+            base, (cloak, cloak_kw), (grl, grl_kw) = train_states(sds, dev, dropout=0.0,
+                                                                  lr=1e-2)
+            steps = {"baseline": (base, make_baseline_step(), False),
+                     "cloak": (cloak, make_cloak_step(**cloak_kw), True),
+                     "cloak_grl": (grl, make_cloak_grl_step(**grl_kw), True)}
+            for name, (state, step, cloaked) in steps.items():
+                losses = []
+                for i in range(3):
+                    batch = {k: v[i * CPU_BATCH:(i + 1) * CPU_BATCH].to(dev)
+                             for k, v in data.items()}
+                    args = {"eps": eps.to(dev)} if cloaked else {}
+                    losses.append(float(step(state, batch, **args)[1]["loss"]))
+                runs.setdefault(name, {})[dev] = (np.asarray(losses), snapshot(state.model))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = pinned
+    out = {}
+    for name, r in runs.items():
+        (lg, sg), (lc, sc) = r[DEV], r["cpu"]
+        loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+        param = max(float((sg[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1.0)
+                    for k, v in sc.items() if v.is_floating_point())
+        log(f"train-cpu {name}: losses {lc.tolist()}, max rel loss diff {loss_rel:.3g}, "
+            f"max param diff {param:.3g} of max(|p|, 1)")
+        require(loss_rel <= TRAIN_RTOL and param <= TRAIN_RTOL,
+                f"{name}: GPU and CPU training disagree ({loss_rel}, {param})")
+        out[name] = {"losses_cpu": lc.tolist(), "max_rel_loss_diff": loss_rel,
+                     "max_param_diff_of_max_abs": param}
+    out["batch"], out["steps"], out["learning_rate"] = CPU_BATCH, 3, 1e-2
+    return out
+
+
+def capture_block1(ds, order, sds):
+    """Block 1's inputs, parameters, moments and pooled cotangent in one
+    baseline step on the first T_BATCH windows of ``order``."""
+    import sept_tpu_torch.models.backbone as BB
+    from sept_tpu_torch.train.steps import make_baseline_step
+
+    base, _, _ = train_states(sds, DEV)
+    cap, orig = {}, BB.block1_train_forward
+
+    def spy(x, w, b, gamma, beta, eps):
+        pooled, mean, var = orig(x, w, b, gamma, beta, eps)
+        cap.update({k: t.detach().clone() for k, t in
+                    dict(x=x, w=w, b=b, gamma=gamma, beta=beta, mean=mean, var=var).items()})
+        cap["eps"] = eps
+        pooled.register_hook(lambda g: cap.update(d_pooled=g.detach().contiguous()))
+        return pooled, mean, var
+
+    BB.block1_train_forward = spy
+    try:
+        make_baseline_step()(base, ds.batch(order[:T_BATCH]))
+    finally:
+        BB.block1_train_forward = orig
+    torch.cuda.synchronize()
+    return cap
+
+
+def backward_inputs(cap):
+    """conv_out (K1) and the per-channel vectors the backward derives."""
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    conv_out, _ = K.block1_conv_stats(cap["x"], cap["w"], cap["b"])
+    ga, shift = K.fold_bn(cap["gamma"], cap["beta"], cap["mean"], cap["var"], cap["eps"])
+    inv = torch.rsqrt(cap["var"] + cap["eps"])
+    return conv_out, ga, shift, inv
+
+
+def check_backward(x, w, conv_out, dp, ga, shift, mean, inv):
+    """K3-K5 on these tensors against their plain versions: (relative
+    errors, absolute errors, the plain train-mode (dy, m1, m2)).  dy must be
+    equal and the K3 sums within SUMS_RTOL of the sums of |terms|.  K4 and
+    K5 run in both modes: train (m1 = mean dy, m2 = mean dy * xhat) and eval
+    (m1 = m2 = 0, the frozen backbone's).  dW, and dx, within TRAIN_TOL of
+    max |plain| in both; db within TRAIN_TOL of max |plain| in eval mode.  In
+    train mode db is 0 in exact arithmetic (the bias sits ahead of
+    batch-stat BN), so there both sides are held to that zero within
+    B * H * W * 2^-24 * max |dconv|, one f32 rounding unit a term."""
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    dy_k, s_k = K.block1_route(conv_out, dp, ga, shift, mean, inv)
+    dy_p, s_p = K.block1_route_plain(conv_out, dp, ga, shift, mean, inv)
+    xhat = (conv_out - mean[None, :, None, None]) * inv[None, :, None, None]
+    scale = torch.stack([dy_p.abs().sum((0, 2, 3)), (dy_p * xhat).abs().sum((0, 2, 3))])
+    n = conv_out.shape[0] * conv_out.shape[2] * conv_out.shape[3]
+    m1, m2 = s_p[0] / n, s_p[1] / n
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)  # noqa: E731
+    err = {"block1_route": float((dy_k - dy_p).abs().max()),
+           "block1_route_sums_rel": float(((s_k - s_p).abs() / scale.clamp(min=1e-30)).max()),
+           "block1_weight_grads": 0.0, "block1_input_grad": 0.0}
+    abs_err = {"block1_route": err["block1_route"], "block1_weight_grads": 0.0,
+               "block1_input_grad": 0.0}
+    zero = torch.zeros_like(m1)
+    for mode, a1, a2 in (("train", m1, m2), ("eval", zero, zero)):
+        dw_k, db_k = K.block1_weight_grads(x, conv_out, dy_p, ga, mean, inv, a1, a2)
+        dw_p, db_p = K.block1_weight_grads_plain(x, conv_out, dy_p, ga, mean, inv, a1, a2)
+        dx_k = K.block1_input_grad(conv_out, dy_p, w, ga, mean, inv, a1, a2)
+        dx_p = K.block1_input_grad_plain(conv_out, dy_p, w, ga, mean, inv, a1, a2)
+        err["block1_weight_grads"] = max(err["block1_weight_grads"], rel(dw_k, dw_p))
+        err["block1_input_grad"] = max(err["block1_input_grad"], rel(dx_k, dx_p))
+        abs_err["block1_weight_grads"] = max(abs_err["block1_weight_grads"],
+                                             float((dw_k - dw_p).abs().max()))
+        abs_err["block1_input_grad"] = max(abs_err["block1_input_grad"],
+                                           float((dx_k - dx_p).abs().max()))
+        if mode == "eval":
+            err["block1_weight_grads"] = max(err["block1_weight_grads"], rel(db_k, db_p))
+            abs_err["block1_weight_grads"] = max(abs_err["block1_weight_grads"],
+                                                 float((db_k - db_p).abs().max()))
+        else:
+            dconv = K._dconv(conv_out, dy_p, ga, mean, inv, a1, a2)
+            zero_bound = n * 2.0 ** -24 * float(dconv.abs().max())
+            err["train_db_of_zero_bound"] = max(float(db_k.abs().max()),
+                                                float(db_p.abs().max())) / zero_bound
+    torch.cuda.synchronize()
+    require(err["block1_route_sums_rel"] <= SUMS_RTOL, f"K3 sums disagree: {err}")
+    require(err["train_db_of_zero_bound"] <= 1.0, f"train-mode db is not 0: {err}")
+    for name, tol in TRAIN_TOL.items():
+        require(err[name] <= tol, f"{name} disagrees with its plain version: {err}")
+    return err, abs_err, (dy_p, m1, m2)
+
+
+def train_kernel_phase(cap, launches):
+    """K3-K5 against their plain versions on the baseline step's own block-1
+    tensors, then timed beside the plain version, one PyTorch call and the
+    bound; and block 1's forward + backward against autograd through the
+    cuDNN chain."""
+    import torch.nn.functional as tf
+
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    x, w = cap["x"], cap["w"]
+    mean, dp = cap["mean"], cap["d_pooled"]
+    conv_out, ga, shift, inv = backward_inputs(cap)
+    err, abs_err, (dy, m1, m2) = check_backward(x, w, conv_out, dp, ga, shift, mean, inv)
+    log(f"K3-K5 on the baseline step's tensors: {err}")
+    dconv = K._dconv(conv_out, dy, ga, mean, inv, m1, m2)
+    z = torch.relu(conv_out * ga[None, :, None, None] + shift[None, :, None, None])
+    _, idx = tf.max_pool2d(z, 2, 2, return_indices=True)
+    b, c, h, wd = conv_out.shape
+    outs, pix = b * c * h * wd, b * h * wd
+    # least work: K3 reads y and the pooled cotangent, writes dy (affine,
+    # max, mask, xhat and two sums an element); K4 reads x, y, dy (dconv and
+    # 25 taps + bias an element); K5 reads y, dy, writes dx
+    rows = [
+        ("block1_route", "sept_tpu/ops/pallas_conv.py:166",
+         lambda: K.block1_route(conv_out, dp, ga, shift, mean, inv),
+         lambda: K.block1_route_plain(conv_out, dp, ga, shift, mean, inv),
+         lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+             dp, z, [2, 2], [2, 2], [0, 0], [1, 1], False, idx),
+         bound(9.0 * outs, 4.0 * (2 * outs + outs // 4 + 4 * c + 2 * c))),
+        ("block1_weight_grads", "sept_tpu/ops/pallas_conv.py:231",
+         lambda: K.block1_weight_grads(x, conv_out, dy, ga, mean, inv, m1, m2),
+         lambda: K.block1_weight_grads_plain(x, conv_out, dy, ga, mean, inv, m1, m2),
+         lambda: torch.nn.grad.conv2d_weight(x, tuple(w.shape), dconv, padding=2),
+         bound(outs * (5 + 2 * 25 + 1), 4.0 * (pix + 2 * outs + 5 * c + 26 * c))),
+        ("block1_input_grad", "sept_tpu/ops/pallas_conv.py:269",
+         lambda: K.block1_input_grad(conv_out, dy, w, ga, mean, inv, m1, m2),
+         lambda: K.block1_input_grad_plain(conv_out, dy, w, ga, mean, inv, m1, m2),
+         lambda: torch.nn.grad.conv2d_input(tuple(x.shape), w, dconv, padding=2),
+         bound(outs * (5 + 2 * 25), 4.0 * (2 * outs + 25 * c + 5 * c + pix))),
+    ]
+    kernels = []
+    for name, replaces, kern, plain, lib, (bound_ms, bound_by) in rows:
+        kernels.append({
+            "name": name, "route": "cuda", "source": "sept_tpu_torch/csrc/conv_block1.cu",
+            "replaces": replaces, "launches": sum(p[name] for p in launches.values()),
+            "launches_by_path": {k: p[name] for k, p in launches.items()},
+            "max_abs_err": abs_err[name], "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib)})
+    kernels[0]["library"] = "max_pool2d_with_indices_backward (no ReLU mask, no sums)"
+    kernels[0]["sums_max_rel_err_of_abs_sum"] = err["block1_route_sums_rel"]
+    kernels[1]["library"] = "torch.nn.grad.conv2d_weight (cuDNN wgrad, dconv given)"
+    kernels[1]["max_rel_err_of_max_abs"] = err["block1_weight_grads"]
+    kernels[2]["library"] = "torch.nn.grad.conv2d_input (cuDNN dgrad, dconv given)"
+    kernels[2]["max_rel_err_of_max_abs"] = err["block1_input_grad"]
+
+    leaves = [cap[k].clone().requires_grad_() for k in ("x", "w", "b", "gamma", "beta")]
+    eps = cap["eps"]
+
+    def kernels_fb():
+        pooled = K.Block1Train.apply(*leaves, eps)[0]
+        return torch.autograd.grad(pooled, leaves, dp)
+
+    def cudnn_fb():
+        y = tf.conv2d(leaves[0], leaves[1], leaves[2], padding=2)
+        y = tf.batch_norm(y, None, None, leaves[3], leaves[4], training=True, eps=eps)
+        return torch.autograd.grad(tf.max_pool2d(torch.relu(y), 2), leaves, dp)
+
+    diffs = {n: float((a - r).abs().max()) for n, a, r in
+             zip(("dx", "dW", "db", "dgamma", "dbeta"), kernels_fb(), cudnn_fb())}
+    block1_train = {"shape": list(x.shape), "kernels_fwd_bwd_ms": cuda_ms(kernels_fb),
+                    "cudnn_chain_fwd_bwd_ms": cuda_ms(cudnn_fb),
+                    "cudnn_chain_max_abs_diff": diffs,
+                    "note": "db is 0 in exact arithmetic (bias ahead of batch-stat BN)"}
+    return kernels, block1_train
+
+
+def train_edge_phase(device):
+    """K3-K5 against their plain versions at odd and ragged shapes."""
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    worst = {}
+    for b, h, w in ((1, 37, 29), (3, 64, 33)):
+        x = torch.randn(b, 1, h, w, device=device, generator=g)
+        wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
+        y, sums = K.block1_conv_stats_plain(x, wt, 0.1 * torch.randn(32, device=device,
+                                                                      generator=g))
+        n = b * h * w
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        gamma = 1 + 0.1 * torch.randn(32, device=device, generator=g)
+        beta = 0.1 * torch.randn(32, device=device, generator=g)
+        ga, shift = K.fold_bn(gamma, beta, mean, var)
+        dp = torch.randn(b, 32, h // 2, w // 2, device=device, generator=g)
+        inv = torch.rsqrt(var + K.EPS)
+        err, _, (dy, m1, m2) = check_backward(x, wt, y, dp, ga, shift, mean, inv)
+        # dW of the kernel and of cuDNN's f32 wgrad (the library yardstick)
+        # against the plain version in float64
+        f64 = [t.double() for t in (x, y, dy, ga, mean, inv, m1, m2)]
+        ref = K.block1_weight_grads_plain(*f64)[0]
+        dconv = K._dconv(y, dy, ga, mean, inv, m1, m2)
+        for key, got in (
+                ("kernel_wgrad_rel_err_f64",
+                 K.block1_weight_grads(x, y, dy, ga, mean, inv, m1, m2)[0]),
+                ("library_wgrad_rel_err_f64",
+                 torch.nn.grad.conv2d_weight(x, tuple(wt.shape), dconv, padding=2))):
+            err[key] = float((got.double() - ref).abs().max() / ref.abs().max())
+        for k, v in err.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    return worst
+
+
+def train_profile_phase(ds, order, sds, reps=3):
+    """torch.profiler over ``reps`` baseline steps and ``reps`` cloak + GRL
+    steps (antithetic) after a warm step of each, batch T_BATCH."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sept_tpu_torch.train.steps import make_baseline_step, make_cloak_grl_step
+
+    base, _, (grl, grl_kw) = train_states(sds, DEV)
+    batches = [ds.batch(order[i * T_BATCH:(i + 1) * T_BATCH]) for i in range(reps + 1)]
+    out = {}
+    for name, state, step in (("baseline", base, make_baseline_step()),
+                              ("cloak_grl", grl, make_cloak_grl_step(**grl_kw))):
+        step(state, batches[0])  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches[1:]:
+                step(state, b)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        rows, host = profile_rows(prof, reps)
+        busy = sum(r[1] for r in rows)
+        out[name] = {
+            "batch": T_BATCH, "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy if rows else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if rows else "not measured",
+            "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:14]],
+            "host_top": [{"op": k[:60], "self_cpu_ms": ms, "calls": c}
+                         for k, ms, c in host[:10]]}
+    return out
 
 
 def ptxas_summary(reports):
@@ -484,7 +975,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
               "CUDA GPU", file=sys.stderr)
         return 1
-    from sept_tpu_torch.ops import conv_block1, cuda_lib, mel
+    from sept_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
     log(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
@@ -497,17 +988,12 @@ def main():
     weights = build_weights()
     gpu = make_predictor(weights, "cuda")
     reqs = make_requests(np.random.default_rng(SEED))
-
-    counters = {"mel_db": mel.mel_db, "block1_conv_stats": conv_block1.block1_conv_stats,
-                "block1_norm_pool": conv_block1.block1_norm_pool}
-    for fn in counters.values():
-        fn.launches = 0
-    answers = serve_phase(gpu, reqs)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"served; kernel launches on the main path: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched on the main path")
+    backward = ("block1_route", "block1_weight_grads", "block1_input_grad")
+    answers, serve_launches, _ = drive(
+        lambda: serve_phase(gpu, reqs), must=("mel_db", "block1_conv_stats", "block1_norm_pool"),
+        must_not=backward)
+    paths = {"serve": serve_launches}
+    log(f"served; kernel launches on the serving path: {serve_launches}")
 
     cpu = make_predictor(weights, "cpu")
     ref = reference_answers(cpu, reqs)
@@ -517,13 +1003,26 @@ def main():
         require(diff <= PROBS_ATOL, f"{key}: GPU answers differ from the CPU port by {diff}")
     log(f"cpu reference done at {time.perf_counter() - t0:.1f} s")
 
-    kernels, block1, shapes = kernel_phase(gpu, reqs[0], launches)
+    ds, paths["train_ingest"], ingest = train_ingest_phase(np.random.default_rng(SEED + 11))
+    sds = train_weights()
+    epochs, train_launches, order = train_phase(ds, sds)
+    paths.update(train_launches)
+    log(f"training epochs done at {time.perf_counter() - t0:.1f} s: {epochs}; "
+        f"launches {train_launches}")
+    train_cpu = train_cpu_phase(ds, order, sds)
+    log(f"train-cpu done at {time.perf_counter() - t0:.1f} s")
+
+    kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
+    train_kernels, block1_train = train_kernel_phase(capture_block1(ds, order, sds), paths)
+    kernels += train_kernels
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s; shapes {shapes}")
     edges = edge_phase(gpu.device)
-    log(f"edge-shape checks: max |kernel - plain| {edges}")
+    edges.update(train_edge_phase(gpu.device))
+    log(f"edge-shape checks: {edges}")
     latency = latency_phase(gpu, np.random.default_rng(SEED + 7))
     log(f"latency done at {time.perf_counter() - t0:.1f} s")
     prof = {str(n): profile_phase(gpu, np.random.default_rng(SEED + 8), n=n) for n in (1, 8)}
+    train_prof = train_profile_phase(ds, order, sds)
     log(f"profile done at {time.perf_counter() - t0:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -532,12 +1031,17 @@ def main():
     print(json.dumps({"block1_eval": block1}))
     print(json.dumps({"latency_ms": latency}))
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"train": {"ingest": ingest, "epochs": epochs, "train_cpu": train_cpu,
+                                "edge_errors": edges, "launches_by_path": paths}}))
+    print(json.dumps({"block1_train": block1_train}))
+    print(json.dumps({"train_profile": train_prof}))
     print(smi)
     # last but one, so the end of the output always holds it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+    log(f"done in {time.perf_counter() - t0:.1f} s")
     return 0
 
 

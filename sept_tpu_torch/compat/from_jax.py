@@ -17,7 +17,10 @@ Takes the JAX package's trees as nested dicts of numpy arrays (``params``,
 - Dense kernels (in, out) -> Linear weights (out, in).
 
 Only the tensors the port's modules declare are emitted: the reference's
-dead ``dense2`` / ``att_mat*`` and unused heads are not.
+dead ``dense2`` / ``att_mat*`` and unused heads are not.  The cloaked
+models' trees (``CloakedModel``: ``noise``, ``backbone``;
+``CloakedModelGRL``: ``noise``, ``emotion_backbone``, ``gender_backbone``)
+map submodule by submodule.
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["backbone_state_dict", "cloak_noise_state_dict"]
+__all__ = ["backbone_state_dict", "cloak_noise_state_dict", "cloaked_state_dict",
+           "cloaked_grl_state_dict"]
 
 _CONV_IDX = (0, 5, 10)
 _BN_IDX = (1, 6, 11)
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(a, order="C", copy=True))  # owned, writable
 
 
 def _gru_direction(cell: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -89,3 +93,25 @@ def cloak_noise_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``CloakNoise`` params {locs, rhos} (win, feats) -> the port's
     state_dict, with the reference's leading broadcast dim (1, win, feats)."""
     return {k: _t(np.asarray(params[k], np.float32)[None]) for k in ("locs", "rhos")}
+
+
+def _cloaked(params, batch_stats, backbones) -> Dict[str, torch.Tensor]:
+    sd = {f"noise.{k}": v for k, v in cloak_noise_state_dict(params["noise"]).items()}
+    for name in backbones:
+        sd.update({f"{name}.{k}": v for k, v in
+                   backbone_state_dict(params[name], batch_stats[name]).items()})
+    return sd
+
+
+def cloaked_state_dict(params: Dict[str, Any],
+                       batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CloakedModel`` (params, batch_stats) -> the port's
+    ``CloakedModel`` state_dict."""
+    return _cloaked(params, batch_stats, ("backbone",))
+
+
+def cloaked_grl_state_dict(params: Dict[str, Any],
+                           batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CloakedModelGRL`` (params, batch_stats) -> the port's
+    ``CloakedModelGRL`` state_dict."""
+    return _cloaked(params, batch_stats, ("emotion_backbone", "gender_backbone"))

@@ -1,16 +1,19 @@
-"""PyTorch models of the port: Conv2dBiRNN (eval) and the cloak noise layer."""
+"""PyTorch models of the port: Conv2dBiRNN and the cloak (noise layer and the
+cloaked training models)."""
 
 from sept_tpu_torch.models.backbone import (
     NUM_EMO_CLASSES,
     NUM_GENDER_CLASSES,
     Conv2dBiRNN,
 )
-from sept_tpu_torch.models.cloak import CloakNoise
+from sept_tpu_torch.models.cloak import CloakedModel, CloakedModelGRL, CloakNoise
 
 __all__ = [
     "NUM_EMO_CLASSES",
     "NUM_GENDER_CLASSES",
     "CloakNoise",
+    "CloakedModel",
+    "CloakedModelGRL",
     "Conv2dBiRNN",
     "build_backbone",
     "pooling_for",

@@ -1,14 +1,22 @@
-"""First conv block of Conv2dBiRNN, forward: CUDA kernel wrappers and their
-plain versions.
+"""First conv block of Conv2dBiRNN: CUDA kernel wrappers, their plain
+versions, and the block's autograd Functions.
 
-Counterpart of the forward of ``sept_tpu/ops/pallas_conv.py``: K1
+Counterpart of ``sept_tpu/ops/pallas_conv.py``.  Forward: K1
 ``_k1_conv_stats`` is :func:`block1_conv_stats`, K2 ``_k2_norm_pool`` is
-:func:`block1_norm_pool`, and :func:`block1_eval` / :func:`block1_train_forward`
-compose them as ``_fwd_core`` and ``_train_fwd`` do.  Layout is NCHW
-throughout.  Each wrapper launches ``csrc/conv_block1.cu`` for CUDA tensors
-and runs its plain version for CPU tensors; anything else raises.
+:func:`block1_norm_pool`.  Backward: K3 ``_k3_route`` is :func:`block1_route`, K4
+``_k4_grads`` is :func:`block1_weight_grads`, K5 ``_k5_dx`` is
+:func:`block1_input_grad`.  All five are in ``csrc/conv_block1.cu``.
+:class:`Block1Train` and :class:`Block1Eval` have
+the semantics of ``fused_block1_train`` and ``fused_block1_eval``, with
+``_core_bwd`` as their shared backward; :func:`block1_train_forward` and
+:func:`block1_eval` apply them.  Layout is NCHW throughout.  Each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors; anything else raises.
 
-The backward (K3-K5) is not ported yet; these functions carry no autograd.
+The backward launches K4 only when the weight or the bias needs a gradient,
+and K5 only when ``x`` does: a baseline step (x is data) never runs K5, and a
+frozen backbone (cloak) never runs K4, as XLA drops the unused TPU kernels.
+Mean and variance get no gradient.  Sync-BN (``axis_name``) is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +32,14 @@ __all__ = [
     "block1_conv_stats_plain",
     "block1_norm_pool",
     "block1_norm_pool_plain",
+    "block1_route",
+    "block1_route_plain",
+    "block1_weight_grads",
+    "block1_weight_grads_plain",
+    "block1_input_grad",
+    "block1_input_grad_plain",
+    "Block1Train",
+    "Block1Eval",
     "block1_eval",
     "block1_train_forward",
     "fold_bn",
@@ -128,24 +144,254 @@ def block1_norm_pool(conv_out: torch.Tensor, scale: torch.Tensor,
 block1_norm_pool.launches = 0  # kernel launches since the last reset
 
 
+def _col(v):
+    return v[None, :, None, None]
+
+
+def _check_bwd_args(conv_out, *vecs):
+    if conv_out.dim() != 4:
+        raise ValueError(f"conv_out must be (B, C, H, W), got {tuple(conv_out.shape)}")
+    c = conv_out.shape[1]
+    if any(tuple(v.shape) != (c,) for v in vecs):
+        raise ValueError(f"per-channel vectors must be ({c},)")
+
+
+def block1_route_plain(conv_out, d_pooled, scale, shift, mean, inv):
+    """K3's function: route each pooled cotangent to the first maximum of its
+    2x2 window of relu(y * scale + shift) (row-major), zero it where that
+    value is <= 0, and reduce sum(dy) and sum(dy * xhat) per channel with
+    xhat = (y - mean) * inv.  Returns (dy (B, C, H, W), sums (2, C))."""
+    _check_bwd_args(conv_out, scale, shift, mean, inv)
+    b, c, h, w = conv_out.shape
+    ho, wo = h // 2, w // 2
+    bn = conv_out * _col(scale) + _col(shift)  # K2's rounding: no FMA
+    cells = torch.relu(bn)[:, :, :2 * ho, :2 * wo].reshape(b, c, ho, 2, wo, 2)
+    cells = cells.permute(0, 1, 2, 4, 3, 5).reshape(b, c, ho, wo, 4)
+    first = cells.argmax(-1, keepdim=True)  # the first maximum on ties
+    routed = torch.zeros_like(cells).scatter_(-1, first, d_pooled[..., None])
+    dy = torch.zeros_like(conv_out)
+    dy[:, :, :2 * ho, :2 * wo] = routed.reshape(b, c, ho, wo, 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(b, c, 2 * ho, 2 * wo)
+    dy = torch.where(bn > 0, dy, torch.zeros_like(dy))
+    xhat = (conv_out - _col(mean)) * _col(inv)
+    return dy, torch.stack([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+
+
+def block1_route(conv_out: torch.Tensor, d_pooled: torch.Tensor,
+                 scale: torch.Tensor, shift: torch.Tensor, mean: torch.Tensor,
+                 inv: torch.Tensor):
+    """K3: conv output (B, C, H, W) and pooled cotangent (B, C, H//2, W//2)
+    -> (dy (B, C, H, W), sums (2, C)) with sums[0] = sum dy and sums[1] =
+    sum dy * xhat per channel; see :func:`block1_route_plain`."""
+    dev = conv_out.device
+    if dev.type == "cpu":
+        return block1_route_plain(conv_out, d_pooled, scale, shift, mean, inv)
+    _check_bwd_args(conv_out, scale, shift, mean, inv)
+    b, c, h, w = conv_out.shape
+    cuda_lib.require(conv_out, "block1_route conv_out", (b, c, h, w), dev)
+    cuda_lib.require(d_pooled, "block1_route d_pooled", (b, c, h // 2, w // 2), dev)
+    for name, v in (("scale", scale), ("shift", shift), ("mean", mean), ("inv", inv)):
+        cuda_lib.require(v, f"block1_route {name}", (c,), dev)
+    dy = torch.empty_like(conv_out)
+    sums = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    if dy.numel() == 0:
+        return dy, sums
+    lib = cuda_lib.load("conv_block1")
+    scratch = torch.empty(lib.sept_route_scratch_floats(b, c, h, w),
+                          dtype=torch.float32, device=dev)
+    err = lib.sept_route(
+        conv_out.data_ptr(), d_pooled.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), mean.data_ptr(), inv.data_ptr(), dy.data_ptr(),
+        sums.data_ptr(), scratch.data_ptr(), b, c, h, w, cuda_lib.stream_of(dy))
+    cuda_lib.check(lib, err, "block1_route")
+    block1_route.launches += 1
+    return dy, sums
+
+
+block1_route.launches = 0  # kernel launches since the last reset
+
+
+def _dconv(conv_out, dy, ga, mean, inv, m1, m2):
+    """The pre-BN cotangent ga * (dy - m1 - xhat * m2), as ``_dconv``."""
+    xhat = (conv_out - _col(mean)) * _col(inv)
+    return _col(ga) * (dy - _col(m1) - xhat * _col(m2))
+
+
+def block1_weight_grads_plain(x, conv_out, dy, ga, mean, inv, m1, m2):
+    """K4's function: (dW (C, 1, 5, 5), db (C,)) of the conv from the
+    pre-BN cotangent.  dW is one f32 matmul of dconv against the 5 x 5
+    patches of x (cuDNN's f32 weight-gradient algorithms were measured up to
+    1e-3 relative off a float64 reference at ragged widths; see PERF.md)."""
+    _check_bwd_args(conv_out, ga, mean, inv, m1, m2)
+    b, c, h, w = conv_out.shape
+    dconv = _dconv(conv_out, dy, ga, mean, inv, m1, m2)
+    patches = tf.unfold(x, 5, padding=2)  # (B, 25, H*W)
+    dw = torch.einsum("bcp,bkp->ck", dconv.reshape(b, c, h * w), patches)
+    return dw.reshape(c, 1, 5, 5), dconv.sum((0, 2, 3))
+
+
+def block1_weight_grads(x: torch.Tensor, conv_out: torch.Tensor,
+                        dy: torch.Tensor, ga: torch.Tensor, mean: torch.Tensor,
+                        inv: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor):
+    """K4: x (B, 1, H, W), conv output and dy (B, C, H, W), per-channel
+    ga = gamma * inv, mean, inv, m1, m2 -> (dW (C, 1, 5, 5), db (C,)) with
+    dconv = ga * (dy - m1 - (y - mean) * inv * m2)."""
+    dev = conv_out.device
+    if dev.type == "cpu":
+        return block1_weight_grads_plain(x, conv_out, dy, ga, mean, inv, m1, m2)
+    _check_bwd_args(conv_out, ga, mean, inv, m1, m2)
+    b, c, h, w = conv_out.shape
+    cuda_lib.require(x, "block1_weight_grads x", (b, 1, h, w), dev)
+    cuda_lib.require(conv_out, "block1_weight_grads conv_out", (b, c, h, w), dev)
+    cuda_lib.require(dy, "block1_weight_grads dy", (b, c, h, w), dev)
+    for name, v in (("ga", ga), ("mean", mean), ("inv", inv), ("m1", m1), ("m2", m2)):
+        cuda_lib.require(v, f"block1_weight_grads {name}", (c,), dev)
+    lib = cuda_lib.load("conv_block1")
+    smem = lib.sept_weight_grads_smem_bytes(c)
+    if smem > cuda_lib.max_smem_per_block(dev):
+        raise ValueError(f"block1_weight_grads: {c} channels need {smem} bytes "
+                         "of shared memory a block, above the card's limit")
+    grads = torch.zeros(c * 26, dtype=torch.float32, device=dev)  # dW, then db
+    dw, db = grads[:c * 25].view(c, 1, 5, 5), grads[c * 25:]
+    if conv_out.numel() == 0:
+        return dw, db
+    scratch = torch.empty(lib.sept_weight_grads_scratch_floats(b, c, h, w),
+                          dtype=torch.float32, device=dev)
+    err = lib.sept_weight_grads(
+        x.data_ptr(), conv_out.data_ptr(), dy.data_ptr(), ga.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+        grads.data_ptr(), scratch.data_ptr(), b, c, h, w, cuda_lib.stream_of(grads))
+    cuda_lib.check(lib, err, "block1_weight_grads")
+    block1_weight_grads.launches += 1
+    return dw, db
+
+
+block1_weight_grads.launches = 0  # kernel launches since the last reset
+
+
+def block1_input_grad_plain(conv_out, dy, weight, ga, mean, inv, m1, m2):
+    """K5's function: dx (B, 1, H, W), the pre-BN cotangent through the
+    transposed conv (SAME borders)."""
+    _check_bwd_args(conv_out, ga, mean, inv, m1, m2)
+    b, _, h, w = conv_out.shape
+    dconv = _dconv(conv_out, dy, ga, mean, inv, m1, m2)
+    return torch.nn.grad.conv2d_input((b, 1, h, w), weight, dconv, padding=2)
+
+
+def block1_input_grad(conv_out: torch.Tensor, dy: torch.Tensor,
+                      weight: torch.Tensor, ga: torch.Tensor, mean: torch.Tensor,
+                      inv: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor):
+    """K5: conv output and dy (B, C, H, W), weight (C, 1, 5, 5), the
+    per-channel vectors of :func:`block1_weight_grads` -> dx (B, 1, H, W)."""
+    dev = conv_out.device
+    if dev.type == "cpu":
+        return block1_input_grad_plain(conv_out, dy, weight, ga, mean, inv, m1, m2)
+    _check_bwd_args(conv_out, ga, mean, inv, m1, m2)
+    b, c, h, w = conv_out.shape
+    cuda_lib.require(conv_out, "block1_input_grad conv_out", (b, c, h, w), dev)
+    cuda_lib.require(dy, "block1_input_grad dy", (b, c, h, w), dev)
+    cuda_lib.require(weight, "block1_input_grad weight", (c, 1, 5, 5), dev)
+    for name, v in (("ga", ga), ("mean", mean), ("inv", inv), ("m1", m1), ("m2", m2)):
+        cuda_lib.require(v, f"block1_input_grad {name}", (c,), dev)
+    lib = cuda_lib.load("conv_block1")
+    smem = lib.sept_input_grad_smem_bytes(c)
+    if smem > cuda_lib.max_smem_per_block(dev):
+        raise ValueError(f"block1_input_grad: {c} channels need {smem} bytes "
+                         "of shared memory a block, above the card's limit")
+    dx = torch.empty((b, 1, h, w), dtype=torch.float32, device=dev)
+    if dx.numel() == 0:
+        return dx
+    err = lib.sept_input_grad(
+        conv_out.data_ptr(), dy.data_ptr(), weight.data_ptr(), ga.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+        dx.data_ptr(), b, c, h, w, cuda_lib.stream_of(dx))
+    cuda_lib.check(lib, err, "block1_input_grad")
+    block1_input_grad.launches += 1
+    return dx
+
+
+block1_input_grad.launches = 0  # kernel launches since the last reset
+
+
 def fold_bn(gamma, beta, mean, var, eps: float = EPS):
     """BatchNorm with the given statistics as one (scale, shift) pair."""
     scale = gamma * torch.rsqrt(var + eps)
     return scale, beta - mean * scale
 
 
+def _batch_moments(sums, n):
+    mean = sums[0] / n
+    return mean, torch.clamp(sums[1] / n - mean * mean, min=0.0)
+
+
+def _core_bwd(ctx, d_pooled, train: bool):
+    """The shared backward: (dx, dW, db, dgamma, dbeta), each None where its
+    input needs no gradient."""
+    x, conv_out, weight, gamma, beta, mean, var = ctx.saved_tensors
+    need_x, need_w, need_b, need_g, need_beta = ctx.needs_input_grad[:5]
+    ga, shift = fold_bn(gamma, beta, mean, var, ctx.eps)  # the forward's K2 pair
+    inv = torch.rsqrt(var + ctx.eps)
+    dy, red = block1_route(conv_out, d_pooled.contiguous(), ga, shift, mean, inv)
+    if train:
+        n = conv_out.shape[0] * conv_out.shape[2] * conv_out.shape[3]
+        m1, m2 = red[0] / n, red[1] / n
+    else:
+        m1 = m2 = torch.zeros_like(mean)
+    dx = dw = db = None
+    if need_w or need_b:
+        dw, db = block1_weight_grads(x, conv_out, dy, ga, mean, inv, m1, m2)
+    if need_x:
+        dx = block1_input_grad(conv_out, dy, weight, ga, mean, inv, m1, m2)
+    return (dx, dw if need_w else None, db if need_b else None,
+            red[1] if need_g else None, red[0] if need_beta else None)
+
+
+class Block1Train(torch.autograd.Function):
+    """Train-mode block (batch-stat BN): (x, weight, bias, gamma, beta, eps)
+    -> (pooled, mean, var), the variance biased, as ``fused_block1_train``.
+    Mean and var are for the running-average update and carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, eps):
+        conv_out, sums = block1_conv_stats(x, weight, bias)
+        mean, var = _batch_moments(sums, conv_out.shape[0] * conv_out.shape[2]
+                                   * conv_out.shape[3])
+        pooled = block1_norm_pool(conv_out, *fold_bn(gamma, beta, mean, var, eps))
+        ctx.save_for_backward(x, conv_out, weight, gamma, beta, mean, var)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return pooled, mean, var
+
+    @staticmethod
+    def backward(ctx, d_pooled, _d_mean, _d_var):
+        return _core_bwd(ctx, d_pooled, train=True) + (None,)
+
+
+class Block1Eval(torch.autograd.Function):
+    """Eval-mode block (BN with the given statistics), differentiable in x,
+    weight, bias, gamma and beta, as ``fused_block1_eval``; mean and var are
+    constants."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, mean, var, eps):
+        conv_out, _ = block1_conv_stats(x, weight, bias)
+        pooled = block1_norm_pool(conv_out, *fold_bn(gamma, beta, mean, var, eps))
+        ctx.save_for_backward(x, conv_out, weight, gamma, beta, mean, var)
+        ctx.eps = eps
+        return pooled
+
+    @staticmethod
+    def backward(ctx, d_pooled):
+        return _core_bwd(ctx, d_pooled, train=False) + (None, None, None)
+
+
 def block1_eval(x, weight, bias, gamma, beta, mean, var, eps: float = EPS):
     """Eval-mode block: conv + BN(running stats) + ReLU + 2x2 max pool,
     (B, 1, H, W) -> (B, C, H//2, W//2)."""
-    conv_out, _ = block1_conv_stats(x, weight, bias)
-    return block1_norm_pool(conv_out, *fold_bn(gamma, beta, mean, var, eps))
+    return Block1Eval.apply(x, weight, bias, gamma, beta, mean, var, eps)
 
 
 def block1_train_forward(x, weight, bias, gamma, beta, eps: float = EPS):
-    """Train-mode forward: BN with the batch's own moments.  Returns
+    """Train-mode block: BN with the batch's own moments.  Returns
     (pooled, mean, var) with the biased variance, as ``_train_fwd``."""
-    conv_out, sums = block1_conv_stats(x, weight, bias)
-    n = conv_out.shape[0] * conv_out.shape[2] * conv_out.shape[3]
-    mean = sums[0] / n
-    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
-    return block1_norm_pool(conv_out, *fold_bn(gamma, beta, mean, var, eps)), mean, var
+    return Block1Train.apply(x, weight, bias, gamma, beta, eps)

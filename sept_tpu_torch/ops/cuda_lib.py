@@ -48,6 +48,13 @@ _SIGNATURES = {
         "sept_conv_stats_scratch_floats": ([_I] * 4, _LL),
         "sept_conv_stats_smem_bytes": ([_I], _LL),
         "sept_norm_pool": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "sept_route": ([_P] * 9 + [_I] * 4 + [_P], _I),
+        "sept_route_scratch_floats": ([_I] * 4, _LL),
+        "sept_weight_grads": ([_P] * 10 + [_I] * 4 + [_P], _I),
+        "sept_weight_grads_scratch_floats": ([_I] * 4, _LL),
+        "sept_weight_grads_smem_bytes": ([_I], _LL),
+        "sept_input_grad": ([_P] * 9 + [_I] * 4 + [_P], _I),
+        "sept_input_grad_smem_bytes": ([_I], _LL),
     },
 }
 

@@ -29,22 +29,11 @@ import numpy as np
 import torch
 
 from sept_tpu_torch.data.prep import HOP, pow2_rows, prepare_waves
+from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.models import CloakNoise, build_backbone, pooling_for
 from sept_tpu_torch.ops.mel import mel_db
 
 __all__ = ["Predictor", "CloakedPredictor", "PredictionServer"]
-
-
-def _resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}")
-    return dev
 
 
 class Predictor:
@@ -65,9 +54,8 @@ class Predictor:
         attention_size: int = 128,
         device="cuda",
     ):
-        self.device = _resolve_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device)
+        f32_precision()
         self.model = build_backbone(model_type, hidden_size=hidden_size,
                                     feature_len=feature_len, pred=pred,
                                     att=att, attention_size=attention_size)

@@ -1,0 +1,272 @@
+"""Train steps and whole-epoch runners of the baseline, cloak and cloak + GRL
+workloads.
+
+Counterpart of ``sept_tpu/train/steps.py``; the function names are the JAX
+package's.  Losses:
+
+- baseline / adversary: per-sample weighted CE over the real rows (padding
+  rows carry weight 0); ``pred="multitask"`` sums the emotion and gender CE;
+- cloak: weighted CE - scale_lambda * log(mean(scales));
+- cloak + GRL: weighted emotion CE + gender_lambda * gender CE (reversed into
+  the noise by the GRL) - scale_lambda * log(mean(scales)), one backward.
+
+Where JAX threads an immutable ``TrainState`` through jitted functions, a
+step here updates ``state.model`` and ``state.optimizer`` in place and
+returns the same state.  Every random draw (dropout masks, cloak epsilon)
+comes from ``state.generator``; a step and an epoch runner also take an
+injected ``eps`` (the tests feed the JAX draw that way).  Metrics stay on the
+device: an epoch runner stacks its per-batch loss, correct and count tensors,
+and the caller reads them once an epoch, as the JAX scan returns them.
+
+Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).
+``saliency_alignment_loss`` (off by default in the JAX package) and the
+88-dim global feature are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from sept_tpu_torch.device import f32_precision, resolve_device
+from sept_tpu_torch.models.backbone import DropoutDraws
+from sept_tpu_torch.train.optim import Optimizer
+
+__all__ = [
+    "TrainState",
+    "init_state",
+    "weighted_nll_sum",
+    "count_real",
+    "weighted_ce",
+    "make_baseline_step",
+    "make_epoch_runner",
+    "make_cloak_step",
+    "make_cloak_grl_step",
+    "make_cloak_epoch_runner",
+    "cloak_scales",
+]
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+
+def init_state(model: nn.Module, optimizer: Optimizer, seed: int = 0,
+               device="cuda") -> TrainState:
+    """Move ``model`` to ``device`` (its parameters keep their identity, so
+    ``optimizer`` stays bound to them) and seed the state's generator."""
+    dev = resolve_device(device)
+    f32_precision()
+    model.to(dev)
+    return TrainState(model, optimizer, torch.Generator(device=dev).manual_seed(seed))
+
+
+def weighted_nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Weighted negative-log-likelihood sum (no normalization)."""
+    nll = -torch.log_softmax(logits, -1).gather(-1, labels.long()[:, None])[:, 0]
+    return (nll * weights).sum()
+
+
+def count_real(weights: torch.Tensor) -> torch.Tensor:
+    """Number of real (non-padding) rows, weights > 0, at least 1."""
+    return torch.clamp((weights > 0).sum().to(torch.float32), min=1.0)
+
+
+def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    """Per-sample weighted CE averaged over the real row count (speaker
+    weights scale the numerator only)."""
+    return weighted_nll_sum(logits, labels, weights) / count_real(weights)
+
+
+def _metrics(logits, labels, weights, loss):
+    """Accuracy counts are unweighted over real rows."""
+    preds = logits.argmax(-1)
+    valid = (weights > 0).to(torch.float32)
+    return {"loss": loss.detach(), "correct": ((preds == labels) * valid).sum(),
+            "count": valid.sum(), "preds": preds}
+
+
+def _apply(state: TrainState, loss: torch.Tensor) -> None:
+    state.optimizer.zero_grad()
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+
+
+def _batches(order, n_batches, batch_size, device):
+    order = torch.as_tensor(order, dtype=torch.long, device=device)
+    for i in range(n_batches):
+        yield order[i * batch_size:(i + 1) * batch_size]
+
+
+def _stack(metrics):
+    return tuple(torch.stack([m[k] for m in metrics]) for k in ("loss", "correct", "count"))
+
+
+def cloak_scales(model: nn.Module) -> torch.Tensor:
+    """Current noise scales of a cloaked model (tanh squash), (1, win, feats)."""
+    return model.noise.scales()
+
+
+def _scale_reg(model, loss, scale_lambda, apply_scale_reg):
+    if apply_scale_reg and scale_lambda:
+        return loss - scale_lambda * torch.log(cloak_scales(model).mean())
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# baseline / adversary / multitask
+
+
+def _baseline_update(state, spec, labels, weights, labels_gen, pooling):
+    model = state.model.train()
+    out = model(spec, pooling=pooling, dropout=DropoutDraws(state.generator))
+    if model.pred == "multitask":
+        out, gen_out = out
+        loss = weighted_ce(out, labels, weights) + weighted_ce(gen_out, labels_gen, weights)
+    else:
+        loss = weighted_ce(out, labels, weights)
+    _apply(state, loss)
+    return _metrics(out.detach(), labels, weights, loss)
+
+
+def make_baseline_step(pooling: Optional[str] = "mean"):
+    """Supervised step for baseline / adversary / multitask training:
+    ``step(state, batch) -> (state, metrics)`` with ``batch`` holding
+    ``spec`` (B, 1, T, D), ``labels_emo``, ``labels_gen`` and ``weight``.
+    pred="multitask" sums emotion and gender CE; metrics track the emotion
+    head.  ``pooling`` must match evaluation's."""
+    f32_precision()
+
+    def step(state: TrainState, batch: dict):
+        key = "labels_gen" if state.model.pred == "gender" else "labels_emo"
+        return state, _baseline_update(state, batch["spec"], batch[key], batch["weight"],
+                                       batch["labels_gen"], pooling)
+
+    return step
+
+
+def make_epoch_runner(pooling: Optional[str] = "mean"):
+    """Whole-epoch trainer over device-resident windows:
+    ``run(state, windows (M, T, D), labels (M,), weights (M,), order (M,),
+    n_batches, batch_size[, labels_gen]) -> (state, losses, correct,
+    counts)``, one batch after another in ``order``.  ``labels`` are the
+    model's own targets; pass ``labels_gen`` for pred="multitask"."""
+    f32_precision()
+
+    def run(state, windows, labels, weights, order, *, n_batches: int,
+            batch_size: int, labels_gen=None):
+        metrics = []
+        for idx in _batches(order, n_batches, batch_size, windows.device):
+            metrics.append(_baseline_update(
+                state, windows[idx][:, None], labels[idx], weights[idx],
+                None if labels_gen is None else labels_gen[idx], pooling))
+        return (state, *_stack(metrics))
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# cloak and cloak + GRL
+
+
+def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
+                    pooling: Optional[str] = "mean", antithetic: bool = False):
+    """Cloak step on a ``CloakedModel`` whose backbone the optimizer froze:
+    ``step(state, batch, mask=None, eps=None) -> (state, metrics)``.
+
+    ``antithetic``: the loss is the mean of the +eps and -eps passes of one
+    draw; the first-order noise of the sigma gradient cancels between them.
+    """
+    f32_precision()
+
+    def step(state: TrainState, batch: dict, mask=None, eps=None):
+        model = state.model.train()
+        key = "labels_emo" if model.backbone.pred == "emotion" else "labels_gen"
+        labels, w = batch[key], batch["weight"]
+        if eps is None:
+            eps = model.noise.draw_eps(state.generator)
+
+        def branch(sign):
+            return model(batch["spec"], eps, mask=mask, pooling=pooling, noise_sign=sign)[0]
+
+        logits = branch(1.0)
+        loss = weighted_ce(logits, labels, w)
+        if antithetic:
+            loss = 0.5 * (loss + weighted_ce(branch(-1.0), labels, w))
+        loss = _scale_reg(model, loss, scale_lambda, apply_scale_reg)
+        _apply(state, loss)
+        return state, _metrics(logits.detach(), labels, w, loss)
+
+    return step
+
+
+def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
+                        apply_scale_reg: bool = True, pooling: Optional[str] = "mean",
+                        antithetic: bool = False):
+    """Cloak + GRL minimax step on a ``CloakedModelGRL`` (noise and gender
+    adversary trainable): ``step(state, batch, mask=None, eps=None)``.
+
+    ``antithetic``: the -eps pass reuses the +eps pass's dropout masks and
+    leaves the gender backbone's running statistics alone; metrics and BN
+    statistics come from the +eps pass, as in the JAX package.
+    """
+    f32_precision()
+
+    def step(state: TrainState, batch: dict, mask=None, eps=None):
+        model = state.model.train()
+        le, lg, w = batch["labels_emo"], batch["labels_gen"], batch["weight"]
+        if eps is None:
+            eps = model.noise.draw_eps(state.generator)
+        draws = DropoutDraws(state.generator)
+
+        def pair_loss(emo_logits, gen_logits):
+            return weighted_ce(emo_logits, le, w) + gender_lambda * weighted_ce(
+                gen_logits, lg, w)
+
+        emo, gen, _ = model(batch["spec"], eps, mask=mask, pooling=pooling, dropout=draws)
+        loss = pair_loss(emo, gen)
+        if antithetic:
+            emo_m, gen_m, _ = model(batch["spec"], eps, mask=mask, pooling=pooling,
+                                    noise_sign=-1.0, dropout=draws.replay(),
+                                    update_stats=False)
+            loss = 0.5 * (loss + pair_loss(emo_m, gen_m))
+        loss = _scale_reg(model, loss, scale_lambda, apply_scale_reg)
+        _apply(state, loss)
+        m = _metrics(emo.detach(), le, w, loss)
+        m["gender_correct"] = ((gen.detach().argmax(-1) == lg) * (w > 0)).sum()
+        return state, m
+
+    return step
+
+
+def make_cloak_epoch_runner(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
+                            grl: bool = False, apply_scale_reg: bool = True,
+                            pooling: Optional[str] = "mean", antithetic: bool = False):
+    """Whole-epoch cloak / cloak + GRL trainer: ``run(state, windows (M, T,
+    D), labels_emo, labels_gen, weights, order, mask, n_batches, batch_size,
+    eps=None) -> (state, losses, correct, counts)``; ``mask=None`` for
+    unsuppressed training, ``eps`` (n_batches, 1, T, D) to inject the draws."""
+    step = (make_cloak_grl_step(scale_lambda, gender_lambda, apply_scale_reg, pooling,
+                                antithetic) if grl else
+            make_cloak_step(scale_lambda, apply_scale_reg, pooling, antithetic))
+
+    def run(state, windows, labels_emo, labels_gen, weights, order, mask, *,
+            n_batches: int, batch_size: int, eps=None):
+        metrics = []
+        for i, idx in enumerate(_batches(order, n_batches, batch_size, windows.device)):
+            batch = {"spec": windows[idx][:, None], "labels_emo": labels_emo[idx],
+                     "labels_gen": labels_gen[idx], "weight": weights[idx]}
+            metrics.append(step(state, batch, mask, None if eps is None else eps[i])[1])
+        return (state, *_stack(metrics))
+
+    return run

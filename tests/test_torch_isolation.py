@@ -36,6 +36,10 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import sept_tpu_torch.serve, sept_tpu_torch.compat.from_jax\n"
         "import sept_tpu_torch.ops.conv_block1, sept_tpu_torch.ops.cuda_lib\n"
+        "import sept_tpu_torch.ops.grl, sept_tpu_torch.models.cloak\n"
+        "import sept_tpu_torch.train.config, sept_tpu_torch.train.optim\n"
+        "import sept_tpu_torch.train.steps, sept_tpu_torch.train.device_loop\n"
+        "import sept_tpu_torch.data.device_pipeline\n"
         "import chip_smoke\n"
         "assert not any(m.startswith(('jax', 'flax')) for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
