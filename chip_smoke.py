@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check its kernels.
+"""Drive the PyTorch port's serving, training and featurization paths on one
+NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -31,7 +31,29 @@ and read just after; each kernel the path must use has to have launched
                (plain versions), dropout 0, one injected epsilon, lr 1e-2, 4
                windows a batch: losses within 1e-4 relative, parameters and
                running statistics within 1e-4 * max(|p|, 1).
-7. kernels     each kernel against its plain version on the tensors the main
+7. featurize   featurize_corpus (include_gemaps=False) of a seeded int16
+               corpus the size of CREMA-D (7,442 utterances of 1.3-5 s) for
+               mel_spec (f32 mel kernel at n_fft 800 and 1600) and mfcc (f32
+               mel kernel at n_fft 400 over the wave and its two gradients,
+               then the floor + DCT kernel); the bf16 mel kernel must not
+               launch.  Every store entry at 1 + n // hop frames, finite;
+               utterances per second; one run of 1,024 of the utterances
+               under torch.profiler; 8 utterances again on the CPU path:
+               mel within 1e-3 dB on cells within 60 dB of the peak (5e-2
+               below, the f32 rounding floor), MFCC within 1e-2.  Then
+               fused_mfcc (pallas_mfcc's counterpart) on 8 utterances in
+               each mel mode (f32 mel or bf16 mel, then floor + DCT) against
+               the CPU path: f32 within 1e-2, bf16 within the bf16 mel's
+               bounds times the DCT's gain.
+8. ingest-bf16 bench.py's ingest (1024 int16 utterances of 2.5 s, 16
+               speakers) through device_ingest with frontend "xla" (f32 mel
+               kernel only) and "pallas_bf16" (bf16 mel kernel only): windows
+               within 0.07 at the 99th percentile (the JAX package's own
+               bf16 mode is 0.063 off there), and within 0.05 on the white
+               noise of the JAX package's hardware check; both timed with
+               CUDA events and profiled once; then one baseline epoch of 4
+               batches of 32 on the bf16 windows (K1-K4, finite losses).
+9. kernels     each kernel against its plain version on the tensors the main
                path gives it (mel 1e-3 dB; conv output 1e-4 and moments rel
                1e-5; pooled 1e-4; K3 dy equal, its sums within 1e-5 of the
                sums of |terms|; K4 and K5 in train and eval BN mode, dW 1e-4
@@ -41,19 +63,23 @@ and read just after; each kernel the path must use has to have launched
                timed with CUDA events beside its plain version, one PyTorch
                call and its roofline bound; block 1's forward + backward
                beside autograd through the cuDNN chain; then again at edge
-               shapes (ragged tiles, odd sizes, n_fft 1600).
-8. latency     /predict round trips at 1 and 8 utterances (pcm16), beside the
+               shapes (ragged tiles, odd sizes, n_fft 1600); the bf16 mel
+               (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
+               waves and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
+               of 64 utterances at bucket 64000, then at n_fft 400 / 1600 and
+               ragged row counts.
+10. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
-9. profile     device time by kernel over predict calls of 1 and of 8
+11. profile    device time by kernel over predict calls of 1 and of 8
                utterances and over 3 baseline and 3 cloak + GRL steps, the
                device's busy share of the wall time (torch.profiler), and the
                f32 rate of the blocks 2-3 convolutions when serving.
 
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
-...}``, ``{"train": ...}``, ``{"block1_train": ...}`` and
-``{"train_profile": ...}`` lines, the card's ``name, power.limit`` from
-nvidia-smi, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
-"device": {...}}``.  Progress goes to stderr.
+...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
+...}``, ``{"featurize": ...}`` and ``{"ingest_bf16": ...}`` lines, the
+card's ``name, power.limit`` from nvidia-smi, a ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 """
 
 import base64
@@ -82,6 +108,26 @@ N_TRAIN, N_SPK, T_BATCH, T_BATCHES, CPU_BATCH = 64, 4, 32, 4, 4
 TRAIN_TOL = {"block1_route": 0.0, "block1_weight_grads": 1e-4, "block1_input_grad": 1e-5}
 SUMS_RTOL = 1e-5   # K3's per-channel sums, of the sum of |terms|
 TRAIN_RTOL = 1e-4  # GPU vs CPU training: losses relative, parameters of max(|p|, 1)
+BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
+# featurization slice: a CREMA-D-sized corpus (7,442 utterances of 1.3-5 s)
+N_CORPUS, CORPUS_S, MFCC_HOP, N_FEAT_CPU = 7442, (1.3, 5.0), 200, 8
+N_FEAT_PROFILE = 1024  # utterances of the corpus featurized under torch.profiler
+# GPU vs CPU store: mel dB on cells within 60 dB of the utterance's peak
+# (FEAT_LOW_TOL below that, as tests/test_torch_frontend.py holds the golden
+# cells), MFCC coefficients
+FEAT_TOL, FEAT_LOW_TOL = {"mel_spec": 1e-3, "mfcc": 1e-2}, 5e-2
+# bench.py's ingest: 1024 int16 utterances of 2.5 s.  bf16 vs f32 windows at
+# the 99th percentile: < 0.05 on the white noise of the JAX package's own
+# hardware check (tests_tpu/test_tpu_smoke.py); on bench.py's tones over weak
+# noise the JAX package's bf16 mode is itself 0.063 off its f32 mode
+# (tests/test_torch_ingest_bf16.py holds the port's deviation to JAX's)
+N_INGEST, INGEST_P99, INGEST_BENCH_P99 = 1024, 0.05, 0.07
+# bf16 mel kernel vs its plain version: the same operands rounded alike; an
+# f32 sum in another order can flip a bf16 rounding of the power, one bf16
+# unit, <= 2^-7 of its term, so a band moves <= 10 log10(1 + 2^-7) dB, which
+# a band of one frequency bin reaches; 1e-4 dB more for the f32 sums and log
+BF16_MAX, BF16_P99 = 10 * np.log10(1 + 2.0 ** -7) + 1e-4, 1e-3
+FLOOR_DCT_RTOL = 1e-5  # of max |plain|: two f32 sums of 128 terms
 
 
 def log(msg):
@@ -512,11 +558,13 @@ def kernel_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from sept_tpu_torch.ops import conv_block1 as K
     from sept_tpu_torch.ops import mel as M
+    from sept_tpu_torch.ops import mfcc as MF
 
     return {"mel_db": M.mel_db, "block1_conv_stats": K.block1_conv_stats,
             "block1_norm_pool": K.block1_norm_pool, "block1_route": K.block1_route,
             "block1_weight_grads": K.block1_weight_grads,
-            "block1_input_grad": K.block1_input_grad}
+            "block1_input_grad": K.block1_input_grad, "mel_db_bf16": M.mel_db_bf16,
+            "floor_dct": MF.floor_dct}
 
 
 def drive(fn, must, must_not=()):
@@ -548,7 +596,7 @@ def train_ingest_phase(rng):
     le, lg = rng.integers(0, 4, N_TRAIN), spk % 2
     ds, launches, ms = drive(lambda: device_ingest(
         waves, spk, le, lg, n_fft=N_FFT, n_mels=N_MELS, win_len=WIN, shift_len=SHIFT,
-        device=DEV), must=("mel_db",))
+        device=DEV), must=("mel_db",), must_not=("mel_db_bf16", "floor_dct"))
     require(ds.windows.shape[1:] == (WIN, N_MELS) and ds.windows.device.type == DEV,
             "ingest shape or device")
     require(bool(torch.isfinite(ds.windows).all()), "non-finite training windows")
@@ -956,6 +1004,345 @@ def train_profile_phase(ds, order, sds, reps=3):
     return out
 
 
+def path_profile(fn, top=10):
+    """torch.profiler over one warm run of ``fn``: wall ms, device busy ms and
+    idle share, the device's largest rows and the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, host = profile_rows(prof, 1)
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy if rows else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if rows else "not measured",
+            "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:top]],
+            "host_top": [{"op": k[:60], "self_cpu_ms": ms, "calls": c}
+                         for k, ms, c in host[:top]]}
+
+
+# ---------------------------------------------------------------------------
+# the featurization slice
+
+
+def make_corpus(rng, n):
+    """``n`` seeded int16 utterances of CORPUS_S seconds (uniform): two tones
+    over a broadband noise floor, as PCM16 corpora decode."""
+    lengths = rng.integers(int(CORPUS_S[0] * 16000), int(CORPUS_S[1] * 16000) + 1, n)
+    corpus = {}
+    for i, length in enumerate(lengths):
+        t = np.arange(length, dtype=np.float32) / np.float32(16000.0)
+        f1, f2 = rng.uniform(100, 400), rng.uniform(800, 3000)
+        w = (np.float32(0.3) * np.sin(np.float32(2 * np.pi * f1) * t)
+             + np.float32(0.1) * np.sin(np.float32(2 * np.pi * f2) * t)
+             + np.float32(0.05) * rng.standard_normal(length, dtype=np.float32))
+        corpus[f"c{i:05d}"] = np.clip(np.rint(w * 20000), -32768, 32767).astype(np.int16)
+    return corpus
+
+
+def check_store(store, corpus, feature_type):
+    """Every utterance holds its features at 1 + n // hop frames, finite."""
+    shapes = ({"mel1": N_MELS, "mel2": N_MELS} if feature_type == "mel_spec"
+              else {"mfcc": 120})
+    hop = HOP if feature_type == "mel_spec" else MFCC_HOP
+    require(set(store) == set(corpus), f"{feature_type}: utterances missing from the store")
+    for u, w in corpus.items():
+        require(set(store[u]) == set(shapes), f"{feature_type} {u}: keys {sorted(store[u])}")
+        for k, d in shapes.items():
+            a = store[u][k]
+            require(a.shape == (d, 1 + len(w) // hop), f"{feature_type} {u} {k}: {a.shape}")
+            require(bool(np.isfinite(a).all()), f"{feature_type} {u} {k}: non-finite")
+
+
+def featurize_phase(rng):
+    """featurize_corpus of a CREMA-D-sized int16 corpus for mel_spec and for
+    mfcc through the kernels (f32 mel; floor + DCT on mfcc; never the bf16
+    mel), then 8 utterances again on the CPU path.  Returns (info, launches
+    by path, the first 64-utterance mfcc chunk of bucket 64000)."""
+    from sept_tpu_torch.data.featurize import featurize_corpus
+    from sept_tpu_torch.ops import functionals as FN
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(rng, N_CORPUS)
+    samples = sum(len(w) for w in corpus.values())
+    info = {"utterances": N_CORPUS, "seconds_range": list(CORPUS_S),
+            "audio_hours": samples / 16000 / 3600,
+            "corpus_build_s": time.perf_counter() - t0}
+    launches = {}
+    for ft in ("mel_spec", "mfcc"):
+        must = ("mel_db", "floor_dct") if ft == "mfcc" else ("mel_db",)
+        must_not = ("mel_db_bf16",) if ft == "mfcc" else ("mel_db_bf16", "floor_dct")
+        store, launches[f"featurize_{ft}"], ms = drive(
+            lambda: featurize_corpus(corpus, ft, include_gemaps=False, device=DEV),
+            must=must, must_not=must_not + BACKWARD)
+        check_store(store, corpus, ft)
+        info[ft] = {"wall_s": ms / 1e3, "utterances_per_s": N_CORPUS / (ms / 1e3),
+                    "audio_s_per_s": samples / 16000 / (ms / 1e3)}
+        log(f"featurize {ft}: {N_CORPUS} utterances in {ms / 1e3:.2f} s")
+        del store
+        sub = dict(list(corpus.items())[:N_FEAT_PROFILE])
+        info[ft]["profile"] = {"utterances": N_FEAT_PROFILE, **path_profile(
+            lambda: featurize_corpus(sub, ft, include_gemaps=False, device=DEV))}
+
+    small = {f"s{i}": (speechlike(rng, int(rng.uniform(*CORPUS_S) * 16000)) * 20000
+                       ).astype(np.int16) for i in range(N_FEAT_CPU)}
+    for ft, keys in (("mel_spec", ("mel1", "mel2")), ("mfcc", ("mfcc",))):
+        gpu = featurize_corpus(small, ft, include_gemaps=False, device=DEV)
+        cpu = featurize_corpus(small, ft, include_gemaps=False, device="cpu")
+        if ft == "mel_spec":
+            # cells more than 60 dB under the utterance's peak sit at the
+            # f32 rounding floor of the DFT (ROADMAP §4): held on their own
+            live = {(u, k): cpu[u][k] > cpu[u][k].max() - 60.0 for u in small for k in keys}
+            diff = max(float(np.abs(gpu[u][k] - cpu[u][k])[live[u, k]].max())
+                       for u in small for k in keys)
+            low = max(float(np.abs(gpu[u][k] - cpu[u][k])[~live[u, k]].max(initial=0.0))
+                      for u in small for k in keys)
+            log(f"featurize mel_spec: max |gpu - cpu| {low:.3g} dB on cells > 60 dB under "
+                f"the peak (tolerance {FEAT_LOW_TOL:g})")
+            require(low <= FEAT_LOW_TOL, f"featurize mel_spec: low cells differ by {low}")
+            info[ft]["max_abs_diff_vs_cpu_below_60db"] = low
+        else:
+            diff = max(float(np.abs(gpu[u][k] - cpu[u][k]).max()) for u in small for k in keys)
+        log(f"featurize {ft}: max |gpu - cpu| = {diff:.3g} (tolerance {FEAT_TOL[ft]:g})")
+        require(diff <= FEAT_TOL[ft], f"featurize {ft}: GPU and CPU stores differ by {diff}")
+        info[ft]["max_abs_diff_vs_cpu"] = diff
+    info["cpu_check_utterances"] = N_FEAT_CPU
+
+    chunk = next((W, ns) for ids, W, _, ns in
+                 FN.chunked_wave_batches(corpus, 8000, 64, FN.n_frames)
+                 if W.shape == (64, 64000))
+    return info, launches, chunk
+
+
+def fused_mfcc_phase(rng):
+    """fused_mfcc, the counterpart of pallas_mfcc, on N_FEAT_CPU seeded
+    utterances in each mel mode: f32 through the f32 mel and floor + DCT
+    kernels, bf16 through the bf16 mel and floor + DCT kernels; each against
+    the CPU path (f32 as the featurized MFCC, bf16 as the bf16 mel's bounds
+    through the DCT's gain)."""
+    from sept_tpu_torch.ops.frontend import create_dct
+    from sept_tpu_torch.ops.mfcc import fused_mfcc
+
+    n_fft, hop = 400, MFCC_HOP
+    lengths = rng.integers(int(CORPUS_S[0] * 16000), int(CORPUS_S[1] * 16000) + 1, N_FEAT_CPU)
+    rows = [np.pad(speechlike(rng, int(n)), n_fft // 2, mode="reflect") for n in lengths]
+    padded = np.zeros((N_FEAT_CPU, max(len(r) for r in rows)), np.float32)
+    for i, r in enumerate(rows):
+        padded[i, : len(r)] = r
+    t = (padded.shape[1] - n_fft) // hop + 1
+    gain = float(np.abs(create_dct(40, N_MELS)).sum(0).max())
+    info, launches = {"utterances": N_FEAT_CPU, "frames": t}, {}
+    for bf16, mel_kernel, other in ((False, "mel_db", "mel_db_bf16"),
+                                    (True, "mel_db_bf16", "mel_db")):
+        mode = "bf16" if bf16 else "f32"
+        gpu, launches[f"fused_mfcc_{mode}"], _ = drive(
+            lambda: fused_mfcc(padded, t, bf16=bf16, device=DEV),
+            must=(mel_kernel, "floor_dct"), must_not=(other,) + BACKWARD)
+        require(gpu.shape == (N_FEAT_CPU, t, 40), f"fused_mfcc {mode}: shape {gpu.shape}")
+        d = (gpu.cpu() - fused_mfcc(padded, t, bf16=bf16, device="cpu")).abs().flatten()
+        mx, p99 = float(d.max()), float(np.percentile(d.numpy(), 99))
+        log(f"fused_mfcc {mode}: max |gpu - cpu| {mx:.3g}, p99 {p99:.3g}")
+        if bf16:
+            require(mx <= gain * BF16_MAX and p99 <= gain * BF16_P99,
+                    f"fused_mfcc bf16: GPU and CPU differ by {mx} (p99 {p99})")
+        else:
+            require(mx <= FEAT_TOL["mfcc"], f"fused_mfcc f32: GPU and CPU differ by {mx}")
+        info[mode] = {"max_abs_diff_vs_cpu": mx, "p99_abs_diff_vs_cpu": p99}
+    return info, launches
+
+
+def bench_ingest_waves():
+    """bench.py's ingest workload: N_INGEST int16 utterances of 2.5 s
+    (a tone at 120-430 Hz over noise, seed 8), 16 speakers, 4 labels."""
+    rng = np.random.default_rng(8)
+    t = np.arange(int(2.5 * 16000)) / 16000
+    waves = [np.clip(np.rint((0.3 * np.sin(2 * np.pi * (120 + 10 * (i % 32)) * t)
+                              + 0.05 * rng.standard_normal(t.shape)) * 32768.0),
+                     -32768, 32767).astype(np.int16) for i in range(N_INGEST)]
+    spk = (np.arange(N_INGEST) % 16).astype(np.int32)
+    labels = (np.arange(N_INGEST) % 4).astype(np.int32)
+    return waves, spk, labels
+
+
+def ingest_bf16_phase(sds):
+    """bench.py's ingest through device_ingest with frontend "xla" (the f32
+    mel kernel) and "pallas_bf16" (the bf16 one), each mode alone; windows
+    within the JAX package's hardware bound; both timed with CUDA events and
+    profiled; then one baseline epoch on the bf16 windows."""
+    from sept_tpu_torch.data.device_pipeline import device_ingest
+    from sept_tpu_torch.data.prep import prepare_waves
+    from sept_tpu_torch.train.config import preset
+    from sept_tpu_torch.train.optim import make_optimizer
+    from sept_tpu_torch.train.steps import init_state, make_epoch_runner
+
+    waves, spk, labels = bench_ingest_waves()
+    ingest = {f: (lambda f=f: device_ingest(waves, spk, labels, labels % 2, n_fft=N_FFT,
+                                            n_mels=N_MELS, win_len=WIN, shift_len=SHIFT,
+                                            frontend=f, device=DEV))
+              for f in ("xla", "pallas_bf16")}
+    launches = {}
+    ds_x, launches["ingest_xla"], _ = drive(
+        ingest["xla"], must=("mel_db",), must_not=("mel_db_bf16", "floor_dct") + BACKWARD)
+    ds_b, launches["ingest_bf16"], _ = drive(
+        ingest["pallas_bf16"], must=("mel_db_bf16",),
+        must_not=("mel_db", "floor_dct") + BACKWARD)
+    require(ds_b.windows.shape == ds_x.windows.shape, "bf16 ingest shape")
+    require(bool(torch.isfinite(ds_b.windows).all()), "non-finite bf16 windows")
+    d = (ds_b.windows - ds_x.windows).abs().flatten().cpu().numpy()
+    p99 = float(np.percentile(d, 99))
+    log(f"ingest bf16 vs xla windows: p99 |diff| {p99:.3g}, max {float(d.max()):.3g}")
+    require(p99 < INGEST_BENCH_P99, f"bf16 ingest windows off the f32 ones: p99 {p99}")
+    # the JAX package's own hardware check of the mode, on its inputs
+    rng = np.random.default_rng(3)
+    white = [rng.standard_normal(24000).astype(np.float32) for _ in range(8)]
+    w_spk = np.arange(8) % 4
+    w_a, w_b = (device_ingest(white, w_spk, w_spk, w_spk % 2, n_mels=N_MELS, win_len=100,
+                              shift_len=25, frontend=f, device=DEV).windows
+                for f in ("xla", "pallas_bf16"))
+    white_p99 = float(np.percentile((w_b - w_a).abs().flatten().cpu().numpy(), 99))
+    log(f"ingest bf16 vs xla on the JAX hardware test's white noise: p99 {white_p99:.3g}")
+    require(white_p99 < INGEST_P99, f"bf16 ingest off the f32 one on white noise: {white_p99}")
+    info = {"utterances": N_INGEST, "utterance_s": 2.5, "speakers": 16,
+            "windows": list(ds_b.windows.shape), "p99_abs_diff_vs_xla": p99,
+            "max_abs_diff_vs_xla": float(d.max()), "white_noise_p99_abs_diff": white_p99,
+            "xla_ms": cuda_ms(ingest["xla"], iters=3, warmup=1),
+            "pallas_bf16_ms": cuda_ms(ingest["pallas_bf16"], iters=3, warmup=1),
+            "profile": {f: path_profile(fn) for f, fn in ingest.items()}}
+
+    cfg = preset("baseline")
+    m = backbone(sds[0])
+    state = init_state(m, make_optimizer(cfg, T_BATCHES, m), SEED, DEV)
+    valid = torch.nonzero(ds_b.weight > 0)[:, 0]
+    g = torch.Generator(device=valid.device).manual_seed(SEED + 12)
+    order = valid[torch.randperm(len(valid), generator=g, device=valid.device)]
+    out, launches["train_bf16_windows"], ms = drive(
+        lambda: make_epoch_runner()(state, ds_b.windows, ds_b.labels_emo, ds_b.weight,
+                                    order[:T_BATCH * T_BATCHES], n_batches=T_BATCHES,
+                                    batch_size=T_BATCH),
+        must=("block1_conv_stats", "block1_norm_pool", "block1_route", "block1_weight_grads"),
+        must_not=("block1_input_grad", "mel_db", "mel_db_bf16", "floor_dct"))
+    losses = out[1].cpu().numpy()
+    require(np.isfinite(losses).all(), f"baseline on bf16 windows: losses {losses}")
+    info["baseline_epoch"] = {"losses": losses.tolist(), "epoch_wall_ms": ms,
+                              "batch": T_BATCH, "batches": T_BATCHES}
+    padded = torch.from_numpy(prepare_waves(waves, N_FFT)[0]).to(DEV)
+    return info, launches, padded
+
+
+def bf16_mel_errors(k, p):
+    d = (k - p).abs().flatten()
+    return float(d.max()), float(np.percentile(d.cpu().numpy(), 99))
+
+
+def featurize_kernel_phase(padded, chunk, launches):
+    """The bf16 mel kernel on the bf16 ingest's waves and the floor + DCT
+    kernel on one mfcc chunk's rows, against their plain versions, then
+    timed beside the plain version, one PyTorch yardstick and the bound."""
+    from sept_tpu_torch.data.featurize import mfcc_mel_and_floor
+    from sept_tpu_torch.ops import frontend as F
+    from sept_tpu_torch.ops import mel as M
+    from sept_tpu_torch.ops import mfcc as MF
+
+    with torch.inference_mode():
+        x = F.pcm_to_float(padded)
+        bsz, length = x.shape
+        t = (length - N_FFT) // HOP + 1
+        mel_k = M.mel_db_bf16(x, t, N_FFT, HOP, N_MELS)
+        mel_p = M.mel_db_plain(x, t, N_FFT, HOP, N_MELS, bf16=True)
+        W, ns = chunk
+        rows_mel, floor, _ = mfcc_mel_and_floor(torch.from_numpy(W).to(DEV),
+                                                torch.from_numpy(ns).to(DEV))
+        dct = MF.dct_basis(40, 128, rows_mel.device)
+        fd_k = MF.floor_dct(rows_mel, floor, dct)
+        fd_p = MF.floor_dct_plain(rows_mel, floor, dct)
+        torch.cuda.synchronize()
+        mel_max, mel_p99 = bf16_mel_errors(mel_k, mel_p)
+        fd_abs = float((fd_k - fd_p).abs().max())
+        fd_rel = fd_abs / float(fd_p.abs().max())
+        log(f"mel_db_bf16: max {mel_max:.3g} dB, p99 {mel_p99:.3g}; floor_dct: "
+            f"{fd_abs:.3g} ({fd_rel:.3g} of max |plain|)")
+        require(mel_max <= BF16_MAX and mel_p99 <= BF16_P99,
+                f"mel_db_bf16 disagrees with its plain version: {mel_max}, {mel_p99}")
+        require(fd_rel <= FLOOR_DCT_RTOL, f"floor_dct disagrees with its plain version: {fd_rel}")
+
+        window, _, _, fb = M._tables(N_FFT, N_MELS, x.device)
+
+        def stft_chain():
+            spec = torch.stft(x, N_FFT, HOP, window=window, center=False, return_complex=True)
+            power = spec.real * spec.real + spec.imag * spec.imag
+            return 10.0 * torch.log10(torch.clamp(power.transpose(1, 2) @ fb, min=M.AMIN))
+
+        frames = bsz * t
+        n_freq = N_FFT // 2 + 1
+        fb_nnz = int((fb != 0).sum())
+        mel_bound = bound(
+            frames * (2.5 * N_FFT * np.log2(N_FFT) + N_FFT + 3 * n_freq + 2 * fb_nnz + N_MELS),
+            4.0 * (bsz * length + N_FFT + fb_nnz + frames * N_MELS))
+        rows, n_mels = rows_mel.shape
+        fd_bound = bound(rows * (n_mels + 2 * n_mels * 40),
+                         4.0 * (rows * n_mels + rows + n_mels * 40 + rows * 40))
+        specs = [
+            ("mel_db_bf16", "sept_tpu_torch/csrc/mel.cu", "sept_tpu/ops/pallas_frontend.py:54",
+             lambda: M.mel_db_bf16(x, t, N_FFT, HOP, N_MELS),
+             lambda: M.mel_db_plain(x, t, N_FFT, HOP, N_MELS, bf16=True), stft_chain,
+             mel_bound, mel_max),
+            ("floor_dct", "sept_tpu_torch/csrc/mfcc.cu", "sept_tpu/ops/pallas_frontend.py:164",
+             lambda: MF.floor_dct(rows_mel, floor, dct),
+             lambda: MF.floor_dct_plain(rows_mel, floor, dct),
+             lambda: torch.matmul(torch.maximum(rows_mel, floor[:, None]), dct),
+             fd_bound, fd_abs),
+        ]
+        kernels = []
+        for name, src, replaces, kern, plain, lib, (bound_ms, bound_by), err in specs:
+            kernels.append({
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": sum(p[name] for p in launches.values()),
+                "launches_by_path": {k: p[name] for k, p in launches.items()},
+                "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib)})
+        kernels[0].update({"p99_abs_err": mel_p99, "f32_kernel_ms_same_input": cuda_ms(
+                               lambda: M.mel_db(x, t, N_FFT, HOP, N_MELS), iters=5),
+                           "bound_counts": "rFFT 2.5 n log2 n + sparse mel bank",
+                           "library": "torch.stft + matmul + log10 (f32)",
+                           "shape": [bsz, length, t]})
+        kernels[1].update({"max_rel_err_of_max_abs": fd_rel, "shape": [rows, n_mels, 40],
+                           "library": "torch.maximum + torch.matmul"})
+    return kernels
+
+
+def featurize_edge_phase(device):
+    """Both kernels at shapes off the main path: the bf16 mel at n_fft 400 /
+    hop 200 and n_fft 1600 with ragged frame tiles, floor + DCT at a ragged
+    row count and one row."""
+    from sept_tpu_torch.ops import mel as M
+    from sept_tpu_torch.ops import mfcc as MF
+
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    worst = {"mel_db_bf16": 0.0, "mel_db_bf16_p99": 0.0, "floor_dct_rel": 0.0}
+    with torch.inference_mode():
+        for b, n_fft, hop, t in ((3, 400, 200, 70), (2, 1600, 160, 37), (1, 800, 160, 1)):
+            x = 0.3 * torch.randn(b, (t - 1) * hop + n_fft + 33, device=device, generator=g)
+            mx, p99 = bf16_mel_errors(M.mel_db_bf16(x, t, n_fft, hop, N_MELS),
+                                      M.mel_db_plain(x, t, n_fft, hop, N_MELS, bf16=True))
+            worst["mel_db_bf16"] = max(worst["mel_db_bf16"], mx)
+            worst["mel_db_bf16_p99"] = max(worst["mel_db_bf16_p99"], p99)
+        dct = MF.dct_basis(40, 128, torch.device(device))
+        for rows in (1001, 1):
+            mel = 20 * torch.randn(rows, 128, device=device, generator=g) - 40
+            floor = 10 * torch.randn(rows, device=device, generator=g) - 60
+            p = MF.floor_dct_plain(mel, floor, dct)
+            rel = float((MF.floor_dct(mel, floor, dct) - p).abs().max() / p.abs().max())
+            worst["floor_dct_rel"] = max(worst["floor_dct_rel"], rel)
+    require(worst["mel_db_bf16"] <= BF16_MAX and worst["mel_db_bf16_p99"] <= BF16_P99,
+            f"mel_db_bf16 disagrees with its plain version at edge shapes: {worst}")
+    require(worst["floor_dct_rel"] <= FLOOR_DCT_RTOL,
+            f"floor_dct disagrees with its plain version at edge shapes: {worst}")
+    return worst
+
+
 def ptxas_summary(reports):
     lines = []
     for name, text in reports.items():
@@ -988,10 +1375,9 @@ def main():
     weights = build_weights()
     gpu = make_predictor(weights, "cuda")
     reqs = make_requests(np.random.default_rng(SEED))
-    backward = ("block1_route", "block1_weight_grads", "block1_input_grad")
     answers, serve_launches, _ = drive(
         lambda: serve_phase(gpu, reqs), must=("mel_db", "block1_conv_stats", "block1_norm_pool"),
-        must_not=backward)
+        must_not=BACKWARD + ("mel_db_bf16", "floor_dct"))
     paths = {"serve": serve_launches}
     log(f"served; kernel launches on the serving path: {serve_launches}")
 
@@ -1011,13 +1397,23 @@ def main():
         f"launches {train_launches}")
     train_cpu = train_cpu_phase(ds, order, sds)
     log(f"train-cpu done at {time.perf_counter() - t0:.1f} s")
+    feat, feat_launches, mfcc_chunk = featurize_phase(np.random.default_rng(SEED + 14))
+    paths.update(feat_launches)
+    feat["fused_mfcc"], mfcc_launches = fused_mfcc_phase(np.random.default_rng(SEED + 15))
+    paths.update(mfcc_launches)
+    log(f"featurize done at {time.perf_counter() - t0:.1f} s: {feat}")
+    ingest_b, ingest_launches, ingest_padded = ingest_bf16_phase(sds)
+    paths.update(ingest_launches)
+    log(f"ingest-bf16 done at {time.perf_counter() - t0:.1f} s: {ingest_b}")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
     train_kernels, block1_train = train_kernel_phase(capture_block1(ds, order, sds), paths)
     kernels += train_kernels
+    kernels += featurize_kernel_phase(ingest_padded, mfcc_chunk, paths)
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s; shapes {shapes}")
     edges = edge_phase(gpu.device)
     edges.update(train_edge_phase(gpu.device))
+    edges.update(featurize_edge_phase(gpu.device))
     log(f"edge-shape checks: {edges}")
     latency = latency_phase(gpu, np.random.default_rng(SEED + 7))
     log(f"latency done at {time.perf_counter() - t0:.1f} s")
@@ -1035,6 +1431,8 @@ def main():
                                 "edge_errors": edges, "launches_by_path": paths}}))
     print(json.dumps({"block1_train": block1_train}))
     print(json.dumps({"train_profile": train_prof}))
+    print(json.dumps({"featurize": feat}))
+    print(json.dumps({"ingest_bf16": ingest_b}))
     print(smi)
     # last but one, so the end of the output always holds it
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,1 @@
-"""Host-side data staging of the port (numpy only)."""
+"""Data staging, on-device ingest and corpus featurization of the port."""

@@ -1,10 +1,11 @@
 """On-device ingest: waveforms -> log-mel -> per-speaker z-norm -> training
 windows, every intermediate on the device.
 
-Counterpart of ``sept_tpu/data/device_pipeline.py`` (``_ingest`` and
-``device_ingest`` with ``frontend="xla"`` semantics, and ``DeviceDataset``).
-The mel goes through :func:`sept_tpu_torch.ops.mel.mel_db`, the CUDA mel
-kernel on a card.  Only the reflect-padded waveforms cross host -> device.
+Counterpart of ``sept_tpu/data/device_pipeline.py`` (``_ingest``,
+``device_ingest`` and ``DeviceDataset``).  The mel goes through
+:func:`sept_tpu_torch.ops.mel.mel_db`, a CUDA mel kernel on a card, in the
+mode ``frontend`` names.  Only the reflect-padded waveforms cross
+host -> device.
 
 Normalization statistics count each valid frame of a speaker once (a
 centred two-pass variance: dB features make E[x^2] - E[x]^2 cancel badly in
@@ -22,7 +23,10 @@ from sept_tpu_torch.data.prep import HOP, prepare_waves
 from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.ops.mel import mel_db
 
-__all__ = ["DeviceDataset", "device_ingest"]
+__all__ = ["DeviceDataset", "device_ingest", "FRONTENDS"]
+
+# the JAX package's frontend names -> the mel kernel's bf16 flag
+FRONTENDS = {"xla": False, "pallas_bf16": True}
 
 
 class DeviceDataset:
@@ -44,11 +48,11 @@ class DeviceDataset:
 
 
 def _ingest(padded, n_frames, speaker_idx, labels_emo, labels_gen, *, n_fft, n_mels,
-            win_len, shift_len, n_speakers, max_windows):
+            win_len, shift_len, n_speakers, max_windows, frontend="xla"):
     n = padded.shape[0]
     dev = padded.device
     tmax = int(n_frames.max())
-    feats = mel_db(padded, tmax, n_fft, HOP, n_mels)  # (N, T, D)
+    feats = mel_db(padded, tmax, n_fft, HOP, n_mels, bf16=FRONTENDS[frontend])  # (N, T, D)
     fmask = (torch.arange(tmax, device=dev)[None, :] < n_frames[:, None]).to(
         torch.float32)[..., None]  # (N, T, 1)
 
@@ -78,10 +82,19 @@ def _ingest(padded, n_frames, speaker_idx, labels_emo, labels_gen, *, n_fft, n_m
 def device_ingest(waveforms: list[np.ndarray], speaker_idx: np.ndarray,
                   labels_emo: np.ndarray, labels_gen: np.ndarray, n_fft: int = 800,
                   n_mels: int = 128, win_len: int = 200, shift_len: int = 50,
-                  device="cuda") -> DeviceDataset:
+                  frontend: str = "xla", device="cuda") -> DeviceDataset:
     """Waveforms (float32 or int16 PCM, 16 kHz) -> a :class:`DeviceDataset`
     of (N * max_windows, win_len, n_mels) windows on ``device``; windows past
-    an utterance's last full window carry weight 0."""
+    an utterance's last full window carry weight 0.
+
+    ``frontend`` keeps the JAX package's names, so callers of both packages
+    agree: ``"xla"`` (the parity default) runs the f32 mel kernel;
+    ``"pallas_bf16"`` (the throughput mode) runs the bf16 mel kernel, bf16
+    operands with f32 accumulation.  An unknown name raises ``ValueError``
+    (the JAX package runs the parity mode for it).
+    """
+    if frontend not in FRONTENDS:
+        raise ValueError(f"unknown frontend {frontend!r}; expected one of {sorted(FRONTENDS)}")
     dev = resolve_device(device)
     f32_precision()
     padded, n_frames = prepare_waves(waveforms, n_fft)
@@ -94,5 +107,5 @@ def device_ingest(waveforms: list[np.ndarray], speaker_idx: np.ndarray,
             torch.from_numpy(padded).to(dev), as_long(n_frames), as_long(speaker_idx),
             as_long(labels_emo), as_long(labels_gen), n_fft=n_fft, n_mels=n_mels,
             win_len=win_len, shift_len=shift_len, n_speakers=n_speakers,
-            max_windows=max_windows)
+            max_windows=max_windows, frontend=frontend)
     return DeviceDataset(windows, le, lg, wv)

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_of",
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mel", "conv_block1")
+SOURCES = ("mel", "conv_block1", "mfcc")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,6 +42,14 @@ _SIGNATURES = {
         "sept_mel_db_max_mels": ([], _I),
         "sept_mel_db_smem_bytes": ([_I] * 2, _LL),
         "sept_mel_db_scratch_floats": ([_I] * 4, _LL),
+        "sept_mel_bf16_geometry": ([_P], None),
+        "sept_mel_bf16_smem_bytes": ([_I] * 2, _LL),
+        "sept_mel_db_bf16": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    },
+    "mfcc": {
+        "sept_floor_dct": ([_P] * 4 + [_I] * 3 + [_P], _I),
+        "sept_floor_dct_smem_bytes": ([_I] * 2, _LL),
+        "sept_floor_dct_max_mfcc": ([], _I),
     },
     "conv_block1": {
         "sept_conv_stats": ([_P] * 6 + [_I] * 4 + [_P], _I),

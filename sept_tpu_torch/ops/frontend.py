@@ -1,18 +1,15 @@
-"""Audio feature frontend in PyTorch: the serving path's mel spectrogram.
+"""Audio feature frontend in PyTorch: mel spectrogram and MFCC.
 
 The counterpart of ``sept_tpu/ops/frontend.py``.  The constant tables are
 built in numpy exactly as there (float64 inside, float32 at the edge), so
 both packages feed their GEMMs bit-identical operands.  The functions below
-are plain torch ops; the fused CUDA kernel for the same chain lives in
-:mod:`sept_tpu_torch.ops.mel`.
+are plain torch ops on one utterance; the fused CUDA kernels for the same
+chains over batches live in :mod:`sept_tpu_torch.ops.mel` (log-mel) and
+:mod:`sept_tpu_torch.ops.mfcc` (top_db floor + DCT).
 
 Precision: the port holds f32 parity with TF32 switched off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, set by the predictors),
-the counterpart of the JAX package's ``PARITY_PRECISION = HIGHEST``.
-
-The MFCC half of the JAX module (``create_dct``, ``mfcc``,
-``np_gradient``, ``mfcc_with_deltas``) is not on the serving path and is not
-ported yet.
+(``torch.backends.cuda.matmul.allow_tf32 = False``, set by the entry
+points), the counterpart of the JAX package's ``PARITY_PRECISION = HIGHEST``.
 """
 
 from __future__ import annotations
@@ -34,6 +31,10 @@ __all__ = [
     "stft_power",
     "amplitude_to_db",
     "mel_spectrogram",
+    "create_dct",
+    "mfcc",
+    "np_gradient",
+    "mfcc_with_deltas",
 ]
 
 
@@ -128,6 +129,22 @@ def rdft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def create_dct(n_mfcc: int, n_mels: int, norm: str | None = "ortho") -> np.ndarray:
+    """DCT-II basis, (n_mels, n_mfcc), as ``torchaudio.functional.create_dct``."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)[:, None]
+    dct = np.cos(math.pi / n_mels * (n + 0.5) * k)  # (n_mfcc, n_mels)
+    if norm is None:
+        dct *= 2.0
+    elif norm == "ortho":
+        dct[0] *= 1.0 / math.sqrt(2.0)
+        dct *= math.sqrt(2.0 / n_mels)
+    else:
+        raise ValueError(f"unsupported DCT norm: {norm!r}")
+    return dct.T.astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # STFT / spectrogram
 
@@ -161,13 +178,16 @@ def stft_power(wave: torch.Tensor, n_fft: int, hop_length: int,
 def amplitude_to_db(x: torch.Tensor, stype: str = "power",
                     top_db: float | None = None, amin: float = 1e-10,
                     ref: float = 1.0) -> torch.Tensor:
-    """``torchaudio.transforms.AmplitudeToDB``; ``top_db`` floors at the
-    global max of ``x`` (the per-utterance convention of the reference)."""
+    """``torchaudio.transforms.AmplitudeToDB``.  ``top_db`` floors at the max
+    of the whole input up to 3 dims (one utterance: the reference's
+    per-utterance convention); a batched input of more than 3 dims is floored
+    item by item, at each item's max over its trailing 3 axes."""
     multiplier = 10.0 if stype == "power" else 20.0
     db = multiplier * torch.log10(torch.clamp(x, min=amin))
     db = db - multiplier * math.log10(max(amin, ref))
     if top_db is not None:
-        db = torch.maximum(db, db.max() - top_db)
+        peak = db.max() if db.dim() <= 3 else db.amax(dim=(-3, -2, -1), keepdim=True)
+        db = torch.maximum(db, peak - top_db)
     return db
 
 
@@ -186,3 +206,35 @@ def mel_spectrogram(wave: torch.Tensor, n_fft: int = 1024, hop_length: int = 160
     ).to(wave.device)
     mel = (spec.T @ fb).T
     return amplitude_to_db(mel, "power", top_db) if to_db else mel
+
+
+def mfcc(wave: torch.Tensor, sample_rate: int = 16000, n_mfcc: int = 40,
+         n_fft: int = 400, hop_length: int = 200, n_mels: int = 128,
+         top_db: float = 80.0) -> torch.Tensor:
+    """MFCC of a 1-D waveform, (n_mfcc, n_frames), as
+    ``torchaudio.transforms.MFCC`` with its defaults: mel n_fft 400, hop 200,
+    128 mels, AmplitudeToDB('power', top_db 80), DCT-II ortho."""
+    mel = mel_spectrogram(wave, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
+                          sample_rate=sample_rate, top_db=top_db)
+    dct = torch.from_numpy(create_dct(n_mfcc, n_mels, "ortho")).to(wave.device)
+    return (mel.T @ dct).T
+
+
+def np_gradient(x: torch.Tensor, spacing: float = 1.0) -> torch.Tensor:
+    """``np.gradient`` of a 1-D tensor: central differences, one-sided edges.
+
+    The reference's "second derivative" ``np.gradient(audio, 2)`` passes 2
+    as a *spacing*, so it is the first gradient halved; kept as it is.
+    """
+    interior = (x[2:] - x[:-2]) / (2.0 * spacing)
+    left = (x[1] - x[0]) / spacing
+    right = (x[-1] - x[-2]) / spacing
+    return torch.cat([left[None], interior, right[None]])
+
+
+def mfcc_with_deltas(wave: torch.Tensor) -> torch.Tensor:
+    """The reference's 120-dim MFCC stack, (120, n_frames): the MFCC of the
+    wave, of its gradient, and of its gradient at spacing 2 (MFCCs of the
+    differentiated waveform, not delta-MFCCs)."""
+    return torch.cat([mfcc(wave), mfcc(np_gradient(wave, 1.0)),
+                      mfcc(np_gradient(wave, 2.0))], dim=0)

@@ -1,12 +1,17 @@
-"""Fused log-mel spectrogram: the CUDA kernel's wrapper and its plain version.
+"""Fused log-mel spectrogram: the CUDA kernels' wrappers and their plain version.
 
-Counterpart of ``sept_tpu/ops/pallas_frontend.py::_mel_kernel`` in its f32
-mode.  :func:`mel_db` launches ``csrc/mel.cu`` for a CUDA tensor and runs
-:func:`mel_db_plain` for a CPU tensor; any other input raises.
+Counterpart of ``sept_tpu/ops/pallas_frontend.py::_mel_kernel`` in both of
+its modes.  :func:`mel_db` launches ``csrc/mel.cu``'s f32 kernel for a CUDA
+tensor, or with ``bf16=True`` hands over to :func:`mel_db_bf16`, which
+launches the bf16 kernel (operands rounded to bf16 at the TPU kernel's six
+places, f32 accumulation; the throughput mode).  Each mode has its own launch
+count.  A CPU tensor runs :func:`mel_db_plain` in the same mode; any other
+input raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -14,7 +19,7 @@ import torch
 from sept_tpu_torch.ops import cuda_lib
 from sept_tpu_torch.ops import frontend as F
 
-__all__ = ["mel_db", "mel_db_plain", "AMIN"]
+__all__ = ["mel_db", "mel_db_bf16", "mel_db_plain", "AMIN"]
 
 AMIN = 1e-10  # the AmplitudeToDB power clamp
 
@@ -28,6 +33,34 @@ def _tables(n_fft: int, n_mels: int, device: torch.device):
                  for a in (F.hann_window(n_fft), cos_m, sin_m, fb))
 
 
+@functools.lru_cache(maxsize=None)
+def _tables_bf16(n_fft: int, n_mels: int, device: torch.device):
+    """The f32 tables rounded to bf16 (round to nearest even, as the JAX
+    package's ``astype``): (window, cos, sin, filterbank)."""
+    return tuple(t.to(torch.bfloat16) for t in _tables(n_fft, n_mels, device))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables_bf16(n_fft: int, n_mels: int, geometry: tuple, device: torch.device):
+    """The bf16 kernel's operands: the window, the cos/sin table as
+    (chunks, 2 * fc, k_pad) -- per chunk of ``fc`` frequencies its cos rows,
+    then its sin rows, each over the taps padded to a multiple of ``kc`` --
+    and the filterbank as (chunks, mels, fc); zeros pad every edge."""
+    fc, kc, mels = geometry
+    window, cos_m, sin_m, fb = _tables_bf16(n_fft, n_mels, torch.device("cpu"))
+    n_freq = n_fft // 2 + 1
+    chunks = -(-n_freq // fc)
+    k_pad = -(-n_fft // kc) * kc
+    cs = torch.zeros((2, chunks * fc, k_pad), dtype=torch.bfloat16)
+    cs[0, :n_freq, :n_fft] = cos_m.T
+    cs[1, :n_freq, :n_fft] = sin_m.T
+    dft = cs.view(2, chunks, fc, k_pad).transpose(0, 1).reshape(chunks, 2 * fc, k_pad)
+    fbt = torch.zeros((chunks * fc, mels), dtype=torch.bfloat16)
+    fbt[:n_freq, :n_mels] = fb
+    fbt = fbt.view(chunks, fc, mels).transpose(1, 2)
+    return tuple(t.contiguous().to(device) for t in (window, dft, fbt))
+
+
 def _check_geometry(padded_waves, n_frames_max, n_fft, hop):
     if padded_waves.dim() != 2:
         raise ValueError(f"padded_waves must be (B, L), got {tuple(padded_waves.shape)}")
@@ -39,29 +72,46 @@ def _check_geometry(padded_waves, n_frames_max, n_fft, hop):
 
 
 def mel_db_plain(padded_waves: torch.Tensor, n_frames_max: int,
-                 n_fft: int = 800, hop: int = 160,
-                 n_mels: int = 128) -> torch.Tensor:
+                 n_fft: int = 800, hop: int = 160, n_mels: int = 128,
+                 bf16: bool = False) -> torch.Tensor:
     """The same function in plain torch: frames -> Hann -> rDFT GEMMs ->
-    power -> mel GEMM -> 10*log10(max(., 1e-10)), (B, T, n_mels)."""
+    power -> mel GEMM -> 10*log10(max(., 1e-10)), (B, T, n_mels).
+
+    ``bf16``: round to bf16 where the TPU kernel's bf16 mode does -- the
+    waveform, the window, their product (one bf16 multiply), the cos/sin
+    tables, the f32 power and the filterbank -- and multiply in f32 (exact
+    for bf16 operands; TF32 off), accumulating in f32.
+    """
     padded_waves = F.pcm_to_float(padded_waves)
     _check_geometry(padded_waves, n_frames_max, n_fft, hop)
-    window, cos_m, sin_m, fb = _tables(n_fft, n_mels, padded_waves.device)
-    frames = padded_waves.unfold(1, n_fft, hop)[:, :n_frames_max] * window
-    re = frames @ cos_m
-    im = frames @ sin_m
-    power = re * re + im * im
-    return 10.0 * torch.log10(torch.clamp(power @ fb, min=AMIN))
+    if not bf16:
+        window, cos_m, sin_m, fb = _tables(n_fft, n_mels, padded_waves.device)
+        frames = padded_waves.unfold(1, n_fft, hop)[:, :n_frames_max] * window
+        re = frames @ cos_m
+        im = frames @ sin_m
+        power = re * re + im * im
+        return 10.0 * torch.log10(torch.clamp(power @ fb, min=AMIN))
+    window, cos_m, sin_m, fb = _tables_bf16(n_fft, n_mels, padded_waves.device)
+    waves = padded_waves.to(torch.bfloat16)
+    frames = (waves.unfold(1, n_fft, hop)[:, :n_frames_max] * window).float()
+    re = frames @ cos_m.float()
+    im = frames @ sin_m.float()
+    power = (re * re + im * im).to(torch.bfloat16).float()
+    return 10.0 * torch.log10(torch.clamp(power @ fb.float(), min=AMIN))
 
 
 def mel_db(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
-           hop: int = 160, n_mels: int = 128) -> torch.Tensor:
+           hop: int = 160, n_mels: int = 128, bf16: bool = False) -> torch.Tensor:
     """Log-mel spectrogram in dB (top_db None) of reflect-padded waveforms.
 
     ``padded_waves`` (B, L) f32, or int16 PCM (normalized here, exactly),
     each row reflect-padded by n_fft//2 at its true boundary; frame t reads
     samples [t*hop, t*hop + n_fft).  Returns (B, n_frames_max, n_mels) f32.
-    Filterbank: 0-8 kHz, HTK, 16 kHz.
+    Filterbank: 0-8 kHz, HTK, 16 kHz.  ``bf16``: the throughput mode, see
+    :func:`mel_db_bf16`.
     """
+    if bf16:
+        return mel_db_bf16(padded_waves, n_frames_max, n_fft, hop, n_mels)
     dev = padded_waves.device
     if dev.type == "cpu":
         return mel_db_plain(padded_waves, n_frames_max, n_fft, hop, n_mels)
@@ -94,4 +144,42 @@ def mel_db(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
     return out
 
 
-mel_db.launches = 0  # kernel launches since the last reset
+mel_db.launches = 0  # f32 kernel launches since the last reset
+
+
+def mel_db_bf16(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
+                hop: int = 160, n_mels: int = 128) -> torch.Tensor:
+    """:func:`mel_db` in the bf16 mode: the tensor-core kernel on a CUDA
+    tensor, ``mel_db_plain(..., bf16=True)`` on a CPU tensor."""
+    dev = padded_waves.device
+    if dev.type == "cpu":
+        return mel_db_plain(padded_waves, n_frames_max, n_fft, hop, n_mels, bf16=True)
+    padded_waves = F.pcm_to_float(padded_waves)
+    _check_geometry(padded_waves, n_frames_max, n_fft, hop)
+    b, length = padded_waves.shape
+    cuda_lib.require(padded_waves, "mel_db_bf16 padded_waves", (b, length), dev)
+    lib = cuda_lib.load("mel")
+    geometry = (ctypes.c_int * 3)()
+    lib.sept_mel_bf16_geometry(geometry)
+    geometry = tuple(geometry)
+    if n_mels > geometry[2]:
+        raise ValueError(f"mel_db_bf16: the kernel takes at most {geometry[2]} mels, "
+                         f"got {n_mels}")
+    smem = lib.sept_mel_bf16_smem_bytes(n_fft, hop)
+    if smem > cuda_lib.max_smem_per_block(dev):
+        raise ValueError(f"mel_db_bf16: n_fft {n_fft} / hop {hop} need {smem} bytes "
+                         "of shared memory a block, above the card's limit")
+    window, dft, fbt = _kernel_tables_bf16(n_fft, n_mels, geometry, dev)
+    out = torch.empty((b, n_frames_max, n_mels), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    err = lib.sept_mel_db_bf16(
+        padded_waves.data_ptr(), window.data_ptr(), dft.data_ptr(), fbt.data_ptr(),
+        out.data_ptr(), b, length, n_frames_max, n_fft, hop, n_mels,
+        cuda_lib.stream_of(out))
+    cuda_lib.check(lib, err, "mel_db_bf16")
+    mel_db_bf16.launches += 1
+    return out
+
+
+mel_db_bf16.launches = 0  # bf16 kernel launches since the last reset

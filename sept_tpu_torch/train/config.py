@@ -8,9 +8,10 @@ with the four presets of the JAX package, cut to those fields (each mirrors
 one reference entry point's defaults, including the per-script
 learning-rate differences).  The data, model, epoch-loop, plateau and
 early-stopping fields come with the modules that read them.  Left out for
-good: ``conv_backend`` (the port has one block-1 path), ``remat``,
-``prng_impl`` and ``compute_dtype`` (the port trains in float32; bf16 is not
-ported).
+good: ``conv_backend`` (the port has one block-1 path), ``remat`` and
+``prng_impl``.  ``compute_dtype`` is queued (ROADMAP §2): the port trains in
+float32 until the bf16 training slice (bf16 blocks 2-3 and GRU with f32
+parameters, K1-K5 in their bf16 mode) lands.
 """
 
 from __future__ import annotations

@@ -39,7 +39,8 @@ def test_port_imports_with_jax_blocked():
         "import sept_tpu_torch.ops.grl, sept_tpu_torch.models.cloak\n"
         "import sept_tpu_torch.train.config, sept_tpu_torch.train.optim\n"
         "import sept_tpu_torch.train.steps, sept_tpu_torch.train.device_loop\n"
-        "import sept_tpu_torch.data.device_pipeline\n"
+        "import sept_tpu_torch.data.device_pipeline, sept_tpu_torch.data.featurize\n"
+        "import sept_tpu_torch.ops.mfcc, sept_tpu_torch.ops.functionals\n"
         "import chip_smoke\n"
         "assert not any(m.startswith(('jax', 'flax')) for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
@@ -80,3 +81,24 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("entry", ["featurize_corpus", "fused_mfcc", "bf16_ingest"])
+def test_featurization_entry_points_need_cuda_by_default(monkeypatch, entry):
+    """The corpus featurizer, ``fused_mfcc`` and the bf16 ingest run on
+    ``device="cuda"`` unless asked for the CPU, and raise without a card."""
+    import numpy as np
+
+    from sept_tpu_torch.data.device_pipeline import device_ingest
+    from sept_tpu_torch.data.featurize import featurize_corpus
+    from sept_tpu_torch.ops.mfcc import fused_mfcc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wave = np.zeros(4000, np.float32)
+    call = {"featurize_corpus": lambda: featurize_corpus({"u": wave}, "mfcc",
+                                                         include_gemaps=False),
+            "fused_mfcc": lambda: fused_mfcc(np.zeros((1, 4400), np.float32), 21),
+            "bf16_ingest": lambda: device_ingest([wave], np.zeros(1, int), np.zeros(1, int),
+                                                 np.zeros(1, int), frontend="pallas_bf16")}
+    with pytest.raises(RuntimeError, match="cuda"):
+        call[entry]()
