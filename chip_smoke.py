@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and featurization paths on one
-NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's serving, training (f32 and bf16) and
+featurization paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -53,7 +53,19 @@ and read just after; each kernel the path must use has to have launched
                noise of the JAX package's hardware check; both timed with
                CUDA events and profiled once; then one baseline epoch of 4
                batches of 32 on the bf16 windows (K1-K4, finite losses).
-9. kernels     each kernel against its plain version on the tensors the main
+9. train-bf16  on those bf16 windows, one epoch of 4 batches of 32 of each
+               workload with compute_dtype "bfloat16" (the presets with
+               ExperimentConfig.compute_dtype), full width, dropout 0.2:
+               baseline (K1-K4 in their bf16 mode, no K5), plain cloak
+               (K1-K3 and K5, no K4), cloak + GRL with the antithetic pair
+               and saliency_align 0.5 (all five); no block-1 launch in the
+               f32 mode.  Losses finite, parameters and statistics still
+               f32, frozen backbones bit-unchanged.  Then 3 steps of each on
+               the card and on the CPU: losses within 3e-3 relative,
+               parameters within 1e-3 and running statistics within 5e-3 of
+               max(|p|, 1) (the bounds the CPU tests hold the port to the
+               JAX package with).
+10. kernels    each kernel against its plain version on the tensors the main
                path gives it (mel 1e-3 dB; conv output 1e-4 and moments rel
                1e-5; pooled 1e-4; K3 dy equal, its sums within 1e-5 of the
                sums of |terms|; K4 and K5 in train and eval BN mode, dW 1e-4
@@ -67,19 +79,27 @@ and read just after; each kernel the path must use has to have launched
                (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
                waves and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
                of 64 utterances at bucket 64000, then at n_fft 400 / 1600 and
-               ragged row counts.
-10. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
+               ragged row counts; the bf16 modes of K1-K5 on a bf16 baseline
+               step's tensors (conv output within one bf16 unit and
+               bit-equal in 99.9% of the elements, moments 1e-5 of the sums
+               of |terms|, pooled and dy equal, K4 and K5 as in f32), timed
+               beside their plain versions, one bf16 PyTorch call and the
+               bound, then at the edge shapes.
+11. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
-11. profile    device time by kernel over predict calls of 1 and of 8
-               utterances and over 3 baseline and 3 cloak + GRL steps, the
-               device's busy share of the wall time (torch.profiler), and the
-               f32 rate of the blocks 2-3 convolutions when serving.
+12. profile    device time by kernel over predict calls of 1 and of 8
+               utterances and over 3 baseline and 3 cloak + GRL steps in each
+               dtype, the device's busy share of the wall time
+               (torch.profiler), the f32 rate of the blocks 2-3 convolutions
+               when serving, and the bf16 GRU's step loop beside cuDNN's bf16
+               GRU (a yardstick: it keeps a bf16 hidden state).
 
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
-...}``, ``{"featurize": ...}`` and ``{"ingest_bf16": ...}`` lines, the
-card's ``name, power.limit`` from nvidia-smi, a ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
+...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
+``{"train_bf16": ...}`` lines, the card's ``name, power.limit`` from
+nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
+mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 """
 
 import base64
@@ -98,6 +118,7 @@ SEED = 0
 DEV = "cuda"  # the card every phase runs on
 WIN, SHIFT, N_FFT, HOP, N_MELS, HIDDEN = 200, 50, 800, 160, 128, 64
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores (bf16 operands)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 TOL = {"mel_db": 1e-3, "block1_conv_stats": 1e-4, "block1_norm_pool": 1e-4}
 MOMENTS_RTOL = 1e-5
@@ -107,8 +128,21 @@ N_TRAIN, N_SPK, T_BATCH, T_BATCHES, CPU_BATCH = 64, 4, 32, 4, 4
 # K3 dy equal to its plain version; dW, db and dx of max |plain|
 TRAIN_TOL = {"block1_route": 0.0, "block1_weight_grads": 1e-4, "block1_input_grad": 1e-5}
 SUMS_RTOL = 1e-5   # K3's per-channel sums, of the sum of |terms|
-TRAIN_RTOL = 1e-4  # GPU vs CPU training: losses relative, parameters of max(|p|, 1)
 BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
+BLOCK1 = ("block1_conv_stats", "block1_norm_pool") + BACKWARD
+BLOCK1_BF16 = tuple(f"{k}_bf16" for k in BLOCK1)  # the kernels' bf16 mode, counted apart
+# bf16 training: the saliency-alignment weight of its GRL game, and GPU vs
+# CPU over 3 steps held to the bounds tests/test_torch_train_bf16.py holds
+# the port to the JAX package with (losses relative; trained parameters and
+# running statistics of max(|p|, 1))
+SALIENCY_ALIGN = 0.5
+TRAIN_BF16_TOL = {"loss": 3e-3, "param": 1e-3, "stats": 5e-3}
+TRAIN_F32_TOL = {"loss": 1e-4, "param": 1e-4, "stats": 1e-4}
+# bf16 conv output, kernel vs plain: the same rounded operands summed in
+# another f32 order round to neighbouring bf16 values at most (one bf16
+# unit, 2^-7 of |y|, plus 1e-6 where y cancels to near 0), in at most 0.1%
+# of the elements; pooled values and dy equal on the same inputs
+BF16_CONV_EQUAL_SHARE = 0.999
 # featurization slice: a CREMA-D-sized corpus (7,442 utterances of 1.3-5 s)
 N_CORPUS, CORPUS_S, MFCC_HOP, N_FEAT_CPU = 7442, (1.3, 5.0), 200, 8
 N_FEAT_PROFILE = 1024  # utterances of the corpus featurized under torch.profiler
@@ -307,8 +341,8 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
@@ -555,16 +589,19 @@ def profile_phase(predictor, rng, n=8, reps=3):
 
 
 def kernel_counters():
-    """Every kernel wrapper of the port, by kernel name."""
+    """Every kernel launch counter of the port, by kernel name: (wrapper,
+    attribute).  Block 1's wrappers count each mode apart: its bf16 mode is
+    the row <kernel>_bf16."""
     from sept_tpu_torch.ops import conv_block1 as K
     from sept_tpu_torch.ops import mel as M
     from sept_tpu_torch.ops import mfcc as MF
 
-    return {"mel_db": M.mel_db, "block1_conv_stats": K.block1_conv_stats,
-            "block1_norm_pool": K.block1_norm_pool, "block1_route": K.block1_route,
-            "block1_weight_grads": K.block1_weight_grads,
-            "block1_input_grad": K.block1_input_grad, "mel_db_bf16": M.mel_db_bf16,
-            "floor_dct": MF.floor_dct}
+    counters = {"mel_db": (M.mel_db, "launches"), "mel_db_bf16": (M.mel_db_bf16, "launches"),
+                "floor_dct": (MF.floor_dct, "launches")}
+    for name in BLOCK1:
+        counters[name] = (getattr(K, name), "launches")
+        counters[f"{name}_bf16"] = (getattr(K, name), "launches_bf16")
+    return counters
 
 
 def drive(fn, must, must_not=()):
@@ -572,14 +609,14 @@ def drive(fn, must, must_not=()):
     read just after: (result, launches, wall ms).  Each kernel in ``must``
     has to have launched, none in ``must_not``."""
     counters = kernel_counters()
-    for f in counters.values():
-        f.launches = 0
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: f.launches for name, f in counters.items()}
+    launches = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
     for name in must:
         require(launches[name] > 0, f"kernel {name} never launched on this path: {launches}")
     for name in must_not:
@@ -596,7 +633,7 @@ def train_ingest_phase(rng):
     le, lg = rng.integers(0, 4, N_TRAIN), spk % 2
     ds, launches, ms = drive(lambda: device_ingest(
         waves, spk, le, lg, n_fft=N_FFT, n_mels=N_MELS, win_len=WIN, shift_len=SHIFT,
-        device=DEV), must=("mel_db",), must_not=("mel_db_bf16", "floor_dct"))
+        device=DEV), must=("mel_db",), must_not=("mel_db_bf16", "floor_dct") + BLOCK1_BF16)
     require(ds.windows.shape[1:] == (WIN, N_MELS) and ds.windows.device.type == DEV,
             "ingest shape or device")
     require(bool(torch.isfinite(ds.windows).all()), "non-finite training windows")
@@ -617,10 +654,11 @@ def train_weights():
     return build_weights()[0], gender.state_dict()
 
 
-def backbone(sd, pred="emotion", dropout=0.2):
+def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32):
     from sept_tpu_torch.models import Conv2dBiRNN
 
-    m = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred=pred, dropout_rate=dropout)
+    m = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred=pred, dropout_rate=dropout,
+                    compute_dtype=cd)
     m.load_state_dict(sd)
     return m
 
@@ -638,32 +676,35 @@ def rz_rows_zero(module):
                if n.startswith("bias_hh"))
 
 
-def train_states(sds, device, dropout=0.2, lr=None, antithetic=True):
+def train_states(sds, device, dropout=0.2, lr=None, antithetic=True, dtype="float32",
+                 saliency=0.0):
     """(name, state, step factory args) of the three workloads, presets
-    baseline / cloak / cloak_grl, on ``device``."""
-    from sept_tpu_torch.models import CloakedModel, CloakedModelGRL
+    baseline / cloak / cloak_grl with ``compute_dtype=dtype`` (and the GRL
+    game's ``saliency_align``), on ``device``."""
+    from sept_tpu_torch.models import CloakedModel, CloakedModelGRL, compute_dtype
     from sept_tpu_torch.train.config import preset
     from sept_tpu_torch.train.optim import make_cloak_optimizer, make_optimizer
     from sept_tpu_torch.train.steps import init_state
 
     emo_sd, gen_sd = sds
-    over = {} if lr is None else {"learning_rate": lr}
+    over = {"compute_dtype": dtype, **({} if lr is None else {"learning_rate": lr})}
     cfg = preset("baseline", **over)
-    m = backbone(emo_sd, dropout=dropout)
+    cd = compute_dtype(cfg.compute_dtype)
+    m = backbone(emo_sd, dropout=dropout, cd=cd)
     base = init_state(m, make_optimizer(cfg, T_BATCHES, m), SEED, device)
     cfg = preset("cloak", **over)
-    m = CloakedModel(backbone(emo_sd, dropout=dropout), WIN, N_MELS, cfg.noise_min_scale,
-                     cfg.noise_max_scale)
+    m = CloakedModel(backbone(emo_sd, dropout=dropout, cd=cd), WIN, N_MELS,
+                     cfg.noise_min_scale, cfg.noise_max_scale)
     cloak = init_state(m, make_cloak_optimizer(cfg, T_BATCHES, m, ("noise",)), SEED + 1, device)
     cloak_kw = {"scale_lambda": cfg.scale_lambda}
-    cfg = preset("cloak_grl", antithetic_noise=antithetic, **over)
-    m = CloakedModelGRL(backbone(emo_sd, dropout=dropout),
-                        backbone(gen_sd, "gender", dropout=dropout), cfg.grl_lambda, WIN,
-                        N_MELS, cfg.noise_min_scale, cfg.noise_max_scale)
+    cfg = preset("cloak_grl", antithetic_noise=antithetic, saliency_align=saliency, **over)
+    m = CloakedModelGRL(backbone(emo_sd, dropout=dropout, cd=cd),
+                        backbone(gen_sd, "gender", dropout=dropout, cd=cd), cfg.grl_lambda,
+                        WIN, N_MELS, cfg.noise_min_scale, cfg.noise_max_scale)
     grl = init_state(m, make_cloak_optimizer(cfg, T_BATCHES, m, ("noise", "gender_backbone")),
                      SEED + 2, device)
     grl_kw = {"scale_lambda": cfg.scale_lambda, "gender_lambda": cfg.gender_lambda,
-              "antithetic": cfg.antithetic_noise}
+              "antithetic": cfg.antithetic_noise, "saliency_align": cfg.saliency_align}
     return base, (cloak, cloak_kw), (grl, grl_kw)
 
 
@@ -691,7 +732,7 @@ def train_phase(ds, sds):
     out, launches["train_baseline"], ms = drive(
         lambda: make_epoch_runner()(base, ds.windows, ds.labels_emo, ds.weight, order, **kw),
         must=("block1_conv_stats", "block1_norm_pool", "block1_route",
-              "block1_weight_grads"), must_not=("block1_input_grad",))
+              "block1_weight_grads"), must_not=("block1_input_grad",) + BLOCK1_BF16)
     summary("baseline", out, ms)
     require(rz_rows_zero(base.model), "baseline: bias_hh r/z rows moved")
 
@@ -701,7 +742,7 @@ def train_phase(ds, sds):
         lambda: make_cloak_epoch_runner(**cloak_kw)(
             cloak, ds.windows, ds.labels_emo, ds.labels_gen, ds.weight, order, None, **kw),
         must=("block1_conv_stats", "block1_norm_pool", "block1_route", "block1_input_grad"),
-        must_not=("block1_weight_grads",))
+        must_not=("block1_weight_grads",) + BLOCK1_BF16)
     summary("cloak", out, ms)
     require(unchanged(cloak.model.backbone, frozen), "cloak: the frozen backbone moved")
     require(not torch.equal(cloak.model.noise.locs, locs), "cloak: the noise did not train")
@@ -711,8 +752,7 @@ def train_phase(ds, sds):
     out, launches["train_cloak_grl"], ms = drive(
         lambda: make_cloak_epoch_runner(grl=True, **grl_kw)(
             grl, ds.windows, ds.labels_emo, ds.labels_gen, ds.weight, order, None, **kw),
-        must=("block1_conv_stats", "block1_norm_pool", "block1_route",
-              "block1_weight_grads", "block1_input_grad"))
+        must=BLOCK1, must_not=BLOCK1_BF16)
     summary("cloak_grl", out, ms)
     require(unchanged(grl.model.emotion_backbone, frozen), "grl: the emotion backbone moved")
     require(not unchanged(grl.model.gender_backbone, gen_before), "grl: the adversary is still")
@@ -721,13 +761,14 @@ def train_phase(ds, sds):
     return info, launches, order
 
 
-def train_cpu_phase(ds, order, sds):
+def train_cpu_phase(ds, order, sds, dtype="float32", saliency=0.0, tol=TRAIN_F32_TOL):
     """Three steps of each step function on the card and on the CPU (plain
     versions) from the same weights on the same CPU_BATCH windows, dropout 0,
-    one injected epsilon: losses within TRAIN_RTOL relative, every parameter
-    and running statistic within TRAIN_RTOL * max(|p|, 1).  cuDNN's
-    algorithm choice is pinned (deterministic, no autotuning) for this phase,
-    so the GPU side gives the same numbers from run to run."""
+    one injected epsilon, ``compute_dtype=dtype``: losses within tol["loss"]
+    relative, every parameter within tol["param"] and every running
+    statistic within tol["stats"] of max(|p|, 1).  cuDNN's algorithm choice
+    is pinned (deterministic, no autotuning) for this phase, so the GPU side
+    gives the same numbers from run to run."""
     from sept_tpu_torch.train.steps import (make_baseline_step, make_cloak_grl_step,
                                             make_cloak_step)
 
@@ -740,8 +781,8 @@ def train_cpu_phase(ds, order, sds):
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
         for dev in (DEV, "cpu"):
-            base, (cloak, cloak_kw), (grl, grl_kw) = train_states(sds, dev, dropout=0.0,
-                                                                  lr=1e-2)
+            base, (cloak, cloak_kw), (grl, grl_kw) = train_states(
+                sds, dev, dropout=0.0, lr=1e-2, dtype=dtype, saliency=saliency)
             steps = {"baseline": (base, make_baseline_step(), False),
                      "cloak": (cloak, make_cloak_step(**cloak_kw), True),
                      "cloak_grl": (grl, make_cloak_grl_step(**grl_kw), True)}
@@ -759,32 +800,36 @@ def train_cpu_phase(ds, order, sds):
     for name, r in runs.items():
         (lg, sg), (lc, sc) = r[DEV], r["cpu"]
         loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
-        param = max(float((sg[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1.0)
-                    for k, v in sc.items() if v.is_floating_point())
-        log(f"train-cpu {name}: losses {lc.tolist()}, max rel loss diff {loss_rel:.3g}, "
-            f"max param diff {param:.3g} of max(|p|, 1)")
-        require(loss_rel <= TRAIN_RTOL and param <= TRAIN_RTOL,
-                f"{name}: GPU and CPU training disagree ({loss_rel}, {param})")
+        diffs = {part: max([float((sg[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1.0)
+                            for k, v in sc.items()
+                            if v.is_floating_point() and ("running" in k) == (part == "stats")],
+                           default=0.0)
+                 for part in ("param", "stats")}
+        log(f"train-cpu {dtype} {name}: losses {lc.tolist()}, max rel loss diff "
+            f"{loss_rel:.3g}, max diff of max(|p|, 1): {diffs}")
+        require(loss_rel <= tol["loss"] and all(d <= tol[k] for k, d in diffs.items()),
+                f"{name}: GPU and CPU {dtype} training disagree ({loss_rel}, {diffs})")
         out[name] = {"losses_cpu": lc.tolist(), "max_rel_loss_diff": loss_rel,
-                     "max_param_diff_of_max_abs": param}
-    out["batch"], out["steps"], out["learning_rate"] = CPU_BATCH, 3, 1e-2
+                     "max_param_diff_of_max_abs": diffs["param"],
+                     "max_running_stat_diff_of_max_abs": diffs["stats"]}
+    out.update(batch=CPU_BATCH, steps=3, learning_rate=1e-2, tolerance=tol)
     return out
 
 
-def capture_block1(ds, order, sds):
+def capture_block1(ds, order, sds, dtype="float32"):
     """Block 1's inputs, parameters, moments and pooled cotangent in one
-    baseline step on the first T_BATCH windows of ``order``."""
+    baseline step on the first T_BATCH windows of ``order``, and its mode."""
     import sept_tpu_torch.models.backbone as BB
     from sept_tpu_torch.train.steps import make_baseline_step
 
-    base, _, _ = train_states(sds, DEV)
+    base, _, _ = train_states(sds, DEV, dtype=dtype)
     cap, orig = {}, BB.block1_train_forward
 
-    def spy(x, w, b, gamma, beta, eps):
-        pooled, mean, var = orig(x, w, b, gamma, beta, eps)
+    def spy(x, w, b, gamma, beta, eps, cd=torch.float32):
+        pooled, mean, var = orig(x, w, b, gamma, beta, eps, cd)
         cap.update({k: t.detach().clone() for k, t in
                     dict(x=x, w=w, b=b, gamma=gamma, beta=beta, mean=mean, var=var).items()})
-        cap["eps"] = eps
+        cap["eps"], cap["cd"] = eps, cd
         pooled.register_hook(lambda g: cap.update(d_pooled=g.detach().contiguous()))
         return pooled, mean, var
 
@@ -801,13 +846,13 @@ def backward_inputs(cap):
     """conv_out (K1) and the per-channel vectors the backward derives."""
     from sept_tpu_torch.ops import conv_block1 as K
 
-    conv_out, _ = K.block1_conv_stats(cap["x"], cap["w"], cap["b"])
+    conv_out, _ = K.block1_conv_stats(cap["x"], cap["w"], cap["b"], cap["cd"])
     ga, shift = K.fold_bn(cap["gamma"], cap["beta"], cap["mean"], cap["var"], cap["eps"])
     inv = torch.rsqrt(cap["var"] + cap["eps"])
     return conv_out, ga, shift, inv
 
 
-def check_backward(x, w, conv_out, dp, ga, shift, mean, inv):
+def check_backward(x, w, conv_out, dp, ga, shift, mean, inv, cd=torch.float32):
     """K3-K5 on these tensors against their plain versions: (relative
     errors, absolute errors, the plain train-mode (dy, m1, m2)).  dy must be
     equal and the K3 sums within SUMS_RTOL of the sums of |terms|.  K4 and
@@ -816,27 +861,31 @@ def check_backward(x, w, conv_out, dp, ga, shift, mean, inv):
     max |plain| in both; db within TRAIN_TOL of max |plain| in eval mode.  In
     train mode db is 0 in exact arithmetic (the bias sits ahead of
     batch-stat BN), so there both sides are held to that zero within
-    B * H * W * 2^-24 * max |dconv|, one f32 rounding unit a term."""
+    B * H * W * 2^-24 * max |dconv|, one f32 rounding unit a term.  ``cd``
+    is the kernels' mode (conv_out, dp and dy in it): the same bounds hold in
+    bf16, whose kernels compute dconv in the plain version's order and round
+    it alike."""
     from sept_tpu_torch.ops import conv_block1 as K
 
-    dy_k, s_k = K.block1_route(conv_out, dp, ga, shift, mean, inv)
-    dy_p, s_p = K.block1_route_plain(conv_out, dp, ga, shift, mean, inv)
-    xhat = (conv_out - mean[None, :, None, None]) * inv[None, :, None, None]
-    scale = torch.stack([dy_p.abs().sum((0, 2, 3)), (dy_p * xhat).abs().sum((0, 2, 3))])
+    dy_k, s_k = K.block1_route(conv_out, dp, ga, shift, mean, inv, cd)
+    dy_p, s_p = K.block1_route_plain(conv_out, dp, ga, shift, mean, inv, cd)
+    xhat = (conv_out.float() - mean[None, :, None, None]) * inv[None, :, None, None]
+    dy_f = dy_p.float()
+    scale = torch.stack([dy_f.abs().sum((0, 2, 3)), (dy_f * xhat).abs().sum((0, 2, 3))])
     n = conv_out.shape[0] * conv_out.shape[2] * conv_out.shape[3]
     m1, m2 = s_p[0] / n, s_p[1] / n
     rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)  # noqa: E731
-    err = {"block1_route": float((dy_k - dy_p).abs().max()),
+    err = {"block1_route": float((dy_k.float() - dy_f).abs().max()),
            "block1_route_sums_rel": float(((s_k - s_p).abs() / scale.clamp(min=1e-30)).max()),
            "block1_weight_grads": 0.0, "block1_input_grad": 0.0}
     abs_err = {"block1_route": err["block1_route"], "block1_weight_grads": 0.0,
                "block1_input_grad": 0.0}
     zero = torch.zeros_like(m1)
     for mode, a1, a2 in (("train", m1, m2), ("eval", zero, zero)):
-        dw_k, db_k = K.block1_weight_grads(x, conv_out, dy_p, ga, mean, inv, a1, a2)
-        dw_p, db_p = K.block1_weight_grads_plain(x, conv_out, dy_p, ga, mean, inv, a1, a2)
-        dx_k = K.block1_input_grad(conv_out, dy_p, w, ga, mean, inv, a1, a2)
-        dx_p = K.block1_input_grad_plain(conv_out, dy_p, w, ga, mean, inv, a1, a2)
+        dw_k, db_k = K.block1_weight_grads(x, conv_out, dy_p, ga, mean, inv, a1, a2, cd)
+        dw_p, db_p = K.block1_weight_grads_plain(x, conv_out, dy_p, ga, mean, inv, a1, a2, cd)
+        dx_k = K.block1_input_grad(conv_out, dy_p, w, ga, mean, inv, a1, a2, cd)
+        dx_p = K.block1_input_grad_plain(conv_out, dy_p, w, ga, mean, inv, a1, a2, cd)
         err["block1_weight_grads"] = max(err["block1_weight_grads"], rel(dw_k, dw_p))
         err["block1_input_grad"] = max(err["block1_input_grad"], rel(dx_k, dx_p))
         abs_err["block1_weight_grads"] = max(abs_err["block1_weight_grads"],
@@ -972,14 +1021,15 @@ def train_edge_phase(device):
     return worst
 
 
-def train_profile_phase(ds, order, sds, reps=3):
+def train_profile_phase(ds, order, sds, reps=3, dtype="float32", saliency=0.0):
     """torch.profiler over ``reps`` baseline steps and ``reps`` cloak + GRL
-    steps (antithetic) after a warm step of each, batch T_BATCH."""
+    steps (antithetic, ``saliency_align=saliency``) after a warm step of
+    each, batch T_BATCH, ``compute_dtype=dtype``."""
     from torch.profiler import ProfilerActivity, profile
 
     from sept_tpu_torch.train.steps import make_baseline_step, make_cloak_grl_step
 
-    base, _, (grl, grl_kw) = train_states(sds, DEV)
+    base, _, (grl, grl_kw) = train_states(sds, DEV, dtype=dtype, saliency=saliency)
     batches = [ds.batch(order[i * T_BATCH:(i + 1) * T_BATCH]) for i in range(reps + 1)]
     out = {}
     for name, state, step in (("baseline", base, make_baseline_step()),
@@ -998,9 +1048,305 @@ def train_profile_phase(ds, order, sds, reps=3):
             "batch": T_BATCH, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy if rows else "not measured",
             "device_idle_share": 1 - busy / wall_ms if rows else "not measured",
+            "device_launches_per_step": sum(c for _, _, c in rows) if rows else "not measured",
             "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:14]],
             "host_top": [{"op": k[:60], "self_cpu_ms": ms, "calls": c}
                          for k, ms, c in host[:10]]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the bf16 training slice
+
+
+def bf16_order(ds):
+    """The T_BATCH * T_BATCHES real windows of the bf16 ingest in the order
+    its f32 baseline epoch (ingest_bf16_phase) took them."""
+    valid = torch.nonzero(ds.weight > 0)[:, 0]
+    g = torch.Generator(device=valid.device).manual_seed(SEED + 12)
+    order = valid[torch.randperm(len(valid), generator=g, device=valid.device)]
+    return order[:T_BATCH * T_BATCHES]
+
+
+def train_bf16_phase(ds, order, sds):
+    """One epoch of T_BATCHES batches of T_BATCH of each workload with
+    ``compute_dtype="bfloat16"`` on the bf16 ingest's windows, full width:
+    baseline (K1-K4 in bf16, no K5), plain cloak (K1-K3 and K5, no K4), cloak
+    + GRL with the antithetic pair and the saliency term (all five); no
+    block-1 launch in the f32 mode.  Returns (per-path info, launches)."""
+    from sept_tpu_torch.train.steps import make_cloak_epoch_runner, make_epoch_runner
+
+    base, (cloak, cloak_kw), (grl, grl_kw) = train_states(sds, DEV, dtype="bfloat16",
+                                                          saliency=SALIENCY_ALIGN)
+    kw = {"n_batches": T_BATCHES, "batch_size": T_BATCH}
+    data = (ds.windows, ds.labels_emo, ds.labels_gen, ds.weight, order, None)
+    runs = {
+        "baseline": (base, lambda: make_epoch_runner()(
+            base, ds.windows, ds.labels_emo, ds.weight, order, **kw),
+            ("block1_input_grad_bf16",)),
+        "cloak": (cloak, lambda: make_cloak_epoch_runner(**cloak_kw)(cloak, *data, **kw),
+                  ("block1_weight_grads_bf16",)),
+        "cloak_grl": (grl, lambda: make_cloak_epoch_runner(grl=True, **grl_kw)(grl, *data, **kw),
+                      ()),
+    }
+    frozen = {"cloak": cloak.model.backbone, "cloak_grl": grl.model.emotion_backbone}
+    info, launches = {}, {}
+    for name, (state, run, absent) in runs.items():
+        before = snapshot(state.model)
+        key = f"train_bf16_{name}"
+        out, launches[key], ms = drive(
+            run, must=tuple(k for k in BLOCK1_BF16 if k not in absent), must_not=absent + BLOCK1)
+        _, losses, correct, counts = out
+        losses = losses.cpu().numpy()
+        require(np.isfinite(losses).all(), f"bf16 {name}: non-finite losses {losses}")
+        require(int(counts.sum()) == T_BATCH * T_BATCHES, f"bf16 {name}: counts {counts}")
+        after = state.model.state_dict()
+        require(all(v.dtype == torch.float32 for k, v in after.items()
+                    if not k.endswith("num_batches_tracked")),
+                f"bf16 {name}: a parameter or statistic left float32")
+        moved = [k for k, v in after.items() if not torch.equal(v, before[k])]
+        require(moved, f"bf16 {name}: nothing trained")
+        if name in frozen:
+            require(unchanged(frozen[name], {k.split(".", 1)[1]: v for k, v in before.items()
+                                             if k.startswith(("backbone.", "emotion_backbone."))}),
+                    f"bf16 {name}: the frozen backbone moved")
+            require(any(k.startswith("noise.") for k in moved), f"bf16 {name}: noise still")
+        if name == "cloak_grl":
+            require(any(k.startswith("gender_backbone.") for k in moved),
+                    "bf16 GRL: the adversary is still")
+        info[name] = {"losses": losses.tolist(), "correct": int(correct.sum()),
+                      "epoch_wall_ms": ms, "wall_ms_per_step": ms / T_BATCHES,
+                      "block1_launches_per_step": {k: v / T_BATCHES
+                                                   for k, v in launches[key].items() if v}}
+    require(rz_rows_zero(base.model) and rz_rows_zero(grl.model.gender_backbone),
+            "bf16: bias_hh r/z rows moved")
+    info.update(batch=T_BATCH, batches=T_BATCHES, saliency_align=SALIENCY_ALIGN,
+                windows=list(ds.windows.shape))
+    return info, launches
+
+
+def bf16_conv_errors(y_k, y_p):
+    """(max |kernel - plain|, max over elements of |kernel - plain| / (one
+    bf16 unit of the larger + 1e-6), bit-equal share) of two bf16 tensors."""
+    a, b = y_k.float(), y_p.float()
+    d = (a - b).abs()
+    units = d / (2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6)
+    return float(d.max()), float(units.max()), float((d == 0).float().mean())
+
+
+def check_bf16_forward(x, w, b, gamma, beta, eps):
+    """K1 and K2 in bf16 against their plain versions: the conv output
+    within one bf16 unit and bit-equal in BF16_CONV_EQUAL_SHARE of the
+    elements, the moments within SUMS_RTOL of the sums of |terms|, pooled
+    equal (on the plain conv output).  Returns (errors, conv output, the
+    batch's BN pair, mean, inv)."""
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    bf = torch.bfloat16
+    y_k, s_k = K.block1_conv_stats(x, w, b, bf)
+    y_p, s_p = K.block1_conv_stats_plain(x, w, b, bf)
+    conv_abs, conv_units, share = bf16_conv_errors(y_k, y_p)
+    yp = y_p.float()
+    terms = torch.stack([yp.abs().sum((0, 2, 3)), (yp * yp).sum((0, 2, 3))])
+    n = y_p.shape[0] * y_p.shape[2] * y_p.shape[3]
+    mean = s_p[0] / n
+    var = torch.clamp(s_p[1] / n - mean * mean, min=0.0)
+    ga, shift = K.fold_bn(gamma, beta, mean, var, eps)
+    pool = float((K.block1_norm_pool(y_p, ga, shift, bf).float()
+                  - K.block1_norm_pool_plain(y_p, ga, shift, bf).float()).abs().max())
+    err = {"block1_conv_stats_bf16": conv_abs, "conv_bf16_units": conv_units,
+           "conv_bf16_equal_share": share,
+           "moments_bf16_rel_of_abs_sum": float(((s_k - s_p).abs() / terms.clamp(min=1e-30)).max()),
+           "block1_norm_pool_bf16": pool}
+    torch.cuda.synchronize()
+    require(conv_units <= 1.0 and share >= BF16_CONV_EQUAL_SHARE,
+            f"block1_conv_stats bf16 disagrees with its plain version: {err}")
+    require(err["moments_bf16_rel_of_abs_sum"] <= SUMS_RTOL, f"bf16 moments disagree: {err}")
+    require(pool == 0.0, f"block1_norm_pool bf16 disagrees with its plain version: {err}")
+    return err, y_p, (ga, shift), mean, torch.rsqrt(var + eps)
+
+
+def train_bf16_kernel_phase(cap, launches):
+    """Each bf16 kernel mode against its plain version on a bf16 baseline
+    step's own block-1 tensors (batch T_BATCH, the moments recomputed from
+    the plain conv output), then timed beside the plain version, one bf16
+    PyTorch call and the bound (bf16 operands: the bf16 peak; stored tensors
+    2 bytes an element); and block 1's bf16 forward + backward beside
+    autograd through the cuDNN bf16 chain."""
+    import torch.nn.functional as tf
+
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    bf = torch.bfloat16
+    x, w, b, gamma, beta, eps = (cap[k] for k in ("x", "w", "b", "gamma", "beta", "eps"))
+    dp = cap["d_pooled"]
+    require(cap["cd"] == bf and dp.dtype == bf, "the bf16 step did not run block 1 in bf16")
+    fwd_err, y, (ga, shift), mean, inv = check_bf16_forward(x, w, b, gamma, beta, eps)
+    err, abs_err, (dy, m1, m2) = check_backward(x, w, y, dp, ga, shift, mean, inv, bf)
+    log(f"bf16 K1-K5 on the bf16 baseline step's tensors: {fwd_err} {err}")
+    dconv = K._dconv(y, dy, ga, mean, inv, m1, m2).to(bf)
+    z = torch.relu(y.float() * ga[None, :, None, None] + shift[None, :, None, None]).to(bf)
+    _, idx = tf.max_pool2d(z, 2, 2, return_indices=True)
+    xb, wb = x.to(bf), w.to(bf)
+    n, c, h, wd = y.shape
+    outs, pix = n * c * h * wd, n * h * wd
+    rows = [
+        ("block1_conv_stats_bf16", "sept_tpu/ops/pallas_conv.py:120",
+         lambda: K.block1_conv_stats(x, w, b, bf),
+         lambda: K.block1_conv_stats_plain(x, w, b, bf),
+         lambda: tf.conv2d(xb, wb, b.to(bf), padding=2), "F.conv2d bf16 (cuDNN, no moments)",
+         bound(outs * (2 * 25 + 1 + 3), 4.0 * (pix + 28 * c) + 2.0 * outs, PEAK_BF16_FLOPS),
+         fwd_err["block1_conv_stats_bf16"]),
+        ("block1_norm_pool_bf16", "sept_tpu/ops/pallas_conv.py:155",
+         lambda: K.block1_norm_pool(y, ga, shift, bf),
+         lambda: K.block1_norm_pool_plain(y, ga, shift, bf), None, None,
+         bound(3.0 * outs, 2.0 * (outs + outs // 4) + 8.0 * c, PEAK_BF16_FLOPS),
+         fwd_err["block1_norm_pool_bf16"]),
+        ("block1_route_bf16", "sept_tpu/ops/pallas_conv.py:166",
+         lambda: K.block1_route(y, dp, ga, shift, mean, inv, bf),
+         lambda: K.block1_route_plain(y, dp, ga, shift, mean, inv, bf),
+         lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+             dp, z, [2, 2], [2, 2], [0, 0], [1, 1], False, idx),
+         "max_pool2d_with_indices_backward bf16 (no ReLU mask, no sums)",
+         bound(9.0 * outs, 2.0 * (2 * outs + outs // 4) + 24.0 * c, PEAK_BF16_FLOPS),
+         abs_err["block1_route"]),
+        ("block1_weight_grads_bf16", "sept_tpu/ops/pallas_conv.py:231",
+         lambda: K.block1_weight_grads(x, y, dy, ga, mean, inv, m1, m2, bf),
+         lambda: K.block1_weight_grads_plain(x, y, dy, ga, mean, inv, m1, m2, bf),
+         lambda: torch.nn.grad.conv2d_weight(xb, tuple(w.shape), dconv, padding=2),
+         "torch.nn.grad.conv2d_weight bf16 (cuDNN wgrad, dconv given)",
+         bound(outs * (5 + 2 * 25 + 1), 4.0 * (pix + 31 * c) + 4.0 * outs, PEAK_BF16_FLOPS),
+         abs_err["block1_weight_grads"]),
+        ("block1_input_grad_bf16", "sept_tpu/ops/pallas_conv.py:269",
+         lambda: K.block1_input_grad(y, dy, w, ga, mean, inv, m1, m2, bf),
+         lambda: K.block1_input_grad_plain(y, dy, w, ga, mean, inv, m1, m2, bf),
+         lambda: torch.nn.grad.conv2d_input(tuple(x.shape), wb, dconv, padding=2),
+         "torch.nn.grad.conv2d_input bf16 (cuDNN dgrad, dconv given)",
+         bound(outs * (5 + 2 * 25), 4.0 * (30 * c + pix) + 4.0 * outs, PEAK_BF16_FLOPS),
+         abs_err["block1_input_grad"]),
+    ]
+    # the f32 mode on the same values, widened: the modes compared in one call
+    yf, dpf, dyf = y.float(), dp.float(), dy.float()
+    f32_mode = [lambda: K.block1_conv_stats(x, w, b),
+                lambda: K.block1_norm_pool(yf, ga, shift),
+                lambda: K.block1_route(yf, dpf, ga, shift, mean, inv),
+                lambda: K.block1_weight_grads(x, yf, dyf, ga, mean, inv, m1, m2),
+                lambda: K.block1_input_grad(yf, dyf, w, ga, mean, inv, m1, m2)]
+    kernels = []
+    for (name, replaces, kern, plain, lib, lib_name, (bound_ms, bound_by), e), f32 in zip(
+            rows, f32_mode):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "sept_tpu_torch/csrc/conv_block1.cu",
+            "replaces": f"{replaces} (cdtype bfloat16)", "f32_mode_ms_same_shape": cuda_ms(f32),
+            "launches": sum(p[name] for p in launches.values()),
+            "launches_by_path": {k: p[name] for k, p in launches.items() if p[name]},
+            "max_abs_err": e, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if lib is None else cuda_ms(lib), "shape": list(y.shape)})
+        if lib_name:
+            kernels[-1]["library"] = lib_name
+    kernels[0].update(max_bf16_units=fwd_err["conv_bf16_units"],
+                      equal_share=fwd_err["conv_bf16_equal_share"],
+                      moments_max_rel_err_of_abs_sum=fwd_err["moments_bf16_rel_of_abs_sum"])
+    kernels[1]["library_note"] = ("null: no single PyTorch call computes BN affine + ReLU + "
+                                  "first-max 2x2 pool")
+    kernels[2]["sums_max_rel_err_of_abs_sum"] = err["block1_route_sums_rel"]
+    kernels[3]["max_rel_err_of_max_abs"] = err["block1_weight_grads"]
+    kernels[4]["max_rel_err_of_max_abs"] = err["block1_input_grad"]
+
+    leaves = [t.clone().requires_grad_() for t in (x, w, b, gamma, beta)]
+
+    def kernels_fb():
+        pooled = K.Block1Train.apply(*leaves, eps, bf)[0]
+        return torch.autograd.grad(pooled, leaves, dp)
+
+    def cudnn_fb():
+        y = tf.conv2d(leaves[0].to(bf), leaves[1].to(bf), leaves[2].to(bf), padding=2)
+        y = tf.batch_norm(y.float(), None, None, leaves[3], leaves[4], training=True, eps=eps)
+        return torch.autograd.grad(tf.max_pool2d(torch.relu(y).to(bf), 2), leaves, dp)
+
+    diffs = {k: float((a - r).abs().max()) for k, a, r in
+             zip(("dx", "dW", "db", "dgamma", "dbeta"), kernels_fb(), cudnn_fb())}
+    block1 = {"shape": list(x.shape), "kernels_fwd_bwd_ms": cuda_ms(kernels_fb),
+              "cudnn_bf16_chain_fwd_bwd_ms": cuda_ms(cudnn_fb),
+              "cudnn_bf16_chain_max_abs_diff": diffs,
+              "note": "the cuDNN chain rounds the conv output but not z before the pool"}
+    return kernels, block1
+
+
+def train_bf16_edge_phase(device):
+    """The bf16 modes of K1-K5 against their plain versions at odd and
+    ragged shapes."""
+    g = torch.Generator(device=device).manual_seed(SEED + 18)
+    worst = {}
+    for b, h, w in ((1, 37, 29), (3, 64, 33)):
+        x = torch.randn(b, 1, h, w, device=device, generator=g)
+        wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
+        bias = 0.1 * torch.randn(32, device=device, generator=g)
+        gamma = 1 + 0.1 * torch.randn(32, device=device, generator=g)
+        beta = 0.1 * torch.randn(32, device=device, generator=g)
+        fwd, y, (ga, shift), mean, inv = check_bf16_forward(x, wt, bias, gamma, beta, 1e-5)
+        dp = torch.randn(b, 32, h // 2, w // 2, device=device, generator=g).to(torch.bfloat16)
+        err, _, _ = check_backward(x, wt, y, dp, ga, shift, mean, inv, torch.bfloat16)
+        for k, v in {**fwd, **{f"{k}_bf16": v for k, v in err.items()}}.items():
+            worst[k] = min(worst.get(k, 1.0), v) if k.endswith("share") else max(
+                worst.get(k, 0.0), v)
+    return worst
+
+
+def device_launches(fn):
+    """Device activities (kernels, copies) of one run of ``fn``, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, _ = profile_rows(prof, 1)
+    return sum(c for _, _, c in rows) if rows else "not measured"
+
+
+def gru_phase(sd):
+    """Layer 0 of the bf16 BiGRU as the port runs it (bigru_layer_lowp: one
+    matmul for the input projections, then a loop over the WIN // 8 steps)
+    beside cuDNN's bf16 GRU on the same bf16 weights and input, a yardstick
+    that keeps a bf16 hidden state where flax keeps an f32 one: max
+    |difference| of the outputs, forward and forward + backward ms (batch
+    T_BATCH), and device launches of one forward + backward."""
+    from sept_tpu_torch.models.backbone import bigru_layer_lowp
+
+    bf = torch.bfloat16
+    rnn = backbone(sd).to(DEV).rnn
+    ws = [getattr(rnn, f"{k}_l0{sfx}").detach() for sfx in ("", "_reverse")
+          for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+    # cuDNN's bf16 GRU on the same weights, held in one flat buffer as
+    # nn.GRU keeps them (else cuDNN compacts them at every call)
+    gru = torch.nn.GRU(rnn.input_size, rnn.hidden_size, batch_first=True,
+                       bidirectional=True).to(DEV)
+    gru.load_state_dict({f"{k}_l0{sfx}": getattr(rnn, f"{k}_l0{sfx}") for sfx in ("", "_reverse")
+                         for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")})
+    gru = gru.to(bf)
+    gru.flatten_parameters()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    x = torch.randn(T_BATCH, WIN // 8, rnn.input_size, device=DEV, generator=g)
+    xr = x.clone().requires_grad_()
+    xb = x.to(bf).requires_grad_()
+
+    def lowp_fb():
+        return torch.autograd.grad(bigru_layer_lowp(xr, ws, bf).sum(), xr)
+
+    def cudnn_fb():
+        return torch.autograd.grad(gru(xb)[0].float().sum(), xb)
+
+    with torch.no_grad():
+        lowp = bigru_layer_lowp(x, ws, bf)
+        out = {"shape": list(x.shape), "hidden": rnn.hidden_size,
+               "cudnn_bf16_max_abs_diff": float((gru(x.to(bf))[0].float() - lowp).abs().max()),
+               "lowp_fwd_ms": cuda_ms(lambda: bigru_layer_lowp(x, ws, bf)),
+               "cudnn_bf16_fwd_ms": cuda_ms(lambda: gru(x.to(bf)))}
+    out.update(lowp_fwd_bwd_ms=cuda_ms(lowp_fb), cudnn_bf16_fwd_bwd_ms=cuda_ms(cudnn_fb),
+               lowp_fwd_bwd_device_launches=device_launches(lowp_fb),
+               cudnn_bf16_fwd_bwd_device_launches=device_launches(cudnn_fb))
     return out
 
 
@@ -1077,7 +1423,7 @@ def featurize_phase(rng):
         must_not = ("mel_db_bf16",) if ft == "mfcc" else ("mel_db_bf16", "floor_dct")
         store, launches[f"featurize_{ft}"], ms = drive(
             lambda: featurize_corpus(corpus, ft, include_gemaps=False, device=DEV),
-            must=must, must_not=must_not + BACKWARD)
+            must=must, must_not=must_not + BACKWARD + BLOCK1_BF16)
         check_store(store, corpus, ft)
         info[ft] = {"wall_s": ms / 1e3, "utterances_per_s": N_CORPUS / (ms / 1e3),
                     "audio_s_per_s": samples / 16000 / (ms / 1e3)}
@@ -1140,7 +1486,7 @@ def fused_mfcc_phase(rng):
         mode = "bf16" if bf16 else "f32"
         gpu, launches[f"fused_mfcc_{mode}"], _ = drive(
             lambda: fused_mfcc(padded, t, bf16=bf16, device=DEV),
-            must=(mel_kernel, "floor_dct"), must_not=(other,) + BACKWARD)
+            must=(mel_kernel, "floor_dct"), must_not=(other,) + BACKWARD + BLOCK1_BF16)
         require(gpu.shape == (N_FEAT_CPU, t, 40), f"fused_mfcc {mode}: shape {gpu.shape}")
         d = (gpu.cpu() - fused_mfcc(padded, t, bf16=bf16, device="cpu")).abs().flatten()
         mx, p99 = float(d.max()), float(np.percentile(d.numpy(), 99))
@@ -1185,10 +1531,11 @@ def ingest_bf16_phase(sds):
               for f in ("xla", "pallas_bf16")}
     launches = {}
     ds_x, launches["ingest_xla"], _ = drive(
-        ingest["xla"], must=("mel_db",), must_not=("mel_db_bf16", "floor_dct") + BACKWARD)
+        ingest["xla"], must=("mel_db",),
+        must_not=("mel_db_bf16", "floor_dct") + BACKWARD + BLOCK1_BF16)
     ds_b, launches["ingest_bf16"], _ = drive(
         ingest["pallas_bf16"], must=("mel_db_bf16",),
-        must_not=("mel_db", "floor_dct") + BACKWARD)
+        must_not=("mel_db", "floor_dct") + BACKWARD + BLOCK1_BF16)
     require(ds_b.windows.shape == ds_x.windows.shape, "bf16 ingest shape")
     require(bool(torch.isfinite(ds_b.windows).all()), "non-finite bf16 windows")
     d = (ds_b.windows - ds_x.windows).abs().flatten().cpu().numpy()
@@ -1223,13 +1570,13 @@ def ingest_bf16_phase(sds):
                                     order[:T_BATCH * T_BATCHES], n_batches=T_BATCHES,
                                     batch_size=T_BATCH),
         must=("block1_conv_stats", "block1_norm_pool", "block1_route", "block1_weight_grads"),
-        must_not=("block1_input_grad", "mel_db", "mel_db_bf16", "floor_dct"))
+        must_not=("block1_input_grad", "mel_db", "mel_db_bf16", "floor_dct") + BLOCK1_BF16)
     losses = out[1].cpu().numpy()
     require(np.isfinite(losses).all(), f"baseline on bf16 windows: losses {losses}")
     info["baseline_epoch"] = {"losses": losses.tolist(), "epoch_wall_ms": ms,
                               "batch": T_BATCH, "batches": T_BATCHES}
     padded = torch.from_numpy(prepare_waves(waves, N_FFT)[0]).to(DEV)
-    return info, launches, padded
+    return info, launches, padded, ds_b
 
 
 def bf16_mel_errors(k, p):
@@ -1377,7 +1724,7 @@ def main():
     reqs = make_requests(np.random.default_rng(SEED))
     answers, serve_launches, _ = drive(
         lambda: serve_phase(gpu, reqs), must=("mel_db", "block1_conv_stats", "block1_norm_pool"),
-        must_not=BACKWARD + ("mel_db_bf16", "floor_dct"))
+        must_not=BACKWARD + BLOCK1_BF16 + ("mel_db_bf16", "floor_dct"))
     paths = {"serve": serve_launches}
     log(f"served; kernel launches on the serving path: {serve_launches}")
 
@@ -1402,23 +1749,37 @@ def main():
     feat["fused_mfcc"], mfcc_launches = fused_mfcc_phase(np.random.default_rng(SEED + 15))
     paths.update(mfcc_launches)
     log(f"featurize done at {time.perf_counter() - t0:.1f} s: {feat}")
-    ingest_b, ingest_launches, ingest_padded = ingest_bf16_phase(sds)
+    ingest_b, ingest_launches, ingest_padded, ds_bf16 = ingest_bf16_phase(sds)
     paths.update(ingest_launches)
     log(f"ingest-bf16 done at {time.perf_counter() - t0:.1f} s: {ingest_b}")
+    order_bf16 = bf16_order(ds_bf16)
+    epochs_bf16, bf16_launches = train_bf16_phase(ds_bf16, order_bf16, sds)
+    paths.update(bf16_launches)
+    log(f"bf16 training epochs done at {time.perf_counter() - t0:.1f} s: {epochs_bf16}")
+    train_cpu_bf16 = train_cpu_phase(ds_bf16, order_bf16, sds, "bfloat16", SALIENCY_ALIGN,
+                                     TRAIN_BF16_TOL)
+    log(f"train-cpu bf16 done at {time.perf_counter() - t0:.1f} s")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
     train_kernels, block1_train = train_kernel_phase(capture_block1(ds, order, sds), paths)
     kernels += train_kernels
     kernels += featurize_kernel_phase(ingest_padded, mfcc_chunk, paths)
+    bf16_kernels, block1_bf16 = train_bf16_kernel_phase(
+        capture_block1(ds_bf16, order_bf16, sds, "bfloat16"), paths)
+    kernels += bf16_kernels
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s; shapes {shapes}")
     edges = edge_phase(gpu.device)
     edges.update(train_edge_phase(gpu.device))
     edges.update(featurize_edge_phase(gpu.device))
+    edges.update(train_bf16_edge_phase(gpu.device))
     log(f"edge-shape checks: {edges}")
     latency = latency_phase(gpu, np.random.default_rng(SEED + 7))
     log(f"latency done at {time.perf_counter() - t0:.1f} s")
     prof = {str(n): profile_phase(gpu, np.random.default_rng(SEED + 8), n=n) for n in (1, 8)}
     train_prof = train_profile_phase(ds, order, sds)
+    bf16_prof = train_profile_phase(ds_bf16, order_bf16, sds, dtype="bfloat16",
+                                    saliency=SALIENCY_ALIGN)
+    gru = gru_phase(sds[0])
     log(f"profile done at {time.perf_counter() - t0:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -1433,6 +1794,14 @@ def main():
     print(json.dumps({"train_profile": train_prof}))
     print(json.dumps({"featurize": feat}))
     print(json.dumps({"ingest_bf16": ingest_b}))
+    print(json.dumps({"train_bf16": {
+        "epochs": epochs_bf16, "f32_baseline_epoch_same_windows": ingest_b["baseline_epoch"],
+        "f32_epochs": epochs, "train_cpu": train_cpu_bf16, "profile": bf16_prof,
+        "f32_profile": {k: {m: v[m] for m in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                              "device_idle_share", "device_launches_per_step")}
+                        for k, v in train_prof.items()},
+        "block1_fwd_bwd": block1_bf16, "gru": gru,
+        "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}}))
     print(smi)
     # last but one, so the end of the output always holds it
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 //
 // Replaces the kernels of sept_tpu/ops/pallas_conv.py:
 //   K1 _k1_conv_stats -> sept_conv_stats: conv 5x5, 1 -> C channels, SAME,
-//      + bias, stored NCHW f32, and the per-channel sum of y and of y^2 over
-//      the batch (the BatchNorm batch moments);
+//      + bias, stored NCHW, and the per-channel sum of y and of y^2 over the
+//      batch (the BatchNorm batch moments) of the stored values;
 //   K2 _k2_norm_pool  -> sept_norm_pool: y * a[c] + b[c] (BatchNorm folded to
 //      one scale and shift), ReLU, 2x2 stride-2 max pool, NCHW out;
 //   K3 _k3_route -> sept_route: recompute z = relu(y * a[c] + b[c]) exactly
@@ -19,14 +19,25 @@
 //      dconv(c, h - dh + 2, w - dw + 2), SAME borders: the correlation of
 //      dconv with the flipped kernel.
 //
+// Two modes, the TPU kernels' cdtype.  f32 (sept_*): every tensor f32.  bf16
+// (sept_*_bf16): the conv output, the pooled values and dy are stored in
+// bf16, and the operands of the products are rounded to bf16 where the TPU
+// kernels cast them: x and the weights in K1, x and dconv in K4 (db sums the
+// unrounded f32 dconv), dconv and the weights in K5.  K2 rounds z before its
+// max, K3 compares the same rounded z.  A product of two bf16 values is exact
+// in f32, so f32 FMAs over rounded operands are the numerics class of the
+// MXU's bf16 x bf16 -> f32: the bf16 mode shares the f32 kernels' tiling,
+// templated on the storage type.  Sums, moments, dW, db and dx stay f32.
+//
 // What bounds them on the H100: bytes.  K1 does 25 multiply-adds per output
-// element but writes C = 32 floats for every input float it reads, and K2
+// element but writes C = 32 values for every input float it reads, and K2
 // reads those back to write a quarter of them; at the serving shapes the
-// conv output (B, 32, 200, 128) f32 is 3.3 MB a window, so both kernels sit
-// on the memory-rate floor long before the f32 rate.  K3-K5 each read the
-// conv output, and K4 and K5 also read dy, a tensor of the same size; at the
-// training shapes (32, 32, 200, 128) f32 each is 104.9 MB, against at most
-// 26 multiply-adds per element of f32 work.
+// conv output (B, 32, 200, 128) is 3.3 MB a window in f32, 1.6 MB in bf16,
+// so both kernels sit on the memory-rate floor long before the f32 rate.
+// K3-K5 each read the conv output, and K4 and K5 also read dy, a tensor of
+// the same size; at the training shapes (32, 32, 200, 128) each is 104.9 MB
+// in f32 and 52.4 MB in bf16, against at most 26 multiply-adds per element.
+// The bf16 mode halves those bytes.
 //
 // Design:
 // - The TPU kernel turned the conv into one banded GEMM and rolled rows to
@@ -35,7 +46,7 @@
 //   in shared memory, each thread keeps the 8 x 5 input patch of its four
 //   vertically adjacent output pixels in registers, and loops over the C
 //   channels with the 25 weights of each read as float4 broadcasts from
-//   shared memory.  Every store is a 32-float coalesced row segment.
+//   shared memory.  Every store is a 32-value coalesced row segment.
 // - On the TPU the grid ran in order and the kernels carried their sums from
 //   one item to the next (pl.when(b == 0)).  Blocks here run in any order,
 //   so K1, K3 and K4 each write per-block partial sums to scratch, and one
@@ -44,7 +55,9 @@
 //   gradients bit for bit.
 // - K2 is elementwise over pooled outputs; it rounds y * a + b as torch's
 //   separate multiply and add do (no FMA contraction), so it agrees with its
-//   plain version bit for bit.  K3 recomputes z with the same rounding.
+//   plain version bit for bit.  K3 recomputes z with the same rounding, and
+//   K4 and K5 compute dconv in the plain version's order, uncontracted, so
+//   that the bf16 rounding of dconv sees the plain version's f32 value.
 // - K3 is one thread per 2x2 cell; neighbouring threads read neighbouring
 //   pixel pairs.  Cells past the pooled grid (odd H or W, floored as K2
 //   floors them) write dy = 0.
@@ -58,10 +71,11 @@
 // - K5 uses K1's geometry: a 32 x 32 output tile, 4 rows a thread, the
 //   flipped weights as float4 broadcasts from shared memory; per channel the
 //   block stages dconv of the 36 x 36 halo tile in shared memory.
-// - Any H and W are taken; the pool floors odd sizes as max_pool2d does.  The
-//   fixed 200 x 128 geometry and the bf16-only rule of the TPU path were
-//   limits of its VMEM and do not apply.
+// - Any H and W are taken, in both modes; the pool floors odd sizes as
+//   max_pool2d does.  The fixed 200 x 128 geometry of the TPU path and its
+//   rule that only the bf16 mode fits its VMEM do not apply here.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,17 +91,33 @@ constexpr int NT = 26;                // K4 sums a channel: 25 taps + bias
 constexpr int K4_RPW = 8;             // K4 rows a warp
 constexpr int K4_ROWS = WARPS * K4_RPW;  // 64
 
+using bf16 = __nv_bfloat16;
+
+// T is the storage type of the conv output, the pooled values and dy: float
+// in the f32 mode, bf16 in the bf16 mode.  to_f reads a stored value,
+// from_f rounds to the storage type (to nearest even), rnd rounds an operand
+// to it and back.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
 // z before the ReLU as K2 and K3 round it: a separate multiply and add, as
 // torch's plain version does (no FMA contraction)
 __device__ __forceinline__ float bn_affine(float y, float a, float b) {
   return __fadd_rn(__fmul_rn(y, a), b);
 }
 
-// the pre-BN cotangent, as _dconv of the TPU kernels
+// the pre-BN cotangent, as _dconv of the TPU kernels, in the plain version's
+// order without contraction: xhat = (y - mu) * iv, ga * ((dy - m1) - xhat * m2)
 __device__ __forceinline__ float dconv_of(float y, float dy, float ga, float mu, float iv,
                                           float m1, float m2) {
-  const float xhat = (y - mu) * iv;
-  return ga * (dy - m1 - xhat * m2);
+  const float xhat = __fmul_rn(__fsub_rn(y, mu), iv);
+  return __fmul_rn(ga, __fsub_rn(__fsub_rn(dy, m1), __fmul_rn(xhat, m2)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -104,11 +134,12 @@ long long conv_blocks(int B, int H, int W) {
   return (long long)((W + TW - 1) / TW) * ((H + TH - 1) / TH) * B;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
                   const float* __restrict__ w,     // (C, 1, 5, 5)
                   const float* __restrict__ bias,  // (C,)
-                  float* __restrict__ y,           // (B, C, H, W)
+                  T* __restrict__ y,               // (B, C, H, W)
                   float* __restrict__ partials,    // (2, C, n_blocks)
                   int H, int W, int C, int tiles_x, int tiles_y) {
   extern __shared__ float4 smem4[];
@@ -125,14 +156,16 @@ conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
   const int c0 = bx * TW, r0 = by * TH;
   const float* xb = x + (long long)b * H * W;
 
+  // operands rounded to the storage type (bf16 mode), the bias not
   for (int i = threadIdx.x; i < C * WPAD; i += THREADS) {
     const int c = i / WPAD, k = i % WPAD;
-    sw[i] = k < 25 ? w[c * 25 + k] : 0.f;
+    sw[i] = k < 25 ? rnd<T>(w[c * 25 + k]) : 0.f;
   }
   for (int i = threadIdx.x; i < C; i += THREADS) sb[i] = bias[i];
   for (int i = threadIdx.x; i < HALO_H * HALO_W; i += THREADS) {
     const int gr = r0 + i / HALO_W - 2, gc = c0 + i % HALO_W - 2;
-    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W) ? xb[(long long)gr * W + gc] : 0.f;
+    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W) ? rnd<T>(xb[(long long)gr * W + gc])
+                                                        : 0.f;
   }
   __syncthreads();
 
@@ -152,7 +185,7 @@ conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
       wk[4 * q] = v.x; wk[4 * q + 1] = v.y; wk[4 * q + 2] = v.z; wk[4 * q + 3] = v.w;
     }
     const float bc = sb[c];
-    float* yc = y + ((long long)b * C + c) * H * W;
+    T* yc = y + ((long long)b * C + c) * H * W;
     float s = 0.f, ss = 0.f;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -163,9 +196,12 @@ conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
         for (int dw = 0; dw < 5; ++dw) acc = fmaf(p[i + dh][dw], wk[dh * 5 + dw], acc);
       acc += bc;
       if (col < W && row0 + i < H) {
-        yc[(long long)(row0 + i) * W + col] = acc;
-        s += acc;
-        ss = fmaf(acc, acc, ss);
+        // the moments are of the stored (rounded) value
+        const T st = from_f<T>(acc);
+        yc[(long long)(row0 + i) * W + col] = st;
+        const float r = to_f(st);
+        s += r;
+        ss = fmaf(r, r, ss);
       }
     }
 #pragma unroll
@@ -207,11 +243,14 @@ reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ s
   if (threadIdx.x == 0) sums[blockIdx.x] = (float)buf[0];
 }
 
+// the max of the four rounded z equals the rounding of the max of the four
+// f32 z (rounding to nearest is monotone), so one rounding at the store
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-norm_pool_kernel(const float* __restrict__ y,      // (B, C, H, W)
+norm_pool_kernel(const T* __restrict__ y,          // (B, C, H, W)
                  const float* __restrict__ scale,  // (C,)
                  const float* __restrict__ shift,  // (C,)
-                 float* __restrict__ out,          // (B, C, H/2, W/2)
+                 T* __restrict__ out,              // (B, C, H/2, W/2)
                  int C, int H, int W, int Ho, int Wo, long long total) {
   for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < total;
        idx += (long long)gridDim.x * THREADS) {
@@ -220,27 +259,28 @@ norm_pool_kernel(const float* __restrict__ y,      // (B, C, H, W)
     const int i = (int)(r % Ho);
     const long long bc = r / Ho;
     const int c = (int)(bc % C);
-    const float* q = y + (bc * H + 2 * i) * W + 2 * j;
+    const T* q = y + (bc * H + 2 * i) * W + 2 * j;
     const float a = __ldg(scale + c), sh = __ldg(shift + c);
-    float m = bn_affine(q[0], a, sh);
-    m = fmaxf(m, bn_affine(q[1], a, sh));
-    m = fmaxf(m, bn_affine(q[W], a, sh));
-    m = fmaxf(m, bn_affine(q[W + 1], a, sh));
-    out[idx] = fmaxf(m, 0.f);
+    float m = bn_affine(to_f(q[0]), a, sh);
+    m = fmaxf(m, bn_affine(to_f(q[1]), a, sh));
+    m = fmaxf(m, bn_affine(to_f(q[W]), a, sh));
+    m = fmaxf(m, bn_affine(to_f(q[W + 1]), a, sh));
+    out[idx] = from_f<T>(fmaxf(m, 0.f));
   }
 }
 
 // ---------------------------------------------------------------------------
 // K3
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-route_kernel(const float* __restrict__ y,       // (B, C, H, W)
-             const float* __restrict__ dp,      // (B, C, H/2, W/2)
+route_kernel(const T* __restrict__ y,           // (B, C, H, W)
+             const T* __restrict__ dp,          // (B, C, H/2, W/2)
              const float* __restrict__ scale,   // (C,)
              const float* __restrict__ shift,   // (C,)
              const float* __restrict__ mean,    // (C,)
              const float* __restrict__ inv,     // (C,)
-             float* __restrict__ dy,            // (B, C, H, W)
+             T* __restrict__ dy,                // (B, C, H, W)
              float* __restrict__ partials,      // (2, C, B * tiles)
              int C, int H, int W, int tiles) {
   __shared__ float red[2][WARPS];
@@ -254,8 +294,8 @@ route_kernel(const float* __restrict__ y,       // (B, C, H, W)
   float s1 = 0.f, s2 = 0.f;
   if (cell < Hc * Wc) {
     const int i = cell / Wc, j = cell % Wc;
-    const float* yp = y + plane * H * W;
-    float* dyp = dy + plane * H * W;
+    const T* yp = y + plane * H * W;
+    T* dyp = dy + plane * H * W;
     const float a = __ldg(scale + c), sh = __ldg(shift + c);
     const float mu = __ldg(mean + c), iv = __ldg(inv + c);
     float v[4], g[4];
@@ -264,22 +304,23 @@ route_kernel(const float* __restrict__ y,       // (B, C, H, W)
     for (int k = 0; k < 4; ++k) {
       const int h = 2 * i + k / 2, w = 2 * j + k % 2;
       in[k] = h < H && w < W;
-      v[k] = in[k] ? yp[(long long)h * W + w] : 0.f;
+      v[k] = in[k] ? to_f(yp[(long long)h * W + w]) : 0.f;
       g[k] = 0.f;
     }
     if (i < Ho && j < Wo) {
-      // first maximum of relu(bn) in row-major order (max_pool2d's choice)
+      // first maximum of relu(bn), rounded as K2 stores it, in row-major
+      // order (max_pool2d's choice); rounding makes ties common in bf16
       float bn[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) bn[k] = bn_affine(v[k], a, sh);
       int best = 0;
-      float m = fmaxf(bn[0], 0.f);
+      float m = rnd<T>(fmaxf(bn[0], 0.f));
 #pragma unroll
       for (int k = 1; k < 4; ++k) {
-        const float z = fmaxf(bn[k], 0.f);
+        const float z = rnd<T>(fmaxf(bn[k], 0.f));
         if (z > m) { m = z; best = k; }
       }
-      const float d = dp[(plane * Ho + i) * Wo + j];
+      const float d = to_f(dp[(plane * Ho + i) * Wo + j]);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (k == best && bn[k] > 0.f) g[k] = d;
@@ -288,7 +329,7 @@ route_kernel(const float* __restrict__ y,       // (B, C, H, W)
     for (int k = 0; k < 4; ++k) {
       if (in[k]) {
         const int h = 2 * i + k / 2, w = 2 * j + k % 2;
-        dyp[(long long)h * W + w] = g[k];
+        dyp[(long long)h * W + w] = from_f<T>(g[k]);  // exact: g is 0 or a stored value
         s1 += g[k];
         s2 += g[k] * ((v[k] - mu) * iv);
       }
@@ -319,10 +360,11 @@ long long weight_grads_blocks(int B, int H, int W) {
   return (long long)((W + TW - 1) / TW) * ((H + K4_ROWS - 1) / K4_ROWS) * B;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 weight_grads_kernel(const float* __restrict__ x,     // (B, 1, H, W)
-                    const float* __restrict__ y,     // (B, C, H, W)
-                    const float* __restrict__ dy,    // (B, C, H, W)
+                    const T* __restrict__ y,         // (B, C, H, W)
+                    const T* __restrict__ dy,        // (B, C, H, W)
                     const float* __restrict__ ga,    // (C,) gamma * inv
                     const float* __restrict__ mean,
                     const float* __restrict__ inv,
@@ -343,7 +385,8 @@ weight_grads_kernel(const float* __restrict__ x,     // (B, 1, H, W)
 
   for (int i = threadIdx.x; i < (K4_ROWS + 4) * HALO_W; i += THREADS) {
     const int gr = r0 + i / HALO_W - 2, gc = c0 + i % HALO_W - 2;
-    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W) ? xb[(long long)gr * W + gc] : 0.f;
+    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W) ? rnd<T>(xb[(long long)gr * W + gc])
+                                                        : 0.f;
   }
   __syncthreads();
 
@@ -373,12 +416,13 @@ weight_grads_kernel(const float* __restrict__ x,     // (B, 1, H, W)
       float d = 0.f;
       if (col < W && h < H) {
         const long long idx = base + (long long)h * W + col;
-        d = dconv_of(y[idx], dy[idx], g, mu, iv, a1, a2);
+        d = dconv_of(to_f(y[idx]), to_f(dy[idx]), g, mu, iv, a1, a2);
       }
+      const float dc = rnd<T>(d);  // the dW products take dconv rounded, db does not
 #pragma unroll
       for (int dh = 0; dh < 5; ++dh)
 #pragma unroll
-        for (int dw = 0; dw < 5; ++dw) acc[dh * 5 + dw] = fmaf(p[dh][dw], d, acc[dh * 5 + dw]);
+        for (int dw = 0; dw < 5; ++dw) acc[dh * 5 + dw] = fmaf(p[dh][dw], dc, acc[dh * 5 + dw]);
       acc[25] += d;
     }
 #pragma unroll
@@ -407,9 +451,10 @@ size_t input_grad_smem_bytes(int C) {
   return sizeof(float) * ((size_t)C * WPAD + (size_t)HALO_H * HALO_W);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-input_grad_kernel(const float* __restrict__ y,     // (B, C, H, W)
-                  const float* __restrict__ dy,    // (B, C, H, W)
+input_grad_kernel(const T* __restrict__ y,         // (B, C, H, W)
+                  const T* __restrict__ dy,        // (B, C, H, W)
                   const float* __restrict__ w,     // (C, 1, 5, 5)
                   const float* __restrict__ ga,
                   const float* __restrict__ mean,
@@ -432,7 +477,7 @@ input_grad_kernel(const float* __restrict__ y,     // (B, C, H, W)
   // with wf[dh][dw] = W[4 - dh][4 - dw]
   for (int i = threadIdx.x; i < C * WPAD; i += THREADS) {
     const int c = i / WPAD, k = i % WPAD;
-    swf[i] = k < 25 ? w[c * 25 + 24 - k] : 0.f;
+    swf[i] = k < 25 ? rnd<T>(w[c * 25 + 24 - k]) : 0.f;
   }
 
   float acc[RPT];
@@ -448,7 +493,7 @@ input_grad_kernel(const float* __restrict__ y,     // (B, C, H, W)
       float d = 0.f;
       if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
         const long long idx = base + (long long)gr * W + gc;
-        d = dconv_of(y[idx], dy[idx], g, mu, iv, a1, a2);
+        d = rnd<T>(dconv_of(to_f(y[idx]), to_f(dy[idx]), g, mu, iv, a1, a2));
       }
       dt[i] = d;
     }
@@ -480,8 +525,101 @@ input_grad_kernel(const float* __restrict__ y,     // (B, C, H, W)
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches, one per mode each
+
+template <typename T>
+int conv_stats(const float* x, const float* w, const float* bias, T* y, float* sums,
+               float* scratch, int B, int C, int H, int W, void* stream) {
+  const size_t smem = conv_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const long long n_blocks = conv_blocks(B, H, W);
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  conv_stats_kernel<T><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      x, w, bias, y, scratch, H, W, C, tiles_x, tiles_y);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(scratch, sums, n_blocks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int norm_pool(const T* y, const float* scale, const float* shift, T* out, int B, int C,
+              int H, int W, void* stream) {
+  const int Ho = H / 2, Wo = W / 2;
+  const long long total = (long long)B * C * Ho * Wo;
+  const long long blocks = (total + THREADS - 1) / THREADS;
+  const int grid = (int)(blocks < (1LL << 20) ? blocks : (1LL << 20));
+  norm_pool_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(y, scale, shift, out, C, H,
+                                                                 W, Ho, Wo, total);
+  return (int)cudaGetLastError();
+}
+
+long long route_scratch_floats(int B, int C, int H, int W) {
+  const long long cells = (long long)((H + 1) / 2) * ((W + 1) / 2);
+  return 2LL * C * B * ((cells + THREADS - 1) / THREADS);
+}
+
+template <typename T>
+int route(const T* y, const T* dp, const float* scale, const float* shift, const float* mean,
+          const float* inv, T* dy, float* sums, float* scratch, int B, int C, int H, int W,
+          void* stream) {
+  const long long cells = (long long)((H + 1) / 2) * ((W + 1) / 2);
+  const int tiles = (int)((cells + THREADS - 1) / THREADS);
+  const long long n_blocks = (long long)B * C * tiles;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  route_kernel<T><<<(unsigned)n_blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      y, dp, scale, shift, mean, inv, dy, scratch, C, H, W, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(
+      scratch, sums, (long long)B * tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int weight_grads(const float* x, const T* y, const T* dy, const float* ga, const float* mean,
+                 const float* inv, const float* m1, const float* m2, float* grads,
+                 float* scratch, int B, int C, int H, int W, void* stream) {
+  const size_t smem = weight_grads_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      weight_grads_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + K4_ROWS - 1) / K4_ROWS;
+  const long long n_blocks = weight_grads_blocks(B, H, W);
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  weight_grads_kernel<T><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      x, y, dy, ga, mean, inv, m1, m2, scratch, C, H, W, tiles_x, tiles_y);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials_kernel<<<C * NT, THREADS, 0, (cudaStream_t)stream>>>(
+      scratch, grads, n_blocks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int input_grad(const T* y, const T* dy, const float* w, const float* ga, const float* mean,
+               const float* inv, const float* m1, const float* m2, float* dx, int B, int C,
+               int H, int W, void* stream) {
+  const size_t smem = input_grad_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      input_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const long long n_blocks = (long long)tiles_x * tiles_y * B;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  input_grad_kernel<T><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      y, dy, w, ga, mean, inv, m1, m2, dx, C, H, W, tiles_x, tiles_y);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Entry points: sept_<kernel> takes f32 storage, sept_<kernel>_bf16 bf16
+// storage (the pointers typed void* are bf16 tensors).
 extern "C" {
 
 const char* sept_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -496,52 +634,41 @@ long long sept_conv_stats_smem_bytes(int C) { return (long long)conv_smem_bytes(
 int sept_conv_stats(const float* x, const float* w, const float* bias, float* y,
                     float* sums, float* scratch, int B, int C, int H, int W,
                     void* stream) {
-  const size_t smem = conv_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const long long n_blocks = conv_blocks(B, H, W);
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  conv_stats_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, w, bias, y, scratch, H, W, C, tiles_x, tiles_y);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(scratch, sums, n_blocks);
-  return (int)cudaGetLastError();
+  return conv_stats(x, w, bias, y, sums, scratch, B, C, H, W, stream);
+}
+
+int sept_conv_stats_bf16(const float* x, const float* w, const float* bias, void* y,
+                         float* sums, float* scratch, int B, int C, int H, int W,
+                         void* stream) {
+  return conv_stats(x, w, bias, static_cast<bf16*>(y), sums, scratch, B, C, H, W, stream);
 }
 
 int sept_norm_pool(const float* y, const float* scale, const float* shift, float* out,
                    int B, int C, int H, int W, void* stream) {
-  const int Ho = H / 2, Wo = W / 2;
-  const long long total = (long long)B * C * Ho * Wo;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(blocks < (1LL << 20) ? blocks : (1LL << 20));
-  norm_pool_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(y, scale, shift, out, C, H, W,
-                                                              Ho, Wo, total);
-  return (int)cudaGetLastError();
+  return norm_pool(y, scale, shift, out, B, C, H, W, stream);
 }
 
+int sept_norm_pool_bf16(const void* y, const float* scale, const float* shift, void* out,
+                        int B, int C, int H, int W, void* stream) {
+  return norm_pool(static_cast<const bf16*>(y), scale, shift, static_cast<bf16*>(out), B, C,
+                   H, W, stream);
+}
 
 long long sept_route_scratch_floats(int B, int C, int H, int W) {
-  const long long cells = (long long)((H + 1) / 2) * ((W + 1) / 2);
-  return 2LL * C * B * ((cells + THREADS - 1) / THREADS);
+  return route_scratch_floats(B, C, H, W);
 }
 
 int sept_route(const float* y, const float* dp, const float* scale, const float* shift,
                const float* mean, const float* inv, float* dy, float* sums, float* scratch,
                int B, int C, int H, int W, void* stream) {
-  const long long cells = (long long)((H + 1) / 2) * ((W + 1) / 2);
-  const int tiles = (int)((cells + THREADS - 1) / THREADS);
-  const long long n_blocks = (long long)B * C * tiles;
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  route_kernel<<<(unsigned)n_blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      y, dp, scale, shift, mean, inv, dy, scratch, C, H, W, tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(
-      scratch, sums, (long long)B * tiles);
-  return (int)cudaGetLastError();
+  return route(y, dp, scale, shift, mean, inv, dy, sums, scratch, B, C, H, W, stream);
+}
+
+int sept_route_bf16(const void* y, const void* dp, const float* scale, const float* shift,
+                    const float* mean, const float* inv, void* dy, float* sums,
+                    float* scratch, int B, int C, int H, int W, void* stream) {
+  return route(static_cast<const bf16*>(y), static_cast<const bf16*>(dp), scale, shift, mean,
+               inv, static_cast<bf16*>(dy), sums, scratch, B, C, H, W, stream);
 }
 
 long long sept_weight_grads_scratch_floats(int B, int C, int H, int W) {
@@ -555,20 +682,15 @@ int sept_weight_grads(const float* x, const float* y, const float* dy, const flo
                       const float* mean, const float* inv, const float* m1, const float* m2,
                       float* grads, float* scratch, int B, int C, int H, int W,
                       void* stream) {
-  const size_t smem = weight_grads_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      weight_grads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + K4_ROWS - 1) / K4_ROWS;
-  const long long n_blocks = weight_grads_blocks(B, H, W);
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  weight_grads_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, y, dy, ga, mean, inv, m1, m2, scratch, C, H, W, tiles_x, tiles_y);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<C * NT, THREADS, 0, (cudaStream_t)stream>>>(
-      scratch, grads, n_blocks);
-  return (int)cudaGetLastError();
+  return weight_grads(x, y, dy, ga, mean, inv, m1, m2, grads, scratch, B, C, H, W, stream);
+}
+
+int sept_weight_grads_bf16(const float* x, const void* y, const void* dy, const float* ga,
+                           const float* mean, const float* inv, const float* m1,
+                           const float* m2, float* grads, float* scratch, int B, int C, int H,
+                           int W, void* stream) {
+  return weight_grads(x, static_cast<const bf16*>(y), static_cast<const bf16*>(dy), ga, mean,
+                      inv, m1, m2, grads, scratch, B, C, H, W, stream);
 }
 
 long long sept_input_grad_smem_bytes(int C) { return (long long)input_grad_smem_bytes(C); }
@@ -576,16 +698,15 @@ long long sept_input_grad_smem_bytes(int C) { return (long long)input_grad_smem_
 int sept_input_grad(const float* y, const float* dy, const float* w, const float* ga,
                     const float* mean, const float* inv, const float* m1, const float* m2,
                     float* dx, int B, int C, int H, int W, void* stream) {
-  const size_t smem = input_grad_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      input_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const long long n_blocks = (long long)tiles_x * tiles_y * B;
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  input_grad_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      y, dy, w, ga, mean, inv, m1, m2, dx, C, H, W, tiles_x, tiles_y);
-  return (int)cudaGetLastError();
+  return input_grad(y, dy, w, ga, mean, inv, m1, m2, dx, B, C, H, W, stream);
+}
+
+int sept_input_grad_bf16(const void* y, const void* dy, const float* w, const float* ga,
+                         const float* mean, const float* inv, const float* m1,
+                         const float* m2, float* dx, int B, int C, int H, int W,
+                         void* stream) {
+  return input_grad(static_cast<const bf16*>(y), static_cast<const bf16*>(dy), w, ga, mean,
+                    inv, m1, m2, dx, B, C, H, W, stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,9 @@ def f32_precision() -> None:
     """Switch TF32 off for cuBLAS and cuDNN, the counterpart of the JAX
     package's ``PARITY_PRECISION = HIGHEST``: matmuls, the blocks 2-3
     convolutions (forward and backward) and the GRU would otherwise run in
-    TF32."""
+    TF32.  bf16 matmuls (the bf16 GRU's gate products) keep f32 sums: cuBLAS
+    may otherwise reduce split sums in bf16, where the JAX package's bf16
+    products accumulate in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

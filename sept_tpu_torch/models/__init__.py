@@ -1,6 +1,8 @@
 """PyTorch models of the port: Conv2dBiRNN and the cloak (noise layer and the
 cloaked training models)."""
 
+import torch
+
 from sept_tpu_torch.models.backbone import (
     NUM_EMO_CLASSES,
     NUM_GENDER_CLASSES,
@@ -16,6 +18,7 @@ __all__ = [
     "CloakedModelGRL",
     "Conv2dBiRNN",
     "build_backbone",
+    "compute_dtype",
     "pooling_for",
 ]
 
@@ -32,6 +35,12 @@ def build_backbone(model_type: str, **kwargs) -> Conv2dBiRNN:
             f"model_type {model_type!r} is not ported to PyTorch yet; it is "
             "queued in ROADMAP.md")
     raise ValueError(f"unknown model_type: {model_type!r}")
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """--compute_dtype value ("float32", "bfloat16") -> the models'
+    ``compute_dtype``."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
 def pooling_for(model_type: str):

@@ -12,9 +12,31 @@ never called), ``att_linear{1,2}``, ``dense1``,
 
 The first conv block runs through the hand-written CUDA kernels of
 :mod:`sept_tpu_torch.ops.conv_block1` (``Block1Train`` / ``Block1Eval``,
-forward and backward); blocks 2-3 are ``F.conv2d`` + ``F.batch_norm`` + ReLU
-+ ``F.max_pool2d`` (the JAX package leaves them to XLA, outside any Pallas
+forward and backward); blocks 2-3 are ``F.conv2d`` + BatchNorm + ReLU +
+``F.max_pool2d`` (the JAX package leaves them to XLA, outside any Pallas
 kernel).
+
+``compute_dtype`` is the JAX model's ``dtype`` knob (the CLIs'
+``--compute_dtype``): ``torch.float32`` (the default) or ``torch.bfloat16``.
+Parameters and running statistics stay f32 in both.  In bf16, as flax with
+``dtype=bfloat16`` and ``conv_backend="fused1"``:
+
+- block 1 runs the kernels' bf16 mode and returns bf16 pooled values; the
+  channel dropout after each block is bf16;
+- blocks 2-3 convolve in bf16 (input, weight and bias rounded; the bias is
+  added to the rounded output), and BatchNorm computes its batch moments in
+  f32 from the bf16 input (flax's ``force_float32_reductions``: mean and
+  E[x^2] - mean^2, the biased variance, which the running statistics take)
+  and the normalization ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``
+  in f32, rounded to bf16;
+- the GRU follows ``nn.RNN(nn.GRUCell(dtype=bfloat16))``: the gate Dense
+  layers round their inputs, kernels and biases to bf16 and return bf16, the
+  carry stays f32 and ``h' = (1 - z) * n + z * h`` is promoted to f32
+  (:func:`bigru_layer_lowp`; cuDNN's bf16 GRU would keep a bf16 hidden
+  state).  One matmul gives the input projections of all steps, then a loop
+  over the steps runs the recurrence, both directions at once;
+- ``encode`` returns f32, and pooling, attention, ``dense1`` and the heads
+  are f32.
 
 Train mode follows the JAX package, not torch's modules:
 
@@ -49,7 +71,7 @@ from torch import nn
 from sept_tpu_torch.ops.conv_block1 import block1_eval, block1_train_forward
 
 __all__ = ["Conv2dBiRNN", "DropoutDraws", "NUM_EMO_CLASSES", "NUM_GENDER_CLASSES",
-           "flatten_channel_major"]
+           "bigru_layer_lowp", "flatten_channel_major"]
 
 NUM_EMO_CLASSES = 4  # neu / hap / sad / ang
 NUM_GENDER_CLASSES = 2  # F / M
@@ -95,6 +117,39 @@ def _pin_rz_rows(grad: torch.Tensor, hidden: int) -> torch.Tensor:
     return torch.cat([torch.zeros_like(grad[:2 * hidden]), grad[2 * hidden:]])
 
 
+def bigru_layer_lowp(x: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
+    """One bidirectional GRU layer computed as flax's ``GRUCell(dtype=dtype)``
+    under ``nn.RNN`` (forward, and backward over the reversed sequence with
+    its outputs put back in order): (B, T, F) -> (B, T, 2H) f32.
+
+    ``weights`` are the layer's ``[weight_ih, weight_hh, bias_ih, bias_hh]``
+    of the forward then the reverse direction, torch layout (gate rows r, z,
+    n).  Each gate's Dense rounds input, kernel and bias to ``dtype`` and
+    returns ``dtype`` (the product rounded, then the bias added and rounded);
+    the sums, sigmoid and tanh of the gates are in ``dtype``; the carry h is
+    f32 and ``h' = (1 - z) * n + z * h`` is f32 because ``z * h`` promotes."""
+    hidden = weights[1].shape[1]
+    w_ih = torch.stack([weights[0], weights[4]]).to(dtype)          # (2, 3H, F)
+    w_hh = torch.stack([weights[1], weights[5]]).to(dtype).transpose(1, 2)  # (2, H, 3H)
+    b_ih = torch.stack([weights[2], weights[6]]).to(dtype)[:, None, None]
+    b_hh = torch.stack([weights[3], weights[7]]).to(dtype)[:, None]
+    xs = x.to(dtype)
+    # input projections of every step, both directions: (2, B, T, 3H)
+    gi = torch.stack([xs, xs.flip(1)]) @ w_ih.transpose(1, 2)[:, None] + b_ih
+    h = x.new_zeros((2, x.shape[0], hidden), dtype=torch.float32)
+    outs = []
+    for t in range(x.shape[1]):
+        g = gi[:, :, t]
+        gh = torch.bmm(h.to(dtype), w_hh) + b_hh  # the r, z rows of b_hh are 0
+        rz = torch.sigmoid(g[..., :2 * hidden] + gh[..., :2 * hidden])
+        r, z = rz[..., :hidden], rz[..., hidden:]
+        n = torch.tanh(g[..., 2 * hidden:] + r * gh[..., 2 * hidden:])
+        h = (1.0 - z) * n + z * h
+        outs.append(h)
+    out = torch.stack(outs, 2)  # (2, B, T, H)
+    return torch.cat([out[0], out[1].flip(1)], -1)
+
+
 class Conv2dBiRNN(nn.Module):
     """Three conv blocks (32/64/128 channels, 5x5, BN, ReLU, 2x2 max pool,
     channel dropout), channel-major flatten, 2-layer BiGRU, mean or 16-head
@@ -103,13 +158,17 @@ class Conv2dBiRNN(nn.Module):
     def __init__(self, hidden_size: int = 64, feature_len: int = 128,
                  pred: str = "emotion", att: Optional[str] = None,
                  attention_size: int = 128, num_rnn_layers: int = 2,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if pred not in ("emotion", "gender", "multitask"):
             raise ValueError(f"unknown pred: {pred!r}")
         if att not in (None, "self_att"):
             raise ValueError(f"unknown att: {att!r}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
+                             f"got {compute_dtype}")
         self.pred, self.att, self.dropout_rate = pred, att, dropout_rate
+        self.compute_dtype = compute_dtype
         layers = []
         c_in = 1
         for c in _CHANNELS:
@@ -137,13 +196,16 @@ class Conv2dBiRNN(nn.Module):
             self.pred_gender_layer = nn.Linear(128, NUM_GENDER_CLASSES)
 
     def _dropout(self, x, draws: Optional[DropoutDraws], shape) -> torch.Tensor:
-        """flax's Dropout: x / keep where kept, else 0 (identity in eval)."""
+        """flax's Dropout: x / keep where kept, else 0 (identity in eval); keep
+        = 1 - rate is rounded to x's dtype first, as JAX rounds the weak-typed
+        scalar."""
         if not self.training or self.dropout_rate == 0.0:
             return x
         if draws is None:
             raise ValueError("a train-mode forward with dropout needs DropoutDraws")
-        keep = draws.keep(shape, self.dropout_rate)
-        return torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros_like(x))
+        mask = draws.keep(shape, self.dropout_rate)
+        keep = torch.tensor(1.0 - self.dropout_rate, dtype=x.dtype).item()
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
     @staticmethod
     def _update_running(bn: nn.BatchNorm2d, mean, var):
@@ -153,10 +215,10 @@ class Conv2dBiRNN(nn.Module):
             bn.num_batches_tracked += 1
 
     def _rnn(self, x, draws):
-        """One single-layer BiGRU call per layer, our own masks between.
-        ``train`` asks cuDNN to keep what its backward needs: in training and
-        whenever a gradient flows (the eval-mode cloak backbone); serving
-        runs without it."""
+        """One single-layer BiGRU call per layer, our own masks between.  In
+        f32, ``train`` asks cuDNN to keep what its backward needs: in training
+        and whenever a gradient flows (the eval-mode cloak backbone); serving
+        runs without it.  In bf16 each layer is :func:`bigru_layer_lowp`."""
         rnn = self.rnn
         keep = self.training or torch.is_grad_enabled()
         for layer in range(rnn.num_layers):
@@ -164,39 +226,63 @@ class Conv2dBiRNN(nn.Module):
                 x = self._dropout(x, draws, x.shape)
             weights = [getattr(rnn, f"{kind}_l{layer}{sfx}") for sfx in ("", "_reverse")
                        for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
-            h0 = x.new_zeros(2, x.shape[0], rnn.hidden_size)
-            x = torch._VF.gru(x, h0, weights, True, 1, 0.0, keep, True, True)[0]
+            if self.compute_dtype == torch.float32:
+                h0 = x.new_zeros(2, x.shape[0], rnn.hidden_size)
+                x = torch._VF.gru(x, h0, weights, True, 1, 0.0, keep, True, True)[0]
+            else:
+                x = bigru_layer_lowp(x, weights, self.compute_dtype)
         return x
+
+    def _conv_bn(self, x, conv, bn, train: bool, update_stats: bool):
+        """Conv + BatchNorm of block 2 or 3.  In f32: ``F.conv2d`` and
+        ``F.batch_norm``, the running statistics from the biased variance.
+        In bf16, as flax's ``nn.Conv`` and ``nn.BatchNorm`` with that dtype
+        (see the module docstring): moments and normalization in f32 ops, so
+        that the backward is f32 too (``F.batch_norm`` on a bf16 input gives
+        flax's forward but not its f32 backward), the output rounded."""
+        cd = self.compute_dtype
+        if cd == torch.float32:
+            x = tf.conv2d(x, conv.weight, conv.bias, padding=2)
+            if not train:
+                return tf.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                                     bn.bias, training=False, eps=bn.eps)
+            if update_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self._update_running(bn, mean, var)
+            return tf.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                                 eps=bn.eps)
+        x = tf.conv2d(x, conv.weight.to(cd), padding=2) + conv.bias.to(cd)[:, None, None]
+        xf = x.float()
+        if train:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            if update_stats:
+                self._update_running(bn, mean.detach(), var.detach())
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None]
+                + bn.bias[:, None, None]).to(cd)
 
     def encode(self, x: torch.Tensor, dropout: Optional[DropoutDraws] = None,
                update_stats: bool = True) -> torch.Tensor:
-        """(B, 1, T, D) -> (B, T/8, 2*hidden).  In train mode, ``update_stats``
-        False normalizes with the batch's moments but leaves the running
-        statistics as they are."""
-        train = self.training
+        """(B, 1, T, D) f32 -> (B, T/8, 2*hidden) f32.  In train mode,
+        ``update_stats`` False normalizes with the batch's moments but leaves
+        the running statistics as they are."""
+        train, cd = self.training, self.compute_dtype
         conv, bn = self.conv[0], self.conv[1]
         if train:
             x, mean, var = block1_train_forward(x, conv.weight, conv.bias, bn.weight,
-                                                bn.bias, bn.eps)
+                                                bn.bias, bn.eps, cd)
             if update_stats:
                 self._update_running(bn, mean, var)
         else:
             x = block1_eval(x, conv.weight, conv.bias, bn.weight, bn.bias,
-                            bn.running_mean, bn.running_var, bn.eps)
+                            bn.running_mean, bn.running_var, bn.eps, cd)
         x = self._dropout(x, dropout, (x.shape[0], x.shape[1], 1, 1))
         for i in range(1, len(_CHANNELS)):
-            conv, bn = self.conv[5 * i], self.conv[5 * i + 1]
-            x = tf.conv2d(x, conv.weight, conv.bias, padding=2)
-            if train:
-                if update_stats:
-                    with torch.no_grad():
-                        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                    self._update_running(bn, mean, var)
-                x = tf.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
-                                  eps=bn.eps)
-            else:
-                x = tf.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                                  bn.bias, training=False, eps=bn.eps)
+            x = self._conv_bn(x, self.conv[5 * i], self.conv[5 * i + 1], train, update_stats)
             x = tf.max_pool2d(torch.relu(x), 2)
             x = self._dropout(x, dropout, (x.shape[0], x.shape[1], 1, 1))
         return self._rnn(flatten_channel_major(x), dropout)

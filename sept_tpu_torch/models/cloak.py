@@ -24,6 +24,9 @@ through them into the noise parameters.  Freezing the parameters is the
 optimizer's business (``sept_tpu_torch.train.optim.make_cloak_optimizer``).
 The cloaked models take NCHW windows (B, 1, win_len, n_feats) and the
 epsilon draw of the step (``CloakNoise.draw_eps``); ``noise_sign`` flips it.
+The backbones may compute in bf16 (``Conv2dBiRNN(compute_dtype=...)``): the
+noise and ``x + noise`` stay f32 and block 1's K1 rounds the noised input,
+as in the JAX package.
 """
 
 from __future__ import annotations

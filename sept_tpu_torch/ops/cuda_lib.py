@@ -63,6 +63,12 @@ _SIGNATURES = {
         "sept_weight_grads_smem_bytes": ([_I], _LL),
         "sept_input_grad": ([_P] * 9 + [_I] * 4 + [_P], _I),
         "sept_input_grad_smem_bytes": ([_I], _LL),
+        # the bf16 modes: the same arguments, bf16 storage
+        "sept_conv_stats_bf16": ([_P] * 6 + [_I] * 4 + [_P], _I),
+        "sept_norm_pool_bf16": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "sept_route_bf16": ([_P] * 9 + [_I] * 4 + [_P], _I),
+        "sept_weight_grads_bf16": ([_P] * 10 + [_I] * 4 + [_P], _I),
+        "sept_input_grad_bf16": ([_P] * 9 + [_I] * 4 + [_P], _I),
     },
 }
 
@@ -149,17 +155,18 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, what: str, shape: tuple, device: torch.device):
-    """Refuse anything a kernel does not take: it reads contiguous f32 of
-    exactly ``shape`` on ``device`` (a CUDA device)."""
+def require(t: torch.Tensor, what: str, shape: tuple, device: torch.device,
+            dtype: torch.dtype = torch.float32):
+    """Refuse anything a kernel does not take: it reads contiguous ``dtype``
+    of exactly ``shape`` on ``device`` (a CUDA device)."""
     if device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {device} tensors (CUDA "
                          "tensors launch the kernel, CPU tensors take its "
                          "plain version)")
     if t.device != device:
         raise ValueError(f"{what}: expected a tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

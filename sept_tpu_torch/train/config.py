@@ -1,17 +1,17 @@
 """Experiment configuration of the training slice.
 
 Counterpart of ``sept_tpu/train/config.py``: ``ExperimentConfig`` limited to
-the fields the training slice reads (the optimizer and its schedule in
-:mod:`sept_tpu_torch.train.optim`, the cloak's weights and noise bounds that
-the caller hands to the cloak models and step functions), and ``preset``
-with the four presets of the JAX package, cut to those fields (each mirrors
-one reference entry point's defaults, including the per-script
-learning-rate differences).  The data, model, epoch-loop, plateau and
-early-stopping fields come with the modules that read them.  Left out for
-good: ``conv_backend`` (the port has one block-1 path), ``remat`` and
-``prng_impl``.  ``compute_dtype`` is queued (ROADMAP §2): the port trains in
-float32 until the bf16 training slice (bf16 blocks 2-3 and GRU with f32
-parameters, K1-K5 in their bf16 mode) lands.
+the fields the training slice reads (the compute dtype that the caller turns
+into the models' ``compute_dtype`` with
+:func:`sept_tpu_torch.models.compute_dtype`, the optimizer and its schedule
+in :mod:`sept_tpu_torch.train.optim`, the cloak's weights and noise bounds
+and the saliency-alignment weight that the caller hands to the cloak models
+and step functions), and ``preset`` with the four presets of the JAX
+package, cut to those fields (each mirrors one reference entry point's
+defaults, including the per-script learning-rate differences).  The data,
+model, epoch-loop, plateau and early-stopping fields come with the modules
+that read them.  Left out for good: ``conv_backend`` (the port has one
+block-1 path, its kernels in both dtypes), ``remat`` and ``prng_impl``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,10 @@ __all__ = ["ExperimentConfig", "preset"]
 
 @dataclasses.dataclass
 class ExperimentConfig:
+    # "float32" or "bfloat16" (the CLIs' --compute_dtype): blocks 1-3 and the
+    # GRU compute in it, parameters and running statistics stay f32
+    compute_dtype: str = "float32"
+
     # optimization
     optimizer: str = "sgd"
     learning_rate: float = 1e-4
@@ -43,6 +47,9 @@ class ExperimentConfig:
     noise_min_scale: float = 0.01
     noise_max_scale: float = 10.0
     antithetic_noise: bool = False
+    # weight of the GRL game's saliency-alignment term (a framework extension,
+    # steps.saliency_alignment_loss); 0 = the reference's behavior
+    saliency_align: float = 0.0
 
 
 _PRESETS = {

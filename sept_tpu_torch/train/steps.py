@@ -8,7 +8,8 @@ package's.  Losses:
   rows carry weight 0); ``pred="multitask"`` sums the emotion and gender CE;
 - cloak: weighted CE - scale_lambda * log(mean(scales));
 - cloak + GRL: weighted emotion CE + gender_lambda * gender CE (reversed into
-  the noise by the GRL) - scale_lambda * log(mean(scales)), one backward.
+  the noise by the GRL) - scale_lambda * log(mean(scales)) [+ saliency_align
+  * :func:`saliency_alignment_loss`], one backward.
 
 Where JAX threads an immutable ``TrainState`` through jitted functions, a
 step here updates ``state.model`` and ``state.optimizer`` in place and
@@ -18,9 +19,10 @@ injected ``eps`` (the tests feed the JAX draw that way).  Metrics stay on the
 device: an epoch runner stacks its per-batch loss, correct and count tensors,
 and the caller reads them once an epoch, as the JAX scan returns them.
 
-Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).
-``saliency_alignment_loss`` (off by default in the JAX package) and the
-88-dim global feature are not ported yet.
+The models carry their own ``compute_dtype`` (``Conv2dBiRNN``): a bf16
+model trains through the same steps, with logits, losses and metrics in f32.
+Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).  The
+88-dim global feature is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ __all__ = [
     "make_cloak_grl_step",
     "make_cloak_epoch_runner",
     "cloak_scales",
+    "saliency_alignment_loss",
 ]
 
 
@@ -121,6 +124,41 @@ def _scale_reg(model, loss, scale_lambda, apply_scale_reg):
     if apply_scale_reg and scale_lambda:
         return loss - scale_lambda * torch.log(cloak_scales(model).mean())
     return loss
+
+
+def _input_saliency(backbone: nn.Module, spec, labels, weights, pooling):
+    """|d weighted CE / d x| of ``backbone`` in eval mode with its parameters
+    held constant, averaged over the batch and scaled to unit mean: (T, D).
+    The parameters go in detached (``functional_call``), so the backward
+    computes the input gradient alone: block 1's K3 and K5, never K4."""
+    was_training = backbone.training
+    backbone.eval()
+    try:
+        params = {k: v.detach() for k, v in backbone.named_parameters()}
+        x = spec.detach().requires_grad_()
+        logits = torch.func.functional_call(backbone, params, (x,), {"pooling": pooling})
+        (grad,) = torch.autograd.grad(weighted_ce(logits, labels, weights), x)
+    finally:
+        backbone.train(was_training)
+    sal = grad.abs().mean(0)[0]
+    return sal / (sal.mean() + 1e-8)
+
+
+def saliency_alignment_loss(model: nn.Module, spec: torch.Tensor, labels_emo: torch.Tensor,
+                            labels_gen: torch.Tensor, weights: torch.Tensor,
+                            pooling: Optional[str] = "mean") -> torch.Tensor:
+    """First-order scale-shaping term of the cloak + GRL game, a framework
+    extension of the JAX package (off by default):
+    ``mean(scales * (sal_emo - sal_gen))``, where each saliency is the input
+    gradient of one branch's weighted CE on ``spec`` (B, 1, T, D), taken in
+    eval mode with the current running statistics and scaled to unit mean.
+    The saliencies are constants, so the term is linear in the scales and
+    its gradient reaches only the noise's ``rhos``: minimizing it moves noise
+    onto the cells the gender adversary reads and off the ones the emotion
+    model reads.  ``model`` is a ``CloakedModelGRL``."""
+    sal = (_input_saliency(model.emotion_backbone, spec, labels_emo, weights, pooling)
+           - _input_saliency(model.gender_backbone, spec, labels_gen, weights, pooling))
+    return (cloak_scales(model) * sal).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -212,13 +250,16 @@ def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
 
 def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
                         apply_scale_reg: bool = True, pooling: Optional[str] = "mean",
-                        antithetic: bool = False):
+                        antithetic: bool = False, saliency_align: float = 0.0):
     """Cloak + GRL minimax step on a ``CloakedModelGRL`` (noise and gender
     adversary trainable): ``step(state, batch, mask=None, eps=None)``.
 
     ``antithetic``: the -eps pass reuses the +eps pass's dropout masks and
     leaves the gender backbone's running statistics alone; metrics and BN
     statistics come from the +eps pass, as in the JAX package.
+    ``saliency_align``: weight of :func:`saliency_alignment_loss`, whose
+    saliencies are taken before the forward updates the gender backbone's
+    running statistics (the JAX step reads the step's incoming statistics).
     """
     f32_precision()
 
@@ -233,6 +274,8 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
             return weighted_ce(emo_logits, le, w) + gender_lambda * weighted_ce(
                 gen_logits, lg, w)
 
+        align = (saliency_alignment_loss(model, batch["spec"], le, lg, w, pooling)
+                 if saliency_align else None)
         emo, gen, _ = model(batch["spec"], eps, mask=mask, pooling=pooling, dropout=draws)
         loss = pair_loss(emo, gen)
         if antithetic:
@@ -241,6 +284,8 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
                                     update_stats=False)
             loss = 0.5 * (loss + pair_loss(emo_m, gen_m))
         loss = _scale_reg(model, loss, scale_lambda, apply_scale_reg)
+        if align is not None:
+            loss = loss + saliency_align * align
         _apply(state, loss)
         m = _metrics(emo.detach(), le, w, loss)
         m["gender_correct"] = ((gen.detach().argmax(-1) == lg) * (w > 0)).sum()
@@ -251,13 +296,15 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
 
 def make_cloak_epoch_runner(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
                             grl: bool = False, apply_scale_reg: bool = True,
-                            pooling: Optional[str] = "mean", antithetic: bool = False):
+                            pooling: Optional[str] = "mean", antithetic: bool = False,
+                            saliency_align: float = 0.0):
     """Whole-epoch cloak / cloak + GRL trainer: ``run(state, windows (M, T,
     D), labels_emo, labels_gen, weights, order, mask, n_batches, batch_size,
     eps=None) -> (state, losses, correct, counts)``; ``mask=None`` for
-    unsuppressed training, ``eps`` (n_batches, 1, T, D) to inject the draws."""
+    unsuppressed training, ``eps`` (n_batches, 1, T, D) to inject the draws.
+    ``saliency_align`` applies to the GRL game only, as in the JAX package."""
     step = (make_cloak_grl_step(scale_lambda, gender_lambda, apply_scale_reg, pooling,
-                                antithetic) if grl else
+                                antithetic, saliency_align) if grl else
             make_cloak_step(scale_lambda, apply_scale_reg, pooling, antithetic))
 
     def run(state, windows, labels_emo, labels_gen, weights, order, mask, *,
