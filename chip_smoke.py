@@ -66,16 +66,28 @@ and read just after; each kernel the path must use has to have launched
                max(|p|, 1) (the bounds the CPU tests hold the port to the
                JAX package with).
 10. kernels    each kernel against its plain version on the tensors the main
-               path gives it (mel 1e-3 dB; conv output 1e-4 and moments rel
+               path gives it (mel 1e-3 dB cell by cell, and where the FFT
+               kernel and the dense plain version part by more, the kernel
+               no farther than the plain version from a float64 chain, plus
+               1e-3 dB (check_mel); conv
+               output 1e-4 and moments rel
                1e-5; pooled 1e-4; K3 dy equal, its sums within 1e-5 of the
                sums of |terms|; K4 and K5 in train and eval BN mode, dW 1e-4
                and dx 1e-5 of max |plain|, db 1e-4 in eval mode and, in train
                mode where it is 0 in exact arithmetic, within B*H*W*2^-24 *
                max |dconv| of 0), then
-               timed with CUDA events beside its plain version, one PyTorch
-               call and its roofline bound; block 1's forward + backward
+               timed with CUDA events over back-to-back calls (ms) and
+               over calls queued behind a sleep kernel (device_ms: the
+               device time, the host's enqueue hidden)
+               beside its plain version, one PyTorch call and its roofline
+               bound (K4 also beside the library chain of its whole
+               function); the f32 mel at featurize_corpus's shapes (one
+               64-utterance chunk at n_fft 800 and 1600, the mfcc's 192
+               streams at n_fft 400 / hop 200); block 1's forward + backward
                beside autograd through the cuDNN chain; then again at edge
-               shapes (ragged tiles, odd sizes, n_fft 1600); the bf16 mel
+               shapes (ragged tiles, odd sizes, a width that is a multiple
+               of 16, one frame, n_fft 400 and 1600, each mel against
+               float64 too; n_fft 802 must raise before a launch); the bf16 mel
                (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
                waves and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
                of 64 utterances at bucket 64000, then at n_fft 400 / 1600 and
@@ -100,6 +112,8 @@ Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ``{"train_bf16": ...}`` lines, the card's ``name, power.limit`` from
 nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
 mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
+The result lines (with the card's) are also written whole to
+``chiprun_out/chip_smoke.jsonl`` beside the script (git-ignored).
 """
 
 import base64
@@ -110,6 +124,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -128,6 +143,10 @@ N_TRAIN, N_SPK, T_BATCH, T_BATCHES, CPU_BATCH = 64, 4, 32, 4, 4
 # K3 dy equal to its plain version; dW, db and dx of max |plain|
 TRAIN_TOL = {"block1_route": 0.0, "block1_weight_grads": 1e-4, "block1_input_grad": 1e-5}
 SUMS_RTOL = 1e-5   # K3's per-channel sums, of the sum of |terms|
+# the backward's edge shapes: ragged tiles and bands, odd widths (K4's
+# one-column-a-load path), and a width that is a multiple of 16 with a
+# ragged band (K4's bf16 tensor-core path)
+K4_EDGES = ((1, 37, 29), (3, 64, 33), (2, 37, 48))
 BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
 BLOCK1 = ("block1_conv_stats", "block1_norm_pool") + BACKWARD
 BLOCK1_BF16 = tuple(f"{k}_bf16" for k in BLOCK1)  # the kernels' bf16 mode, counted apart
@@ -341,6 +360,72 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3):
+    """Device time of one call of ``fn``: CUDA events around ``iters`` calls
+    enqueued behind a sleep kernel, so the device starts on them only after
+    the host has queued them all and the host's time between launches (a
+    heavy wrapper's, a busy host's), which cuda_ms includes, drops out.  If
+    the device reached the first event before the host was done, the sleep
+    doubles and the run repeats; "not measured" if it never got ahead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 25
+    for _ in range(5):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    return "not measured"
+
+
+def mel_truth(x, t, n_fft, hop, n_mels=N_MELS):
+    """The mel function in float64 on the card: the f32 samples and window
+    widened, an rFFT (cuFFT, float64), the power, the f32 bank widened, the
+    log.  A yardstick of accuracy only."""
+    from sept_tpu_torch.ops import mel as M
+
+    window, _, _, fb = M._tables(n_fft, n_mels, x.device)
+    frames = x.double().unfold(1, n_fft, hop)[:, :t] * window.double()
+    power = torch.fft.rfft(frames).abs() ** 2
+    return 10.0 * torch.log10(torch.clamp(power @ fb.double(), min=M.AMIN))
+
+
+def check_mel(k, p, x, t, n_fft, hop, what):
+    """The f32 mel kernel against its plain version, cell by cell: within
+    TOL["mel_db"] dB, or, where the two part by more, the kernel no farther
+    than the plain version from the float64 truth, plus TOL["mel_db"]: on
+    cells far under their frame's peak the plain version's dense f32 DFT is
+    off the truth by more than the tolerance (PERF.md).  Returns the
+    readings."""
+    tol = TOL["mel_db"]
+    truth = mel_truth(x, t, n_fft, hop)
+    dk, dp = (k.double() - truth).abs(), (p.double() - truth).abs()
+    depth = truth.amax(-1, keepdim=True) - truth  # dB under the frame's peak band
+    d = (k - p).abs()
+    part = d > tol
+    out = {"max_abs_vs_plain": float(d.max()), "cells": k.numel(),
+           "cells_parted": int(part.sum()), "kernel_vs_f64": float(dk.max()),
+           "plain_vs_f64": float(dp.max())}
+    if out["cells_parted"]:
+        out.update(parted_kernel_vs_f64_max=float(dk[part].max()),
+                   parted_plain_vs_f64_max=float(dp[part].max()),
+                   parted_kernel_closer=int((dk[part] < dp[part]).sum()),
+                   parted_kernel_farther_past_tol=int((dk[part] > dp[part] + tol).sum()),
+                   parted_min_db_under_frame_peak=float(depth[part].min()))
+    require(bool((dk[part] <= dp[part] + tol).all()),
+            f"{what}: mel_db parts from its plain version by more than its tolerance and from "
+            f"the float64 truth by more than the plain version does, plus {tol}: {out}")
+    return out
+
+
 def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
@@ -361,8 +446,6 @@ def kernel_phase(predictor, floats, launches):
         conv, bn = predictor.model.conv[0], predictor.model.conv[1]
         w, b = conv.weight.detach(), conv.bias.detach()
         scale, shift = K.fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
-        window, cos_m, sin_m, fb = M._tables(N_FFT, N_MELS, dev)
-
         mel_k = M.mel_db(padded, max_t, N_FFT, HOP, N_MELS)
         mel_p = M.mel_db_plain(padded, max_t, N_FFT, HOP, N_MELS)
         y_k, s_k = K.block1_conv_stats(flat, w, b)
@@ -377,17 +460,14 @@ def kernel_phase(predictor, floats, launches):
             "block1_norm_pool": float((pool_k - pool_p).abs().max()),
         }
         moments_rel = float(((s_k - s_p).abs() / s_p.abs().clamp(min=1e-6)).max())
+        mel_check = check_mel(mel_k, mel_p, padded, max_t, N_FFT, HOP, "serving")
+        log(f"mel_db at the serving shape: {mel_check}")
         for name, e in err.items():
             log(f"{name}: max |kernel - plain| = {e:.3g} (tolerance {TOL[name]:g})")
-            require(e <= TOL[name], f"{name} disagrees with its plain version: {e}")
+            if name != "mel_db":  # held cell by cell by check_mel
+                require(e <= TOL[name], f"{name} disagrees with its plain version: {e}")
         log(f"block1_conv_stats moments: max rel diff {moments_rel:.3g}")
         require(moments_rel <= MOMENTS_RTOL, f"moments disagree: {moments_rel}")
-
-        def stft_chain():
-            spec = torch.stft(padded, N_FFT, HOP, window=window, center=False,
-                              return_complex=True)
-            power = spec.real * spec.real + spec.imag * spec.imag
-            return 10.0 * torch.log10(torch.clamp(power.transpose(1, 2) @ fb, min=M.AMIN))
 
         def cudnn_block(x):
             z = tf.conv2d(x, w, b, padding=2)
@@ -395,20 +475,10 @@ def kernel_phase(predictor, floats, launches):
                               training=False, eps=bn.eps)
             return tf.max_pool2d(torch.relu(z), 2)
 
-        stft_err = float((stft_chain() - mel_k).abs().max())
+        stft_err = float((stft_chain(padded, N_FFT, HOP) - mel_k).abs().max())
         cudnn_err = float((cudnn_block(flat) - pool_k).abs().max())
 
         bsz, length = padded.shape
-        n_freq = N_FFT // 2 + 1
-        frames = bsz * max_t
-        fb_nnz = int((fb != 0).sum())
-        # the least work of the function, not of the kernel's dense DFT: a
-        # real FFT (2.5 n log2 n, the usual count), window, power, the sparse
-        # mel bank and the log; bytes: waves in, window and bank, dB out
-        mel_bound = bound(
-            frames * (2.5 * N_FFT * np.log2(N_FFT) + N_FFT + 3 * n_freq + 2 * fb_nnz
-                      + N_MELS),
-            4.0 * (bsz * length + N_FFT + fb_nnz + frames * N_MELS))
         n, _, h, wd = flat.shape
         c = w.shape[0]
         outs = n * c * h * wd
@@ -421,7 +491,7 @@ def kernel_phase(predictor, floats, launches):
              "sept_tpu/ops/pallas_frontend.py:54",
              lambda: M.mel_db(padded, max_t, N_FFT, HOP, N_MELS),
              lambda: M.mel_db_plain(padded, max_t, N_FFT, HOP, N_MELS),
-             stft_chain, mel_bound),
+             lambda: stft_chain(padded, N_FFT, HOP), mel_bound(bsz, length, bsz * max_t, N_FFT)),
             ("block1_conv_stats", "sept_tpu_torch/csrc/conv_block1.cu",
              "sept_tpu/ops/pallas_conv.py:120",
              lambda: K.block1_conv_stats(flat, w, b),
@@ -442,7 +512,10 @@ def kernel_phase(predictor, floats, launches):
                 "max_abs_err": err[name],
                 "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None if lib is None else cuda_ms(lib),
+                "device_ms": device_ms(kern),
+                "library_device_ms": None if lib is None else device_ms(lib),
             })
+        kernels[0]["check_vs_f64"] = mel_check
         kernels[1]["moments_max_rel_err"] = moments_rel
         block1 = {
             "shape": list(flat.shape),
@@ -466,13 +539,32 @@ def edge_phase(device):
     from sept_tpu_torch.ops import mel as M
 
     g = torch.Generator(device=device).manual_seed(SEED + 3)
+    g_mel = torch.Generator(device=device).manual_seed(SEED + 4)
     worst = {}
     with torch.inference_mode():
-        for b, n_fft, t in ((1, 800, 37), (3, 1600, 70)):
-            x = 0.3 * torch.randn(b, (t - 1) * HOP + n_fft + 77, device=device, generator=g)
-            d = float((M.mel_db(x, t, n_fft, HOP, N_MELS)
-                       - M.mel_db_plain(x, t, n_fft, HOP, N_MELS)).abs().max())
-            worst["mel_db"] = max(worst.get("mel_db", 0.0), d)
+        # ragged frame tiles (T not a multiple of the block's frames), one
+        # row, one frame, and each n_fft of the repo (the mfcc's 400 at hop
+        # 200, serving's 800, mel2's 1600); each also against float64.  The
+        # first two draw from g, as the block-1 shapes after them do.
+        for i, (b, n_fft, hop, t) in enumerate(((1, 800, HOP, 37), (3, 1600, HOP, 70),
+                                                (3, 400, 200, 70), (2, 1600, HOP, 33),
+                                                (1, 800, HOP, 1))):
+            x = 0.3 * torch.randn(b, (t - 1) * hop + n_fft + 77, device=device,
+                                  generator=g if i < 2 else g_mel)
+            k = M.mel_db(x, t, n_fft, hop, N_MELS)
+            p = M.mel_db_plain(x, t, n_fft, hop, N_MELS)
+            c = check_mel(k, p, x, t, n_fft, hop, f"edge ({b}, {n_fft}, {hop}, {t})")
+            worst["mel_db"] = max(worst.get("mel_db", 0.0), c["max_abs_vs_plain"])
+            for key in ("kernel_vs_f64", "plain_vs_f64"):
+                worst[f"mel_db_{key}"] = max(worst.get(f"mel_db_{key}", 0.0), c[key])
+        # an n_fft outside the FFT kernel's factor rule raises before a launch
+        before = M.mel_db.launches
+        try:
+            M.mel_db(torch.zeros(1, 4000, device=device), 5, 802, HOP, N_MELS)
+        except ValueError as e:
+            worst["mel_db_n_fft_802"] = f"ValueError: {e}"
+        require(M.mel_db.launches == before and "mel_db_n_fft_802" in worst,
+                "mel_db took n_fft 802, outside its factor rule")
         for b, h, w in ((1, 37, 29), (3, 64, 33)):
             x = torch.randn(b, 1, h, w, device=device, generator=g)
             wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
@@ -488,8 +580,9 @@ def edge_phase(device):
             worst["block1_norm_pool"] = max(worst.get("block1_norm_pool", 0.0), float(
                 (K.block1_norm_pool(y_p, scale, shift)
                  - K.block1_norm_pool_plain(y_p, scale, shift)).abs().max()))
-    for name, e in worst.items():
-        require(e <= TOL[name], f"{name} disagrees with its plain version at edge shapes: {e}")
+    for name in TOL:
+        require(worst[name] <= TOL[name],
+                f"{name} disagrees with its plain version at edge shapes: {worst[name]}")
     return worst
 
 
@@ -909,6 +1002,21 @@ def check_backward(x, w, conv_out, dp, ga, shift, mean, inv, cd=torch.float32):
     return err, abs_err, (dy_p, m1, m2)
 
 
+def k4_chain(x, conv_out, dy, ga, mean, inv, m1, m2, w_shape, cd=torch.float32):
+    """K4's like-for-like library yardstick: the library calls that compute
+    its whole function from the same inputs, dconv (``_dconv``), cuDNN's
+    wgrad on x and dconv rounded to ``cd``, and db = dconv.sum."""
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    def chain():
+        dconv = K._dconv(conv_out, dy, ga, mean, inv, m1, m2)
+        return (torch.nn.grad.conv2d_weight(x.to(cd), w_shape, dconv.to(cd), padding=2),
+                dconv.sum((0, 2, 3)))
+
+    return {"library_chain": "_dconv + torch.nn.grad.conv2d_weight + dconv.sum",
+            "library_chain_ms": cuda_ms(chain), "library_chain_device_ms": device_ms(chain)}
+
+
 def train_kernel_phase(cap, launches):
     """K3-K5 against their plain versions on the baseline step's own block-1
     tensors, then timed beside the plain version, one PyTorch call and the
@@ -956,11 +1064,13 @@ def train_kernel_phase(cap, launches):
             "replaces": replaces, "launches": sum(p[name] for p in launches.values()),
             "launches_by_path": {k: p[name] for k, p in launches.items()},
             "max_abs_err": abs_err[name], "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib)})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib),
+            "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)})
     kernels[0]["library"] = "max_pool2d_with_indices_backward (no ReLU mask, no sums)"
     kernels[0]["sums_max_rel_err_of_abs_sum"] = err["block1_route_sums_rel"]
     kernels[1]["library"] = "torch.nn.grad.conv2d_weight (cuDNN wgrad, dconv given)"
     kernels[1]["max_rel_err_of_max_abs"] = err["block1_weight_grads"]
+    kernels[1].update(k4_chain(x, conv_out, dy, ga, mean, inv, m1, m2, tuple(w.shape)))
     kernels[2]["library"] = "torch.nn.grad.conv2d_input (cuDNN dgrad, dconv given)"
     kernels[2]["max_rel_err_of_max_abs"] = err["block1_input_grad"]
 
@@ -991,7 +1101,7 @@ def train_edge_phase(device):
 
     g = torch.Generator(device=device).manual_seed(SEED + 9)
     worst = {}
-    for b, h, w in ((1, 37, 29), (3, 64, 33)):
+    for b, h, w in K4_EDGES:
         x = torch.randn(b, 1, h, w, device=device, generator=g)
         wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
         y, sums = K.block1_conv_stats_plain(x, wt, 0.1 * torch.randn(32, device=device,
@@ -1242,7 +1352,9 @@ def train_bf16_kernel_phase(cap, launches):
             "launches_by_path": {k: p[name] for k, p in launches.items() if p[name]},
             "max_abs_err": e, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None if lib is None else cuda_ms(lib), "shape": list(y.shape)})
+            "library_ms": None if lib is None else cuda_ms(lib), "shape": list(y.shape),
+            "device_ms": device_ms(kern), "f32_mode_device_ms_same_shape": device_ms(f32),
+            "library_device_ms": None if lib is None else device_ms(lib)})
         if lib_name:
             kernels[-1]["library"] = lib_name
     kernels[0].update(max_bf16_units=fwd_err["conv_bf16_units"],
@@ -1252,6 +1364,7 @@ def train_bf16_kernel_phase(cap, launches):
                                   "first-max 2x2 pool")
     kernels[2]["sums_max_rel_err_of_abs_sum"] = err["block1_route_sums_rel"]
     kernels[3]["max_rel_err_of_max_abs"] = err["block1_weight_grads"]
+    kernels[3].update(k4_chain(x, y, dy, ga, mean, inv, m1, m2, tuple(w.shape), bf))
     kernels[4]["max_rel_err_of_max_abs"] = err["block1_input_grad"]
 
     leaves = [t.clone().requires_grad_() for t in (x, w, b, gamma, beta)]
@@ -1279,7 +1392,7 @@ def train_bf16_edge_phase(device):
     ragged shapes."""
     g = torch.Generator(device=device).manual_seed(SEED + 18)
     worst = {}
-    for b, h, w in ((1, 37, 29), (3, 64, 33)):
+    for b, h, w in K4_EDGES:
         x = torch.randn(b, 1, h, w, device=device, generator=g)
         wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
         bias = 0.1 * torch.randn(32, device=device, generator=g)
@@ -1615,27 +1728,14 @@ def featurize_kernel_phase(padded, chunk, launches):
                 f"mel_db_bf16 disagrees with its plain version: {mel_max}, {mel_p99}")
         require(fd_rel <= FLOOR_DCT_RTOL, f"floor_dct disagrees with its plain version: {fd_rel}")
 
-        window, _, _, fb = M._tables(N_FFT, N_MELS, x.device)
-
-        def stft_chain():
-            spec = torch.stft(x, N_FFT, HOP, window=window, center=False, return_complex=True)
-            power = spec.real * spec.real + spec.imag * spec.imag
-            return 10.0 * torch.log10(torch.clamp(power.transpose(1, 2) @ fb, min=M.AMIN))
-
-        frames = bsz * t
-        n_freq = N_FFT // 2 + 1
-        fb_nnz = int((fb != 0).sum())
-        mel_bound = bound(
-            frames * (2.5 * N_FFT * np.log2(N_FFT) + N_FFT + 3 * n_freq + 2 * fb_nnz + N_MELS),
-            4.0 * (bsz * length + N_FFT + fb_nnz + frames * N_MELS))
         rows, n_mels = rows_mel.shape
         fd_bound = bound(rows * (n_mels + 2 * n_mels * 40),
                          4.0 * (rows * n_mels + rows + n_mels * 40 + rows * 40))
         specs = [
             ("mel_db_bf16", "sept_tpu_torch/csrc/mel.cu", "sept_tpu/ops/pallas_frontend.py:54",
              lambda: M.mel_db_bf16(x, t, N_FFT, HOP, N_MELS),
-             lambda: M.mel_db_plain(x, t, N_FFT, HOP, N_MELS, bf16=True), stft_chain,
-             mel_bound, mel_max),
+             lambda: M.mel_db_plain(x, t, N_FFT, HOP, N_MELS, bf16=True),
+             lambda: stft_chain(x, N_FFT, HOP), mel_bound(bsz, length, bsz * t, N_FFT), mel_max),
             ("floor_dct", "sept_tpu_torch/csrc/mfcc.cu", "sept_tpu/ops/pallas_frontend.py:164",
              lambda: MF.floor_dct(rows_mel, floor, dct),
              lambda: MF.floor_dct_plain(rows_mel, floor, dct),
@@ -1649,7 +1749,8 @@ def featurize_kernel_phase(padded, chunk, launches):
                 "launches": sum(p[name] for p in launches.values()),
                 "launches_by_path": {k: p[name] for k, p in launches.items()},
                 "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib)})
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib),
+                "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)})
         kernels[0].update({"p99_abs_err": mel_p99, "f32_kernel_ms_same_input": cuda_ms(
                                lambda: M.mel_db(x, t, N_FFT, HOP, N_MELS), iters=5),
                            "bound_counts": "rFFT 2.5 n log2 n + sparse mel bank",
@@ -1658,6 +1759,69 @@ def featurize_kernel_phase(padded, chunk, launches):
         kernels[1].update({"max_rel_err_of_max_abs": fd_rel, "shape": [rows, n_mels, 40],
                            "library": "torch.maximum + torch.matmul"})
     return kernels
+
+
+def stft_chain(x, n_fft, hop, n_mels=N_MELS):
+    """The library yardstick of the f32 mel kernel: torch.stft (cuFFT) +
+    power + matmul with the bank + log10, the same function."""
+    from sept_tpu_torch.ops import mel as M
+
+    window, _, _, fb = M._tables(n_fft, n_mels, x.device)
+    spec = torch.stft(x, n_fft, hop, window=window, center=False, return_complex=True)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    return 10.0 * torch.log10(torch.clamp(power.transpose(1, 2) @ fb, min=M.AMIN))
+
+
+def mel_bound(bsz, length, frames, n_fft, n_mels=N_MELS):
+    """The least work of the mel function: a real FFT (2.5 n log2 n, the
+    usual count), window, power, the sparse bank and the log; bytes: waves
+    in, window and bank, dB out."""
+    from sept_tpu_torch.ops import frontend as F
+
+    fb_nnz = int((F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000) != 0).sum())
+    return bound(frames * (2.5 * n_fft * np.log2(n_fft) + n_fft + 3 * (n_fft // 2 + 1)
+                           + 2 * fb_nnz + n_mels),
+                 4.0 * (bsz * length + n_fft + fb_nnz + frames * n_mels))
+
+
+def mel_featurize_phase(chunk):
+    """The f32 mel kernel at featurize_corpus's shapes, on one chunk of 64
+    utterances at its bucket length: mel_spec's mel1 (n_fft 800) and mel2
+    (n_fft 1600) at hop 160, and the mfcc's three streams (wave and its two
+    gradients, 192 rows) at n_fft 400, hop 200; each against its plain
+    version (cell by cell, check_mel), timed beside the plain version, the
+    torch.stft chain and the bound."""
+    from sept_tpu_torch.data.featurize import _padded_gradient, device_reflect_pad
+    from sept_tpu_torch.ops import frontend as F
+    from sept_tpu_torch.ops import mel as M
+
+    W, ns = chunk
+    rows = []
+    with torch.inference_mode():
+        w = F.pcm_to_float(torch.from_numpy(W).to(DEV))
+        n = torch.from_numpy(ns).to(DEV)
+        streams = torch.cat([device_reflect_pad(s, n, 200) for s in (
+            w, _padded_gradient(w, n, 1.0), _padded_gradient(w, n, 2.0))])
+        for what, x, n_fft, hop in (
+                ("featurize mel1", device_reflect_pad(w, n, 400), 800, HOP),
+                ("featurize mel2", device_reflect_pad(w, n, 800), 1600, HOP),
+                ("featurize mfcc streams", streams, 400, MFCC_HOP)):
+            t = 1 + w.shape[1] // hop
+            k = M.mel_db(x, t, n_fft, hop, N_MELS)
+            p = M.mel_db_plain(x, t, n_fft, hop, N_MELS)
+            c = check_mel(k, p, x, t, n_fft, hop, what)
+            bound_ms, bound_by = mel_bound(x.shape[0], x.shape[1], x.shape[0] * t, n_fft)
+            rows.append({
+                "what": what, "shape": [x.shape[0], x.shape[1], t], "n_fft": n_fft, "hop": hop,
+                "max_abs_err": c["max_abs_vs_plain"], "check_vs_f64": c,
+                "ms": cuda_ms(lambda: M.mel_db(x, t, n_fft, hop, N_MELS)),
+                "device_ms": device_ms(lambda: M.mel_db(x, t, n_fft, hop, N_MELS)),
+                "plain_ms": cuda_ms(lambda: M.mel_db_plain(x, t, n_fft, hop, N_MELS)),
+                "library_ms": cuda_ms(lambda: stft_chain(x, n_fft, hop)),
+                "library_device_ms": device_ms(lambda: stft_chain(x, n_fft, hop)),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            log(f"mel_db, {what}: {rows[-1]}")
+    return rows
 
 
 def featurize_edge_phase(device):
@@ -1761,6 +1925,7 @@ def main():
     log(f"train-cpu bf16 done at {time.perf_counter() - t0:.1f} s")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
+    kernels[0]["featurize_shapes"] = mel_featurize_phase(mfcc_chunk)
     train_kernels, block1_train = train_kernel_phase(capture_block1(ds, order, sds), paths)
     kernels += train_kernels
     kernels += featurize_kernel_phase(ingest_padded, mfcc_chunk, paths)
@@ -1785,23 +1950,26 @@ def main():
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
-    print(json.dumps({"block1_eval": block1}))
-    print(json.dumps({"latency_ms": latency}))
-    print(json.dumps({"profile": prof}))
-    print(json.dumps({"train": {"ingest": ingest, "epochs": epochs, "train_cpu": train_cpu,
-                                "edge_errors": edges, "launches_by_path": paths}}))
-    print(json.dumps({"block1_train": block1_train}))
-    print(json.dumps({"train_profile": train_prof}))
-    print(json.dumps({"featurize": feat}))
-    print(json.dumps({"ingest_bf16": ingest_b}))
-    print(json.dumps({"train_bf16": {
+    lines = [{"block1_eval": block1}, {"latency_ms": latency}, {"profile": prof},
+             {"train": {"ingest": ingest, "epochs": epochs, "train_cpu": train_cpu,
+                        "edge_errors": edges, "launches_by_path": paths}},
+             {"block1_train": block1_train}, {"train_profile": train_prof},
+             {"featurize": feat}, {"ingest_bf16": ingest_b}, {"train_bf16": {
         "epochs": epochs_bf16, "f32_baseline_epoch_same_windows": ingest_b["baseline_epoch"],
         "f32_epochs": epochs, "train_cpu": train_cpu_bf16, "profile": bf16_prof,
         "f32_profile": {k: {m: v[m] for m in ("wall_ms_per_step", "device_busy_ms_per_step",
                                               "device_idle_share", "device_launches_per_step")}
                         for k, v in train_prof.items()},
         "block1_fwd_bwd": block1_bf16, "gru": gru,
-        "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}}))
+        "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}},
+             {"card": smi}, {"kernels": kernels}]
+    # every result line also goes to a file, whole, where a caller that
+    # keeps only the end of the output still finds them
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.jsonl").write_text("".join(json.dumps(v) + "\n" for v in lines))
+    for v in lines[:-2]:
+        print(json.dumps(v))
     print(smi)
     # last but one, so the end of the output always holds it
     print(json.dumps({"kernels": kernels}))

@@ -6,190 +6,269 @@
 // reflect-padded waveform b,
 //
 //     out[b, t, m] = 10 * log10(max(sum_f P[t, f] * fb[f, m], 1e-10))
-//     P[t, f]      = (sum_n x[t, n] cos[n, f])^2 + (sum_n x[t, n] sin[n, f])^2
+//     P[t, f]      = |sum_n x[t, n] exp(-2 pi i f n / n_fft)|^2
 //     x[t, n]      = wave[b, t * hop + n] * hann[n]
 //
-// What bounds it on the H100: the function itself is cheap.  A real FFT of
-// 800 taps takes ~2.5 * 800 * log2(800) ~ 19k flops a frame and the sparse
-// mel bank ~1.4k, so at the serving shapes the least time is set about
-// equally by those operations and by the bytes (the waveform read once, 128
-// floats a frame written).  This design computes the DFT as a dense product,
-// 2 * 800 * 401 multiply-adds a frame (~65x the FFT's operations), all in f32
-// on the CUDA cores, so its own operation count, not the card, sets its
-// time; an FFT-structured kernel is later work (ROADMAP.md).
+// What bounds it on the H100: the function is cheap.  A real FFT of 800 taps
+// is ~2.5 * 800 * log2(800) ~ 19k flops a frame and the sparse mel bank ~1.6k
+// (791 nonzeros at n_fft 800), against 4 bytes of waveform read per hop and
+// 512 bytes of dB written per frame, so the least time is about equally set
+// by those operations and by the bytes.  An earlier design computed the DFT
+// as a dense product (2 * n_fft * (n_fft/2 + 1) multiply-adds a frame, ~65x
+// the FFT) and the bank as a dense product, and wrote per-frequency-tile
+// partial sums to scratch for a second kernel: its own operations set its
+// time (0.408 ms at the serving shape, (8, 96640) -> 600 frames, NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md).
+// This design does the FFT's operations, in one launch.
+//
+// Why the FFT runs in float64: the kernel is held cell by cell against the
+// plain version's dense f32 DFT, and where the two part, against a float64
+// chain.  On bands 60-110 dB under their frame's peak (the mfcc's gradient
+// streams) an FFT in f32 parts from the truth by up to 9e-3 dB, farther
+// than the dense DFT on some cells (PERF.md).  In float64 the FFT's rounding
+// drops out: the windowed frame is exact (a product of two f32 values), and
+// the roundings left are X to f32, the f32 power and the f32 bank sums,
+// ~1e-5 dB.  The H100 runs float64 at half the f32 rate, and the buffers
+// take twice the shared memory.
 //
 // Design:
-// - Framing happens inside the kernel.  The TPU kernel took pre-cut
-//   (frames, 800) rows only because Mosaic could not lower a hop-160 overlap;
-//   here one block stages the raw samples of TF consecutive frames
-//   ((TF-1)*hop + n_fft floats) in shared memory once and reads every frame
-//   from there, so the 5x larger im2col array never exists.
-// - The real DFT is a tiled f32 product (TF frames x n_fft) @ (n_fft x FT
-//   frequencies): the cos/sin tables stream through shared memory in KC-tap
-//   chunks (they stay L2-resident across blocks), the windowed frame chunk is
-//   staged beside them as [tap][frame], and each thread keeps FPT = 8 frames
-//   x 2 frequencies of the real and the imaginary sum in registers, so one
-//   k-step costs 4 shared loads (two float4, two float2) for 32 FMAs.
-// - One block takes TF = 32 frames of one row and FT = 128 frequencies, so a
-//   row of 600 frames spreads over 19 x 4 blocks: a single utterance fills
-//   most of the SMs, and a batch of 8 gives 600 blocks for 132 SMs instead of
-//   150.  The block's power tile stays in shared memory and its share of the
-//   mel product (frequencies in ascending order) goes to a scratch buffer of
-//   partial sums; a second, elementwise kernel adds the 4 partials in order
-//   and takes 10*log10(max(., 1e-10)).  The bank is dense (its sparse
-//   triangles would save ~8% of the work).
-// - f32 FMA throughout, no tensor cores: TF32 would break the f32 parity the
-//   serving path holds.
-// - Measured (PERF.md): earlier versions with one block per 32 frames and all
-//   401 frequencies left most SMs idle at one utterance and ran two blocks in
-//   turn on some SMs at 8; streaming the tables with cp.async double-buffering
-//   gave no gain.  3xTF32 wgmma and TMA-fed tables are later work.
+// - One kernel a call, writing (B, T, n_mels) dB directly: no scratch.
+// - Framing happens inside the kernel.  A block takes TF consecutive frames
+//   of one row and stages their raw samples ((TF-1)*hop + n_fft floats,
+//   zeros past the row's end) in shared memory once, beside the window and
+//   one complex float64 buffer pair per warp.  The twiddles stay in device
+//   memory, read through the read-only cache (every warp reads the same).
+// - One warp owns one frame at a time (8 warps, TF/8 frames each).  The real
+//   FFT of n_fft is a complex FFT of M = n_fft/2 on z[n] = x[2n] + i x[2n+1]
+//   (the window applied as the frame is packed), then the split post-pass
+//       X[k] = E + W^k O,  X[M-k] = conj(E - W^k O),  W = exp(-2 pi i / n_fft)
+//       E = (Z[k] + conj(Z[M-k])) / 2,  O = -i (Z[k] - conj(Z[M-k])) / 2
+//   for k = 0..M/2 (Z[M] = Z[0], so k = 0 gives bins 0 and M).
+// - The complex FFT is a Stockham autosort FFT (no bit-reversal pass) of
+//   radix-4, 2, 5 and 3 passes in the order of the plan ops/mel.py builds
+//   per n_fft: M must factor into 2, 3 and 5 (200, 400, 800 on the repo's
+//   paths).  A pass of radix R over p already-combined points maps input
+//   i + r*M/R to output (i - i%p)*R + i%p + s*p after the twiddles
+//   exp(-2 pi i r (i%p) / (p R)) and a length-R DFT; the twiddles come from
+//   tables computed in float64.  Passes ping-pong between the warp's two
+//   buffers with __syncwarp between them.
+// - X rounds to f32 and the power |X|^2 is f32 with no contraction
+//   (__fmul_rn, __fadd_rn), as the plain version rounds it, into the warp's
+//   free buffer.
+// - The mel bank is sparse: per band its first bin, its bin count and an
+//   offset into a flat weight array (each band's nonzeros are contiguous),
+//   taken from the dense melscale_fbanks table.  Each lane sums its bands'
+//   bins in ascending order in f32 (the dense product adds exact zeros
+//   elsewhere), takes 10*log10(max(., 1e-10)), and the warp writes the
+//   frame's n_mels floats as one coalesced row.
+// - No TF32 anywhere.
+// - Shared memory grows with n_fft and hop; the block takes 32 frames, or 16
+//   or 8 where 32 do not fit the card's 227 KB (n_fft 1600 at hop 160 takes
+//   16 frames, ~222 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TF = 32;           // frames per block
-constexpr int FPT = 8;           // frames per thread in the DFT stage
-constexpr int LANES = 64;        // frequency lanes, 2 adjacent frequencies each
-constexpr int FT = 2 * LANES;    // frequencies per block
-constexpr int KC = 32;           // taps per streamed table chunk
-constexpr int THREADS = LANES * (TF / FPT);  // 256: 4 frame groups x 64 lanes
-constexpr int AST = TF + 4;      // row stride of the staged frame chunk (float4-aligned)
-constexpr int MEL_LANES = 128;   // mel columns per pass
-constexpr int MEL_ROWS = TF / (THREADS / MEL_LANES);  // frames per thread, mel stage
-constexpr int MEL_PASSES = 2;    // n_mels <= MEL_PASSES * MEL_LANES
+constexpr int WARPS = 8;              // warps a block, one frame each at a time
+constexpr int THREADS = 32 * WARPS;   // 256
+constexpr int MEL_MAX = 256;          // widest mel bank taken
+constexpr int MAX_STAGES = 24;        // radix passes of the plan
+constexpr int SMEM_LIMIT = 232448;    // shared memory a block may opt into on Hopper
 
-int freq_tiles(int n_freq) { return (n_freq + FT - 1) / FT; }
+struct FftPlan {
+  int n_stages;
+  int radix[MAX_STAGES];
+};
 
-// One block: TF frames of one row x FT frequencies.  Writes that frequency
-// tile's share of the mel product, pre-log, to partial[ft, b, t, m].
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) { return make_double2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ double2 csub(double2 a, double2 b) { return make_double2(a.x - b.x, a.y - b.y); }
+// -i * a and +i * a
+__device__ __forceinline__ double2 mul_mi(double2 a) { return make_double2(a.y, -a.x); }
+__device__ __forceinline__ double2 mul_pi(double2 a) { return make_double2(-a.y, a.x); }
+__device__ __forceinline__ double2 cscale(double2 a, double s) { return make_double2(a.x * s, a.y * s); }
+
+// in-register DFT of length R, u'[s] = sum_r u[r] exp(-2 pi i r s / R)
+template <int R> __device__ __forceinline__ void dft(double2* u);
+
+template <> __device__ __forceinline__ void dft<2>(double2* u) {
+  const double2 a = u[0], b = u[1];
+  u[0] = cadd(a, b);
+  u[1] = csub(a, b);
+}
+
+template <> __device__ __forceinline__ void dft<4>(double2* u) {
+  const double2 t0 = cadd(u[0], u[2]), t1 = csub(u[0], u[2]);
+  const double2 t2 = cadd(u[1], u[3]), t3 = csub(u[1], u[3]);
+  u[0] = cadd(t0, t2);
+  u[2] = csub(t0, t2);
+  u[1] = cadd(t1, mul_mi(t3));
+  u[3] = cadd(t1, mul_pi(t3));
+}
+
+template <> __device__ __forceinline__ void dft<3>(double2* u) {
+  const double s3 = 0.866025403784438647;  // sin(2 pi / 3)
+  const double2 t = cadd(u[1], u[2]), d = csub(u[1], u[2]);
+  const double2 m = csub(u[0], cscale(t, 0.5));
+  const double2 r = cscale(mul_mi(d), s3);
+  u[0] = cadd(u[0], t);
+  u[1] = cadd(m, r);
+  u[2] = csub(m, r);
+}
+
+template <> __device__ __forceinline__ void dft<5>(double2* u) {
+  const double c1 = 0.309016994374947424;   // cos(2 pi / 5)
+  const double c2 = -0.809016994374947424;  // cos(4 pi / 5)
+  const double s1 = 0.951056516295153572;   // sin(2 pi / 5)
+  const double s2 = 0.587785252292473129;   // sin(4 pi / 5)
+  const double2 a = u[0];
+  const double2 t1 = cadd(u[1], u[4]), d1 = csub(u[1], u[4]);
+  const double2 t2 = cadd(u[2], u[3]), d2 = csub(u[2], u[3]);
+  const double2 m1 = cadd(a, cadd(cscale(t1, c1), cscale(t2, c2)));
+  const double2 m2 = cadd(a, cadd(cscale(t1, c2), cscale(t2, c1)));
+  const double2 r1 = mul_mi(cadd(cscale(d1, s1), cscale(d2, s2)));
+  const double2 r2 = mul_mi(csub(cscale(d1, s2), cscale(d2, s1)));
+  u[0] = cadd(a, cadd(t1, t2));
+  u[1] = cadd(m1, r1);
+  u[4] = csub(m1, r1);
+  u[2] = cadd(m2, r2);
+  u[3] = csub(m2, r2);
+}
+
+// One Stockham pass of radix R over a warp's buffer: p points already
+// combined, tw the pass's p x (R-1) twiddles (device memory, read through
+// the read-only cache: every warp of the block reads the same ones).
+template <int R>
+__device__ __forceinline__ void fft_pass(const double2* __restrict__ in, double2* __restrict__ out,
+                                         int M, int p, const double2* __restrict__ tw, int lane) {
+  const int nb = M / R;
+  for (int i = lane; i < nb; i += 32) {
+    const int k = i % p;
+    double2 u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) u[r] = in[i + r * nb];
+#pragma unroll
+    for (int r = 1; r < R; ++r) u[r] = cmul(u[r], __ldg(tw + k * (R - 1) + r - 1));
+    dft<R>(u);
+    const int j = (i - k) * R + k;
+#pragma unroll
+    for (int s = 0; s < R; ++s) out[j + s * p] = u[s];
+  }
+}
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// shared memory, in bytes: the segment, the window and two buffers of M
+// complex float64 values a warp
+struct MelLayout {
+  size_t seg, win, buf, total;
+  __host__ __device__ MelLayout(int n_fft, int hop, int tf) {
+    seg = 0;
+    win = align16(seg + ((size_t)(tf - 1) * hop + n_fft) * 4);
+    buf = align16(win + (size_t)n_fft * 4);
+    total = align16(buf + (size_t)WARPS * 2 * (n_fft / 2) * 16);
+  }
+};
+
+// frames a block: 32, or 16 or 8 where 32 do not fit
+int frames_per_block(int n_fft, int hop) {
+  for (int tf = 32; tf > WARPS; tf /= 2)
+    if (MelLayout(n_fft, hop, tf).total <= (size_t)SMEM_LIMIT) return tf;
+  return WARPS;
+}
+
 __global__ void __launch_bounds__(THREADS)
-mel_partial_kernel(const float* __restrict__ wave,    // (B, L)
-                   const float* __restrict__ window,  // (n_fft,)
-                   const float* __restrict__ cos_t,   // (n_fft, n_freq)
-                   const float* __restrict__ sin_t,   // (n_fft, n_freq)
-                   const float* __restrict__ fb,      // (n_freq, n_mels)
-                   float* __restrict__ partial,       // (n_ftiles, B, T, n_mels)
-                   int B, int L, int T, int n_fft, int hop, int n_freq, int n_mels,
-                   int n_ttiles, int n_ftiles) {
+mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
+               const float* __restrict__ window,    // (n_fft,)
+               const double2* __restrict__ twiddles,  // (n_tw,) complex float64
+               const int* __restrict__ bank_idx,    // (3, n_mels): first bin, count, offset
+               const float* __restrict__ bank_w,    // flat band weights
+               float* __restrict__ out,             // (B, T, n_mels)
+               int L, int T, int n_fft, int hop, int n_mels, int tf, int n_ttiles,
+               FftPlan plan) {
   extern __shared__ float4 smem4[];
-  float* a_chunk = reinterpret_cast<float*>(smem4);  // KC x AST windowed samples, [tap][frame]
-  float* c_chunk = a_chunk + KC * AST;               // KC x FT
-  float* s_chunk = c_chunk + KC * FT;                // KC x FT
-  float* win = s_chunk + KC * FT;                    // n_fft
-  float* power = win + n_fft;                        // TF x FT
-  float* seg = power + TF * FT;                      // (TF-1)*hop + n_fft raw samples
+  char* smem = reinterpret_cast<char*>(smem4);
+  const MelLayout lay(n_fft, hop, tf);
+  float* seg = reinterpret_cast<float*>(smem + lay.seg);
+  float* win = reinterpret_cast<float*>(smem + lay.win);
+  const int M = n_fft / 2;
 
-  // one flat grid over (row, frame tile, frequency tile), frequency fastest
-  // so the blocks sharing a row segment run together
   const int tid = threadIdx.x;
-  const int ft = blockIdx.x % n_ftiles;
-  const int tt = blockIdx.x / n_ftiles % n_ttiles;
-  const int b = blockIdx.x / n_ftiles / n_ttiles;
-  const int t0 = tt * TF, f0 = ft * FT;
-  const int seg_len = (TF - 1) * hop + n_fft;
+  const int tt = blockIdx.x % n_ttiles;
+  const int b = blockIdx.x / n_ttiles;
+  const int t0 = tt * tf;
+  const int seg_len = (tf - 1) * hop + n_fft;
   const long long base = (long long)b * L + (long long)t0 * hop;
   const long long avail = (long long)L - (long long)t0 * hop;
-  for (int i = tid; i < seg_len; i += THREADS)
-    seg[i] = i < avail ? wave[base + i] : 0.f;
+  for (int i = tid; i < seg_len; i += THREADS) seg[i] = i < avail ? wave[base + i] : 0.f;
   for (int i = tid; i < n_fft; i += THREADS) win[i] = window[i];
   __syncthreads();
 
-  const int fl = tid % LANES;  // frequencies f0 + 2*fl, f0 + 2*fl + 1
-  const int fg = tid / LANES;  // frames fg*FPT .. fg*FPT + FPT-1 (one group per warp)
-  // a warp whose 64 frequencies all lie past n_freq only stages
-  const bool active = f0 + 2 * (fl & ~31) < n_freq;
-  float re[FPT][2], im[FPT][2];
-#pragma unroll
-  for (int i = 0; i < FPT; ++i) {
-    re[i][0] = re[i][1] = 0.f;
-    im[i][0] = im[i][1] = 0.f;
-  }
-  for (int k0 = 0; k0 < n_fft; k0 += KC) {
-    for (int i = tid; i < TF * KC; i += THREADS) {
-      const int t = i / KC, kk = i % KC, k = k0 + kk;
-      a_chunk[kk * AST + t] = k < n_fft ? seg[t * hop + k] * win[k] : 0.f;
-    }
-    for (int i = tid; i < KC * FT; i += THREADS) {
-      const int k = k0 + i / FT, f = f0 + i % FT;
-      const bool ok = k < n_fft && f < n_freq;
-      const long long off = (long long)k * n_freq + f;
-      c_chunk[i] = ok ? __ldg(cos_t + off) : 0.f;
-      s_chunk[i] = ok ? __ldg(sin_t + off) : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(a_chunk + kk * AST + fg * FPT);
-        const float4 a1 = *reinterpret_cast<const float4*>(a_chunk + kk * AST + fg * FPT + 4);
-        const float2 cv = *reinterpret_cast<const float2*>(c_chunk + kk * FT + 2 * fl);
-        const float2 sv = *reinterpret_cast<const float2*>(s_chunk + kk * FT + 2 * fl);
-        const float a[FPT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int i = 0; i < FPT; ++i) {
-          re[i][0] = fmaf(a[i], cv.x, re[i][0]);
-          re[i][1] = fmaf(a[i], cv.y, re[i][1]);
-          im[i][0] = fmaf(a[i], sv.x, im[i][0]);
-          im[i][1] = fmaf(a[i], sv.y, im[i][1]);
-        }
+  const int warp = tid / 32, lane = tid % 32;
+  double2* buf0 = reinterpret_cast<double2*>(smem + lay.buf) + (size_t)warp * 2 * M;
+  double2* buf1 = buf0 + M;
+  const int* first = bank_idx;
+  const int* count = bank_idx + n_mels;
+  const int* offset = bank_idx + 2 * n_mels;
+
+  for (int f = warp; f < tf; f += WARPS) {
+    const int t = t0 + f;
+    if (t >= T) break;
+    const float* x = seg + f * hop;
+    __syncwarp();  // the previous frame's mel stage is done with the buffers
+    // pack the windowed frame, z[n] = x[2n] + i x[2n+1]: a product of two
+    // f32 values is exact in float64
+    for (int n = lane; n < M; n += 32)
+      buf0[n] = make_double2((double)x[2 * n] * (double)win[2 * n],
+                             (double)x[2 * n + 1] * (double)win[2 * n + 1]);
+    __syncwarp();
+    double2* src = buf0;
+    double2* dst = buf1;
+    const double2* twp = twiddles;
+    int p = 1;
+    for (int s = 0; s < plan.n_stages; ++s) {
+      const int r = plan.radix[s];
+      switch (r) {
+        case 4: fft_pass<4>(src, dst, M, p, twp, lane); break;
+        case 2: fft_pass<2>(src, dst, M, p, twp, lane); break;
+        case 5: fft_pass<5>(src, dst, M, p, twp, lane); break;
+        default: fft_pass<3>(src, dst, M, p, twp, lane); break;
       }
+      twp += p * (r - 1);
+      p *= r;
+      double2* sw = src; src = dst; dst = sw;
+      __syncwarp();
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < FPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      power[(fg * FPT + i) * FT + 2 * fl + j] =
-          __fadd_rn(__fmul_rn(re[i][j], re[i][j]), __fmul_rn(im[i][j], im[i][j]));
-  __syncthreads();
-
-  // this tile's share of the mel product, frequencies in ascending order
-  const int nf = min(FT, n_freq - f0);
-  const int ml = tid % MEL_LANES;               // mel column
-  const int mr = (tid / MEL_LANES) * MEL_ROWS;  // first frame of this thread
-#pragma unroll
-  for (int p = 0; p < MEL_PASSES; ++p) {
-    const int m = ml + p * MEL_LANES;
-    if (m >= n_mels) continue;
-    float acc[MEL_ROWS];
-#pragma unroll
-    for (int i = 0; i < MEL_ROWS; ++i) acc[i] = 0.f;
-    for (int f = 0; f < nf; ++f) {
-      const float w = __ldg(fb + (long long)(f0 + f) * n_mels + m);
-#pragma unroll
-      for (int i = 0; i < MEL_ROWS; ++i) acc[i] = fmaf(power[(mr + i) * FT + f], w, acc[i]);
+    // split post-pass: Z in src, the power of bins 0..M into dst; X rounds
+    // to f32 and the power is f32 with no contraction, as the plain version
+    // computes it
+    float* power = reinterpret_cast<float*>(dst);
+    for (int k = lane; k <= M / 2; k += 32) {
+      const double2 zk = src[k], zm = src[k == 0 ? 0 : M - k];
+      const double2 zc = make_double2(zm.x, -zm.y);
+      const double2 e = cscale(cadd(zk, zc), 0.5);
+      const double2 o = cscale(mul_mi(csub(zk, zc)), 0.5);
+      const double2 wo = cmul(__ldg(twp + k), o);
+      const double2 x1 = cadd(e, wo), x2 = csub(e, wo);  // X[k], conj(X[M-k])
+      const float r1 = (float)x1.x, i1 = (float)x1.y, r2 = (float)x2.x, i2 = (float)x2.y;
+      power[k] = __fadd_rn(__fmul_rn(r1, r1), __fmul_rn(i1, i1));
+      if (M - k != k) power[M - k] = __fadd_rn(__fmul_rn(r2, r2), __fmul_rn(i2, i2));
     }
-#pragma unroll
-    for (int i = 0; i < MEL_ROWS; ++i) {
-      const int t = t0 + mr + i;
-      if (t < T) partial[(((long long)ft * B + b) * T + t) * n_mels + m] = acc[i];
+    __syncwarp();
+    // the sparse mel bank, each band's bins in ascending order
+    float* orow = out + ((long long)b * T + t) * n_mels;
+    for (int m = lane; m < n_mels; m += 32) {
+      const int f0 = __ldg(first + m), nf = __ldg(count + m);
+      const float* w = bank_w + __ldg(offset + m);
+      float acc = 0.f;
+      for (int q = 0; q < nf; ++q) acc = fmaf(power[f0 + q], __ldg(w + q), acc);
+      orow[m] = 10.f * log10f(fmaxf(acc, 1e-10f));
     }
   }
-}
-
-// out = 10 * log10(max(sum over frequency tiles of partial, 1e-10)), the tiles
-// added in ascending order.
-__global__ void __launch_bounds__(THREADS)
-mel_log_kernel(const float* __restrict__ partial, float* __restrict__ out,
-               long long total, int n_ftiles) {
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * THREADS) {
-    float s = partial[i];
-    for (int j = 1; j < n_ftiles; ++j) s += partial[j * total + i];
-    out[i] = 10.f * log10f(fmaxf(s, 1e-10f));
-  }
-}
-
-size_t smem_bytes(int n_fft, int hop) {
-  const size_t floats = KC * AST + 2 * KC * FT            // staged chunks
-                        + n_fft                           // window
-                        + TF * FT                         // power of the tile
-                        + (size_t)(TF - 1) * hop + n_fft;  // seg
-  return floats * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
@@ -444,39 +523,48 @@ extern "C" {
 const char* sept_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Widest mel bank the kernel takes; the wrapper refuses wider ones.
-int sept_mel_db_max_mels() { return MEL_PASSES * MEL_LANES; }
+int sept_mel_db_max_mels() { return MEL_MAX; }
 
-// Shared memory one block needs; the wrapper refuses shapes above the card's
-// per-block limit before launching.
+// Shared memory one block needs; the wrapper refuses shapes above the
+// card's per-block limit before launching.
 long long sept_mel_db_smem_bytes(int n_fft, int hop) {
-  return (long long)smem_bytes(n_fft, hop);
+  return (long long)MelLayout(n_fft, hop, frames_per_block(n_fft, hop)).total;
 }
 
-// Floats of scratch sept_mel_db needs for the per-frequency-tile partial sums.
-long long sept_mel_db_scratch_floats(int B, int T, int n_freq, int n_mels) {
-  return (long long)freq_tiles(n_freq) * B * T * n_mels;
-}
-
-int sept_mel_db(const float* wave, const float* window, const float* cos_t,
-                const float* sin_t, const float* fb, float* out, float* scratch, int B,
-                int L, int T, int n_fft, int hop, int n_freq, int n_mels, void* stream) {
-  if (n_mels > MEL_PASSES * MEL_LANES || n_freq != n_fft / 2 + 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n_fft, hop);
+// wave (B, L) f32; window (n_fft,) f32; twiddles (n_tw,) complex float64:
+// each pass's p x (R-1) table in the plan's order, then exp(-2 pi i k /
+// n_fft) for k = 0..n_fft/4; bank_idx (3, n_mels) int32 (first bin, bin
+// count, offset into bank_w); radices (n_stages,) on the host, whose product
+// is n_fft / 2; out (B, T, n_mels) f32.
+int sept_mel_db(const float* wave, const float* window, const double* twiddles,
+                const int* bank_idx, const float* bank_w, float* out, int B, int L, int T,
+                int n_fft, int hop, int n_mels, int n_tw, const int* radices, int n_stages,
+                void* stream) {
+  if (n_mels > MEL_MAX || n_mels < 1 || hop < 1 || n_fft < 2 || n_fft % 2 ||
+      n_stages < 0 || n_stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  FftPlan plan;
+  plan.n_stages = n_stages;
+  long long prod = 1, n_pass_tw = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    if (r != 2 && r != 3 && r != 4 && r != 5) return (int)cudaErrorInvalidValue;
+    plan.radix[s] = r;
+    n_pass_tw += prod * (r - 1);
+    prod *= r;
+  }
+  if (prod != n_fft / 2 || n_tw != n_pass_tw + n_fft / 4 + 1) return (int)cudaErrorInvalidValue;
+  const int tf = frames_per_block(n_fft, hop);
+  const size_t smem = MelLayout(n_fft, hop, tf).total;
   cudaError_t err = cudaFuncSetAttribute(
-      mel_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_ttiles = (T + TF - 1) / TF, n_ftiles = freq_tiles(n_freq);
-  const long long blocks = (long long)n_ttiles * n_ftiles * B;
+  const int n_ttiles = (T + tf - 1) / tf;
+  const long long blocks = (long long)n_ttiles * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  mel_partial_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      wave, window, cos_t, sin_t, fb, scratch, B, L, T, n_fft, hop, n_freq, n_mels,
-      n_ttiles, n_ftiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)B * T * n_mels;
-  const long long log_blocks = (total + THREADS - 1) / THREADS;
-  mel_log_kernel<<<(int)(log_blocks < (1LL << 20) ? log_blocks : (1LL << 20)), THREADS, 0,
-                   (cudaStream_t)stream>>>(scratch, out, total, n_ftiles);
+  mel_fft_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      wave, window, reinterpret_cast<const double2*>(twiddles), bank_idx, bank_w, out, L, T,
+      n_fft, hop, n_mels, tf, n_ttiles, plan);
   return (int)cudaGetLastError();
 }
 

@@ -38,10 +38,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "mel": {
-        "sept_mel_db": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        "sept_mel_db": ([_P] * 6 + [_I] * 7 + [_P, _I, _P], _I),
         "sept_mel_db_max_mels": ([], _I),
         "sept_mel_db_smem_bytes": ([_I] * 2, _LL),
-        "sept_mel_db_scratch_floats": ([_I] * 4, _LL),
         "sept_mel_bf16_geometry": ([_P], None),
         "sept_mel_bf16_smem_bytes": ([_I] * 2, _LL),
         "sept_mel_db_bf16": ([_P] * 5 + [_I] * 6 + [_P], _I),

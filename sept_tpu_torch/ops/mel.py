@@ -7,6 +7,16 @@ launches the bf16 kernel (operands rounded to bf16 at the TPU kernel's six
 places, f32 accumulation; the throughput mode).  Each mode has its own launch
 count.  A CPU tensor runs :func:`mel_db_plain` in the same mode; any other
 input raises.
+
+The f32 kernel is FFT-structured, one launch a call: a real FFT of n_fft as
+a complex FFT of n_fft / 2 in radix-4, 2, 5 and 3 Stockham passes, in
+float64, then the f32 power and the sparse mel bank.  It takes every even
+n_fft whose half factors into 2, 3 and 5 (400, 800 and 1600 on the repo's
+paths); :func:`fft_radices` refuses any other n_fft with ``ValueError``
+before a launch.  The CPU plain version takes any n_fft.  :func:`fft_plan`
+(radices and float64 twiddles) and :func:`sparse_bank` (each band's first
+bin, bin count and weights) are the kernel's tables, built once per (n_fft,
+device).
 """
 
 from __future__ import annotations
@@ -14,14 +24,17 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from sept_tpu_torch.ops import cuda_lib
 from sept_tpu_torch.ops import frontend as F
 
-__all__ = ["mel_db", "mel_db_bf16", "mel_db_plain", "AMIN"]
+__all__ = ["mel_db", "mel_db_bf16", "mel_db_plain", "fft_radices", "fft_plan",
+           "sparse_bank", "AMIN"]
 
 AMIN = 1e-10  # the AmplitudeToDB power clamp
+_RADICES = (4, 2, 5, 3)  # the kernel's Stockham passes, in the order they run
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,6 +72,70 @@ def _kernel_tables_bf16(n_fft: int, n_mels: int, geometry: tuple, device: torch.
     fbt[:n_freq, :n_mels] = fb
     fbt = fbt.view(chunks, fc, mels).transpose(1, 2)
     return tuple(t.contiguous().to(device) for t in (window, dft, fbt))
+
+
+def fft_radices(n_fft: int) -> tuple[int, ...]:
+    """The f32 kernel's passes for a complex FFT of n_fft / 2: as many
+    radix-4 passes as divide it, then radix 2, 5 and 3.  Raises
+    ``ValueError`` unless n_fft is even and n_fft / 2 factors into 2, 3 and
+    5."""
+    m = n_fft // 2
+    if n_fft < 2 or n_fft % 2:
+        raise ValueError(f"mel_db: the FFT kernel takes an even n_fft whose half "
+                         f"factors into 2, 3 and 5, got {n_fft}")
+    radices = []
+    for r in _RADICES:
+        while m % r == 0:
+            radices.append(r)
+            m //= r
+    if m != 1:
+        raise ValueError(f"mel_db: the FFT kernel takes an even n_fft whose half "
+                         f"factors into 2, 3 and 5, got {n_fft} (n_fft / 2 = "
+                         f"{n_fft // 2} has the factor {m})")
+    return tuple(radices)
+
+
+def fft_plan(n_fft: int) -> tuple[tuple[int, ...], np.ndarray]:
+    """(radices, twiddles) of the f32 kernel's FFT: for each pass of radix R
+    over p combined points, exp(-2 pi i r k / (p R)) for k < p, r = 1..R-1
+    (k major), then the split post-pass's exp(-2 pi i k / n_fft) for k =
+    0..n_fft/4; complex128, as the kernel takes them."""
+    radices = fft_radices(n_fft)
+    parts, p = [], 1
+    for r in radices:
+        k, rr = np.arange(p)[:, None], np.arange(1, r)[None, :]
+        parts.append(np.exp(-2j * np.pi * k * rr / (p * r)).ravel())
+        p *= r
+    parts.append(np.exp(-2j * np.pi * np.arange(n_fft // 4 + 1) / n_fft))
+    return radices, np.concatenate(parts)
+
+
+def sparse_bank(n_fft: int, n_mels: int) -> tuple[np.ndarray, np.ndarray]:
+    """The mel filterbank of :func:`mel_db` as the kernel reads it:
+    ``index`` (3, n_mels) int32 -- each band's first bin, its bin count (its
+    nonzeros are contiguous; 0 for an empty band) and its offset into
+    ``weights`` -- and ``weights``, the bands' f32 values from the dense
+    table, one band after another."""
+    fb = F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000)
+    index = np.zeros((3, n_mels), np.int32)
+    weights = []
+    for m in range(n_mels):
+        nz = np.nonzero(fb[:, m])[0]
+        first, count = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if len(nz) else (0, 0)
+        index[:, m] = first, count, sum(len(w) for w in weights)
+        weights.append(fb[first:first + count, m])
+    return index, np.concatenate(weights).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_tables(n_fft: int, n_mels: int, device: torch.device):
+    """The f32 kernel's operands on ``device``: (radices, window, twiddles as
+    interleaved float64 pairs, bank index, bank weights)."""
+    radices, tw = fft_plan(n_fft)
+    index, weights = sparse_bank(n_fft, n_mels)
+    pairs = np.stack([tw.real, tw.imag], -1).ravel()
+    return (radices,) + tuple(torch.from_numpy(a).to(device) for a in (
+        F.hann_window(n_fft), pairs, index, weights))
 
 
 def _check_geometry(padded_waves, n_frames_max, n_fft, hop):
@@ -117,28 +194,27 @@ def mel_db(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
         return mel_db_plain(padded_waves, n_frames_max, n_fft, hop, n_mels)
     padded_waves = F.pcm_to_float(padded_waves)
     _check_geometry(padded_waves, n_frames_max, n_fft, hop)
+    fft_radices(n_fft)
     b, length = padded_waves.shape
-    n_freq = n_fft // 2 + 1
     cuda_lib.require(padded_waves, "mel_db padded_waves", (b, length), dev)
     lib = cuda_lib.load("mel")
     max_mels = lib.sept_mel_db_max_mels()
     if n_mels > max_mels:
         raise ValueError(f"mel_db: the kernel takes at most {max_mels} mels, got {n_mels}")
+    radices, window, twiddles, index, weights = _fft_tables(n_fft, n_mels, dev)
+    n_tw = twiddles.numel() // 2
     smem = lib.sept_mel_db_smem_bytes(n_fft, hop)
     if smem > cuda_lib.max_smem_per_block(dev):
         raise ValueError(f"mel_db: n_fft {n_fft} / hop {hop} need {smem} bytes "
                          "of shared memory a block, above the card's limit")
-    window, cos_m, sin_m, fb = _tables(n_fft, n_mels, dev)
     out = torch.empty((b, n_frames_max, n_mels), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    scratch = torch.empty(
-        lib.sept_mel_db_scratch_floats(b, n_frames_max, n_freq, n_mels),
-        dtype=torch.float32, device=dev)
     err = lib.sept_mel_db(
-        padded_waves.data_ptr(), window.data_ptr(), cos_m.data_ptr(),
-        sin_m.data_ptr(), fb.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
-        length, n_frames_max, n_fft, hop, n_freq, n_mels, cuda_lib.stream_of(out))
+        padded_waves.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+        index.data_ptr(), weights.data_ptr(), out.data_ptr(), b, length, n_frames_max,
+        n_fft, hop, n_mels, n_tw, (ctypes.c_int * max(len(radices), 1))(*radices),
+        len(radices), cuda_lib.stream_of(out))
     cuda_lib.check(lib, err, "mel_db")
     mel_db.launches += 1
     return out
