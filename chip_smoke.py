@@ -86,8 +86,11 @@ and read just after; each kernel the path must use has to have launched
                streams at n_fft 400 / hop 200); block 1's forward + backward
                beside autograd through the cuDNN chain; then again at edge
                shapes (ragged tiles, odd sizes, a width that is a multiple
-               of 16, one frame, n_fft 400 and 1600, each mel against
-               float64 too; n_fft 802 must raise before a launch); the bf16 mel
+               of 16, a width of three column tiles (K1, K3-K5), one frame,
+               n_fft 400 and 1600, each mel against
+               float64 too; n_fft 802, 1022, 799, 2042, 2048, 858 and 1001
+               at hop 160 on 64 rows of 401 frames, each launching, timed
+               beside its plain version); the bf16 mel
                (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
                waves and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
                of 64 utterances at bucket 64000, then at n_fft 400 / 1600 and
@@ -117,6 +120,7 @@ The result lines (with the card's) are also written whole to
 """
 
 import base64
+import ctypes
 import json
 import re
 import subprocess
@@ -147,6 +151,13 @@ SUMS_RTOL = 1e-5   # K3's per-channel sums, of the sum of |terms|
 # one-column-a-load path), and a width that is a multiple of 16 with a
 # ragged band (K4's bf16 tensor-core path)
 K4_EDGES = ((1, 37, 29), (3, 64, 33), (2, 37, 48))
+# and a width of three column tiles, the last ragged (K1 and K5 across tile
+# borders, K5's halo columns from both neighbours)
+WIDE_EDGE = (1, 27, 260)
+# device ms of the designs the current K1 and K5 replaced (PERF.md §6, a
+# whole run on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+PREVIOUS_DEVICE_MS = {"block1_conv_stats": 0.166, "block1_conv_stats_bf16": 0.091,
+                 "block1_input_grad": 0.226, "block1_input_grad_bf16": 0.219}
 BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
 BLOCK1 = ("block1_conv_stats", "block1_norm_pool") + BACKWARD
 BLOCK1_BF16 = tuple(f"{k}_bf16" for k in BLOCK1)  # the kernels' bf16 mode, counted apart
@@ -534,8 +545,10 @@ def kernel_phase(predictor, floats, launches):
 
 def edge_phase(device):
     """Each kernel against its plain version at shapes off the main path:
-    ragged frame and pixel tiles, odd sizes, n_fft 1600, one row."""
+    ragged frame and pixel tiles, odd sizes, n_fft 1600, one row, and
+    n_fft off the 2-3-5 rule (prime halves, an odd n_fft, 2048)."""
     from sept_tpu_torch.ops import conv_block1 as K
+    from sept_tpu_torch.ops import cuda_lib
     from sept_tpu_torch.ops import mel as M
 
     g = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -557,22 +570,50 @@ def edge_phase(device):
             worst["mel_db"] = max(worst.get("mel_db", 0.0), c["max_abs_vs_plain"])
             for key in ("kernel_vs_f64", "plain_vs_f64"):
                 worst[f"mel_db_{key}"] = max(worst.get(f"mel_db_{key}", 0.0), c[key])
-        # an n_fft outside the FFT kernel's factor rule raises before a launch
-        before = M.mel_db.launches
-        try:
-            M.mel_db(torch.zeros(1, 4000, device=device), 5, 802, HOP, N_MELS)
-        except ValueError as e:
-            worst["mel_db_n_fft_802"] = f"ValueError: {e}"
-        require(M.mel_db.launches == before and "mel_db_n_fft_802" in worst,
-                "mel_db took n_fft 802, outside its factor rule")
-        for b, h, w in ((1, 37, 29), (3, 64, 33)):
+        # n_fft off the 2-3-5 rule at hop 160, at a featurize chunk's size
+        # (64 rows, 401 frames): direct generic passes (858 = 2 * 3 * 11 *
+        # 13, odd 1001 = 7 * 11 * 13), Bluestein (prime halves 802 and 2042,
+        # 1022 = 2 * 7 * 73, odd 799 = 17 * 47) and 2048 (4 warps a block);
+        # each launches and holds check_mel's rule, timed beside its plain
+        # version
+        worst["mel_db_any_n_fft"] = []
+        lib = cuda_lib.load("mel")
+        for n_fft in (802, 1022, 799, 2042, 2048, 858, 1001):
+            b, t = 64, 401
+            x = 0.3 * torch.randn(b, (t - 1) * HOP + n_fft + 77, device=device, generator=g_mel)
+            before = M.mel_db.launches
+            k = M.mel_db(x, t, n_fft, HOP, N_MELS)
+            require(M.mel_db.launches == before + 1, f"mel_db did not launch at n_fft {n_fft}")
+            p = M.mel_db_plain(x, t, n_fft, HOP, N_MELS)
+            c = check_mel(k, p, x, t, n_fft, HOP, f"edge n_fft {n_fft}")
+            radices = M.fft_radices(n_fft)
+            block = (ctypes.c_int * 2)()
+            lib.sept_mel_db_block(n_fft, HOP, int(np.prod(radices)), block)
+            worst["mel_db_any_n_fft"].append({
+                "n_fft": n_fft, "hop": HOP, "shape": [b, x.shape[1], t],
+                "radices": list(radices), "bluestein_length": M.bluestein_length(n_fft),
+                "block_frames_warps": list(block),
+                "max_abs_vs_plain": c["max_abs_vs_plain"], "check_vs_f64": c,
+                "device_ms": device_ms(lambda: M.mel_db(x, t, n_fft, HOP, N_MELS)),
+                "plain_device_ms": device_ms(lambda: M.mel_db_plain(x, t, n_fft, HOP, N_MELS))})
+            log(f"mel_db at n_fft {n_fft}: {worst['mel_db_any_n_fft'][-1]}")
+            for key in ("kernel_vs_f64", "plain_vs_f64"):
+                worst[f"mel_db_{key}"] = max(worst[f"mel_db_{key}"], c[key])
+        for b, h, w in K4_EDGES + (WIDE_EDGE,):
             x = torch.randn(b, 1, h, w, device=device, generator=g)
             wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
             bias = 0.1 * torch.randn(32, device=device, generator=g)
             y_k, s_k = K.block1_conv_stats(x, wt, bias)
             y_p, s_p = K.block1_conv_stats_plain(x, wt, bias)
-            rel = float(((s_k - s_p).abs() / s_p.abs().clamp(min=1e-6)).max())
-            require(rel <= MOMENTS_RTOL, f"edge moments disagree: {rel}")
+            if (b, h, w) in ((1, 37, 29), (3, 64, 33)):
+                rel = float(((s_k - s_p).abs() / s_p.abs().clamp(min=1e-6)).max())
+                require(rel <= MOMENTS_RTOL, f"edge moments disagree at {(b, h, w)}: {rel}")
+            else:  # sum y may cancel far below its terms: held as K3's sums are
+                terms = torch.stack([y_p.abs().sum((0, 2, 3)), (y_p * y_p).sum((0, 2, 3))])
+                rel = float(((s_k - s_p).abs() / terms.clamp(min=1e-30)).max())
+                require(rel <= SUMS_RTOL, f"edge moments disagree at {(b, h, w)}: {rel}")
+            worst["block1_conv_stats_moments"] = max(worst.get("block1_conv_stats_moments", 0.0),
+                                                     rel)
             worst["block1_conv_stats"] = max(worst.get("block1_conv_stats", 0.0),
                                              float((y_k - y_p).abs().max()))
             scale = 1 + 0.1 * torch.randn(32, device=device, generator=g)
@@ -1101,7 +1142,7 @@ def train_edge_phase(device):
 
     g = torch.Generator(device=device).manual_seed(SEED + 9)
     worst = {}
-    for b, h, w in K4_EDGES:
+    for b, h, w in K4_EDGES + (WIDE_EDGE,):
         x = torch.randn(b, 1, h, w, device=device, generator=g)
         wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
         y, sums = K.block1_conv_stats_plain(x, wt, 0.1 * torch.randn(32, device=device,
@@ -1392,7 +1433,7 @@ def train_bf16_edge_phase(device):
     ragged shapes."""
     g = torch.Generator(device=device).manual_seed(SEED + 18)
     worst = {}
-    for b, h, w in K4_EDGES:
+    for b, h, w in K4_EDGES + (WIDE_EDGE,):
         x = torch.randn(b, 1, h, w, device=device, generator=g)
         wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
         bias = 0.1 * torch.randn(32, device=device, generator=g)
@@ -1932,8 +1973,14 @@ def main():
     bf16_kernels, block1_bf16 = train_bf16_kernel_phase(
         capture_block1(ds_bf16, order_bf16, sds, "bfloat16"), paths)
     kernels += bf16_kernels
+    for k in kernels:
+        if k["name"] in PREVIOUS_DEVICE_MS:
+            k["previous_design_device_ms"] = PREVIOUS_DEVICE_MS[k["name"]]
+        if isinstance(k["device_ms"], float):
+            k["bound_share_of_device_ms"] = k["bound_ms"] / k["device_ms"]
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s; shapes {shapes}")
     edges = edge_phase(gpu.device)
+    kernels[0]["any_n_fft"] = edges.pop("mel_db_any_n_fft")
     edges.update(train_edge_phase(gpu.device))
     edges.update(featurize_edge_phase(gpu.device))
     edges.update(train_bf16_edge_phase(gpu.device))

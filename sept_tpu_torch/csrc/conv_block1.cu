@@ -28,7 +28,8 @@
 // max, K3 compares the same rounded z.  A product of two bf16 values is exact
 // in f32, so f32 FMAs over rounded operands are the numerics class of the
 // MXU's bf16 x bf16 -> f32: the bf16 mode shares the f32 kernels' tiling,
-// templated on the storage type.  Sums, moments, dW, db and dx stay f32.
+// templated on the storage type, except where it runs on the tensor cores
+// (K1, K4 and K5 at the training windows' shapes, mma.sync).  Sums, moments, dW, db and dx stay f32.
 //
 // What bounds them on the H100: bytes.  K1 does 25 multiply-adds per output
 // element but writes C = 32 values for every input float it reads, and K2
@@ -42,12 +43,26 @@
 //
 // Design:
 // - The TPU kernel turned the conv into one banded GEMM and rolled rows to
-//   fit Mosaic's (8, 128) tiling; none of that carries over.  Here a block
-//   stages a (32+4) x (32+4) input tile with its zero halo (the SAME padding)
-//   in shared memory, each thread keeps the 8 x 5 input patch of its four
-//   vertically adjacent output pixels in registers, and loops over the C
-//   channels with the 25 weights of each read as float4 broadcasts from
-//   shared memory.  Every store is a 32-value coalesced row segment.
+//   fit Mosaic's (8, 128) tiling; none of that carries over.  K1, K4 and K5
+//   share one geometry: a block takes one slot -- a row band of at most 25
+//   rows, as even as H allows (H = 200: 8 bands of 25, no idle rows), and a
+//   128-column tile of one item -- and a lane takes four adjacent columns.
+// - K1 stages x with its zero halo (the SAME padding) in shared memory once.
+//   f32 mode (and bf16 at widths that are not a multiple of 8): each warp
+//   owns channels warp, warp + 8, ...; the lane slides a 5 x 8 input window
+//   down the band (a ring of five staged rows) with the channel's 25
+//   weights in registers, stores each row's four outputs as one 16-byte
+//   (f32) or 8-byte (bf16) vector, and keeps the channel's sum of y and of
+//   y^2 in registers over the band: one warp reduction a channel and band.
+//   bf16 mode at widths that are a multiple of 8: an implicit GEMM on the
+//   tensor cores (mma.sync m16n8k16 bf16 -> f32), pixels x taps (25, padded
+//   to 32 with zeros) x 32 channels; a warp takes 64 pixels of a row as
+//   four m-tiles whose rows are pixels 8g + 2t and 8g + 2t + 1, so each lane
+//   ends holding 8 adjacent pixels of 8 channels and stores each as one
+//   16-byte vector; the bias is added in f32 and y rounded once.  What
+//   bounds K1: the bytes of y (52.4 MB in bf16, 104.9 in f32 at (32, 32,
+//   200, 128)); in bf16 the 25 multiply-adds an output on the CUDA cores
+//   alone would take longer than those bytes, hence the tensor cores.
 // - On the TPU the grid ran in order and the kernels carried their sums from
 //   one item to the next (pl.when(b == 0)).  Blocks here run in any order,
 //   so K1, K3 and K4 each write per-block partial sums to scratch, and one
@@ -63,9 +78,8 @@
 //   pixel pairs.  Cells past the pooled grid (odd H or W, floored as K2
 //   floors them) write dy = 0.
 // - K4 accumulates over a block's whole pixel range before it reduces.  A
-//   block takes one slot -- a row band of at most 25 rows, as even as H
-//   allows (H = 200: 8 bands of 25, no ragged tail), and a 128-column tile
-//   of one item -- and stages x with its zero halo in shared memory once.
+//   block takes one slot and a group of channels, and stages x with its zero
+//   halo in shared memory once.
 //   f32 mode (and bf16 at widths that are not a multiple of 16): each warp
 //   owns one channel of a group of 8, each lane four adjacent columns; the
 //   lane slides a 5 x 8 input window down the band (a ring of five staged
@@ -87,9 +101,22 @@
 //   the tensor cores take the products off the CUDA cores.
 //   The banded-matrix extraction of the TPU kernel was a Mosaic workaround
 //   and is gone.
-// - K5 uses K1's geometry: a 32 x 32 output tile, 4 rows a thread, the
-//   flipped weights as float4 broadcasts from shared memory; per channel the
-//   block stages dconv of the 36 x 36 halo tile in shared memory.
+// - K5 computes each dconv element once and writes dx once, without
+//   atomics.  FMA mode (f32, and bf16 off the conditions below): each warp
+//   owns channels warp, warp + 8, ...; the lane streams y and dy of its four
+//   columns as one 16-byte (f32) or 8-byte (bf16) vector a row, two rows
+//   ahead, takes the two dconv columns on each side from its neighbour
+//   lanes by shuffles, slides a ring of five dconv rows down the band and
+//   adds each output row's 100 products into its warp's partial dx in
+//   shared memory; the block sums the eight partials in order once.  bf16
+//   mode at C = 32 and widths that are a multiple of 16 up to 128: an
+//   implicit GEMM on the tensor cores, P[h, w, dw] = sum over (c, dh) of
+//   dconv(c, h + dh - 2, w) * wf[c, dh, dw] (M = pixels, K = 160 in ten
+//   k-steps of (dh, 16 channels), N = dw padded from 5 to 8), then the
+//   shift-sum dx(h, w) = sum over dw of P[h, w + dw - 2, dw] from shared
+//   memory.  What bounds K5: bytes (y and dy); the design it replaces staged
+//   a 36 x 36 halo tile a channel between two barriers, with no load in
+//   flight during the products, and took the same time in both modes.
 // - Any H and W are taken, in both modes; the pool floors odd sizes as
 //   max_pool2d does.  The fixed 200 x 128 geometry of the TPU path and its
 //   rule that only the bf16 mode fits its VMEM do not apply here.
@@ -102,18 +129,15 @@
 
 namespace {
 
-constexpr int TW = 32;                // tile columns (one warp lane each)
-constexpr int TH = 32;                // tile rows
-constexpr int RPT = 4;                // rows per thread
-constexpr int WARPS = TH / RPT;       // 8
+constexpr int WARPS = 8;              // warps a block
 constexpr int THREADS = 32 * WARPS;   // 256
 constexpr int WPAD = 28;              // 25 taps padded to 7 float4
-constexpr int HALO_W = TW + 4, HALO_H = TH + 4;
 constexpr int NT = 26;                // K4 sums a channel: 25 taps + bias
 constexpr int K4_WARPS = WARPS;       // K4 channels a block, one warp each
-constexpr int K4_COLS = 128;          // K4 tile columns, 4 a lane
-constexpr int K4_MAX_ROWS = 25;       // K4 rows a band, at most
-constexpr int K4_TSTRIDE = K4_COLS + 4;  // floats a staged K4 row (16-byte aligned)
+constexpr int K4_COLS = 128;          // tile columns of K1, K4, K5: 4 a lane
+constexpr int K4_MAX_ROWS = 25;       // rows a band, at most
+constexpr int K4_TSTRIDE = K4_COLS + 4;  // floats a staged row (16-byte aligned)
+constexpr int MMA_CH = 32;            // channels of the mma.sync paths of K1 and K5
 
 using bf16 = __nv_bfloat16;
 
@@ -150,35 +174,146 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t conv_smem_bytes(int C) {
-  return sizeof(float) * ((size_t)C * WPAD + C + HALO_H * HALO_W + 2 * WARPS * C);
+// the block geometry of K1, K4 and K5: row bands of at most K4_MAX_ROWS
+// rows, as even as H allows (H = 200 gives 8 bands of 25), column tiles of
+// K4_COLS, and channel groups of K4_WARPS (K4); one slot per (item, band,
+// tile)
+struct K4Geometry {
+  int bands, rows, tiles_x, groups;
+  K4Geometry(int C, int H, int W) {
+    bands = (H + K4_MAX_ROWS - 1) / K4_MAX_ROWS;
+    rows = (H + bands - 1) / bands;
+    tiles_x = (W + K4_COLS - 1) / K4_COLS;
+    groups = (C + K4_WARPS - 1) / K4_WARPS;
+  }
+  long long slots(int B) const { return (long long)B * bands * tiles_x; }
+};
+
+// four stored values from p on: one 16-byte (f32) or 8-byte (bf16) load
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
-long long conv_blocks(int B, int H, int W) {
-  return (long long)((W + TW - 1) / TW) * ((H + TH - 1) / TH) * B;
+// the four pixels from column w0 on of a row: vector loads when W is a
+// multiple of 4 (then a lane's four columns are all in or all out), else
+// one load a column; zeros past W
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_px(const T* p, int w0, int W, float* v) {
+  if (VEC) {
+    if (w0 < W) {
+      load4(p, v);
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = w0 + j < W ? to_f(p[j]) : 0.f;
+  }
 }
 
+// four results from column w0 on of a row, rounded to the storage type: one
+// 16-byte (f32) or 8-byte (bf16) store when W is a multiple of 4, else one
+// store a column
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<unsigned*>(&a);
+  q.y = *reinterpret_cast<unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_px(T* p, int w0, int W, const float* v) {
+  if (VEC) {
+    if (w0 < W) store4(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (w0 + j < W) p[j] = from_f<T>(v[j]);
+  }
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(unsigned v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float* d, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x of one slot with its zero halo (SAME padding), rounded as the products
+// take it: (nrows + 4) rows of K4_TSTRIDE floats, column j at c0 + j - 2.
+// Every load of a thread is issued before the first store, so the block
+// waits for one load latency, not one a loop trip.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void stage_x(float* tile, const float* xb, int r0, int c0, int nrows,
+                                        int H, int W) {
+  constexpr int PER = ((K4_MAX_ROWS + 4) * K4_TSTRIDE + THREADS - 1) / THREADS;
+  const int n = (nrows + 4) * K4_TSTRIDE;
+  float v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * THREADS;
+    const int gr = r0 + i / K4_TSTRIDE - 2, gc = c0 + i % K4_TSTRIDE - 2;
+    v[k] = (i < n && gr >= 0 && gr < H && gc >= 0 && gc < W)
+               ? __ldg(xb + (long long)gr * W + gc) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * THREADS;
+    if (i < n) tile[i] = rnd<T>(v[k]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1
+
+size_t conv_smem_bytes(int C) {
+  return sizeof(float) * ((size_t)C * WPAD + C + (size_t)(K4_MAX_ROWS + 4) * K4_TSTRIDE);
+}
+
+// One block a slot (item, band, 128-column tile): x staged once, each warp
+// owns channels warp, warp + 8, ...; each lane four adjacent columns, a
+// 5 x 8 input window sliding down the band (a ring of five staged rows),
+// one 16-byte (f32) or 8-byte (bf16) store a row, and the channel's sum of
+// y and of y^2 over the band in registers, reduced once.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
                   const float* __restrict__ w,     // (C, 1, 5, 5)
                   const float* __restrict__ bias,  // (C,)
                   T* __restrict__ y,               // (B, C, H, W)
-                  float* __restrict__ partials,    // (2, C, n_blocks)
-                  int H, int W, int C, int tiles_x, int tiles_y) {
+                  float* __restrict__ partials,    // (2, C, n_slots)
+                  int H, int W, int C, int rows, int bands, int tiles_x) {
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);  // C x WPAD
   float* sb = sw + C * WPAD;                     // C
-  float* tile = sb + C;                          // HALO_H x HALO_W
-  float* red = tile + HALO_H * HALO_W;           // 2 x WARPS x C
+  float* tile = sb + C;                          // (rows + 4) x K4_TSTRIDE
 
-  // one flat grid over (item, row tile, column tile): no 65535 cap on items
-  const long long blk = blockIdx.x;
-  const int bx = (int)(blk % tiles_x), by = (int)(blk / tiles_x % tiles_y);
-  const long long b = blk / ((long long)tiles_x * tiles_y);
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int c0 = bx * TW, r0 = by * TH;
-  const float* xb = x + (long long)b * H * W;
+  const long long slot = blockIdx.x;              // (b * bands + band) * tiles_x + tx
+  const int tx = (int)(slot % tiles_x), band = (int)(slot / tiles_x % bands);
+  const long long b = slot / tiles_x / bands;
+  const int r0 = band * rows, c0 = tx * K4_COLS;
+  const int nrows = min(rows, H - r0);
 
   // operands rounded to the storage type (bf16 mode), the bias not
   for (int i = threadIdx.x; i < C * WPAD; i += THREADS) {
@@ -186,21 +321,14 @@ conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
     sw[i] = k < 25 ? rnd<T>(w[c * 25 + k]) : 0.f;
   }
   for (int i = threadIdx.x; i < C; i += THREADS) sb[i] = bias[i];
-  for (int i = threadIdx.x; i < HALO_H * HALO_W; i += THREADS) {
-    const int gr = r0 + i / HALO_W - 2, gc = c0 + i % HALO_W - 2;
-    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W) ? rnd<T>(xb[(long long)gr * W + gc])
-                                                        : 0.f;
-  }
+  stage_x<T>(tile, x + b * H * W, r0, c0, nrows, H, W);
   __syncthreads();
 
-  float p[RPT + 4][5];
-#pragma unroll
-  for (int i = 0; i < RPT + 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 5; ++j) p[i][j] = tile[(ty * RPT + i) * HALO_W + tx + j];
-
-  const int col = c0 + tx, row0 = r0 + ty * RPT;
-  for (int c = 0; c < C; ++c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = c0 + 4 * lane;  // this lane's four columns
+  const float* tp = tile + 4 * lane;
+  const long long n_slots = gridDim.x;
+  for (int c = warp; c < C; c += WARPS) {
     float wk[WPAD];
     const float4* wc = reinterpret_cast<const float4*>(sw + c * WPAD);
 #pragma unroll
@@ -209,43 +337,196 @@ conv_stats_kernel(const float* __restrict__ x,     // (B, 1, H, W)
       wk[4 * q] = v.x; wk[4 * q + 1] = v.y; wk[4 * q + 2] = v.z; wk[4 * q + 3] = v.w;
     }
     const float bc = sb[c];
-    T* yc = y + ((long long)b * C + c) * H * W;
+    T* yc = y + ((b * C + c) * H + r0) * W + w0;
+    // the ring: row i of the band reads slots (i + dh) % 5; the row loop is
+    // unrolled by 5, so every slot index is a constant
+    float win[5][8];
+    auto stage_row = [&](int s, int r) {
+      const float4 lo = *reinterpret_cast<const float4*>(tp + r * K4_TSTRIDE);
+      const float4 hi = *reinterpret_cast<const float4*>(tp + r * K4_TSTRIDE + 4);
+      win[s][0] = lo.x; win[s][1] = lo.y; win[s][2] = lo.z; win[s][3] = lo.w;
+      win[s][4] = hi.x; win[s][5] = hi.y; win[s][6] = hi.z; win[s][7] = hi.w;
+    };
+#pragma unroll
+    for (int r = 0; r < 4; ++r) stage_row(r, r);
     float s = 0.f, ss = 0.f;
+    for (int i0 = 0; i0 < nrows; i0 += 5) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float acc = 0.f;
+      for (int u = 0; u < 5; ++u) {
+        const int i = i0 + u;
+        if (i >= nrows) break;
+        stage_row((u + 4) % 5, i + 4);
+        float v[4];
 #pragma unroll
-      for (int dh = 0; dh < 5; ++dh)
+        for (int j = 0; j < 4; ++j) {
+          float acc = 0.f;
 #pragma unroll
-        for (int dw = 0; dw < 5; ++dw) acc = fmaf(p[i + dh][dw], wk[dh * 5 + dw], acc);
-      acc += bc;
-      if (col < W && row0 + i < H) {
-        // the moments are of the stored (rounded) value
-        const T st = from_f<T>(acc);
-        yc[(long long)(row0 + i) * W + col] = st;
-        const float r = to_f(st);
-        s += r;
-        ss = fmaf(r, r, ss);
+          for (int dh = 0; dh < 5; ++dh)
+#pragma unroll
+            for (int dw = 0; dw < 5; ++dw)
+              acc = fmaf(win[(u + dh) % 5][j + dw], wk[dh * 5 + dw], acc);
+          v[j] = rnd<T>(acc + bc);  // the moments are of the stored value
+          if (w0 + j < W) {
+            s += v[j];
+            ss = fmaf(v[j], v[j], ss);
+          }
+        }
+        store_px<VEC>(yc + (long long)i * W, w0, W, v);
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    if (tx == 0) {
-      red[ty * C + c] = s;
-      red[(WARPS + ty) * C + c] = ss;
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      partials[(long long)c * n_slots + slot] = s;
+      partials[((long long)C + c) * n_slots + slot] = ss;
     }
   }
+}
+
+// K1's bf16 mode on the tensor cores: the conv as an implicit GEMM, pixels
+// x taps (25, padded to 32 with zeros: two k-steps of 16) x the 32
+// channels (four n-tiles of 8), mma.sync m16n8k16 bf16 -> f32.  A warp
+// takes a 64-pixel segment of a row as four m-tiles; m-tile t's rows g and
+// g + 8 are pixels 8g + 2t and 8g + 2t + 1, so after the four a lane holds
+// 8 adjacent pixels of each of its 8 channels: one 16-byte store each.  The
+// A fragments (the patches) are gathered from the staged x tile, the B
+// fragments (the weights) stay in registers.  The bias is added in f32 and
+// y rounded once; the moments are of the rounded values, in registers over
+// the block's rows, reduced once.  Needs C = 32 and W a multiple of 8.
+size_t conv_stats_mma_smem_bytes() {
+  return sizeof(float) * ((size_t)(K4_MAX_ROWS + 4) * K4_TSTRIDE + 2 * WARPS * MMA_CH);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+conv_stats_mma_kernel(const float* __restrict__ x,     // (B, 1, H, W)
+                      const float* __restrict__ w,     // (32, 1, 5, 5)
+                      const float* __restrict__ bias,  // (32,)
+                      bf16* __restrict__ y,            // (B, 32, H, W)
+                      float* __restrict__ partials,    // (2, 32, n_slots)
+                      int H, int W, int rows, int bands, int tiles_x) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);          // (rows + 4) x K4_TSTRIDE
+  float* red = tile + (K4_MAX_ROWS + 4) * K4_TSTRIDE;     // 2 x WARPS x 32
+
+  const long long slot = blockIdx.x;
+  const int tx = (int)(slot % tiles_x), band = (int)(slot / tiles_x % bands);
+  const long long b = slot / tiles_x / bands;
+  const int r0 = band * rows, c0 = tx * K4_COLS;
+  const int nrows = min(rows, H - r0);
+  stage_x<bf16>(tile, x + b * H * W, r0, c0, nrows, H, W);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  // B: taps 16 ks + 2q, +1 (b0) and + 8, + 9 (b1) of channel 8 nt + g
+  unsigned bw[4][2][2];
+  float bs[4][2];  // the bias of this lane's channels 8 nt + 2q + e
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const float* wc = w + (8 * nt + g) * 25;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 16 * ks + 8 * h + 2 * q;
+        bw[nt][ks][h] = pack_bf16(k < 25 ? wc[k] : 0.f, k + 1 < 25 ? wc[k + 1] : 0.f);
+      }
+    bs[nt][0] = bias[8 * nt + 2 * q];
+    bs[nt][1] = bias[8 * nt + 2 * q + 1];
+  }
+  // this lane's taps as offsets into the tile: 16 ks + 8 h + 2q + e
+  int toff[2][2][2];
+  bool tval[2][2][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 16 * ks + 8 * h + 2 * q + e;
+        tval[ks][h][e] = k < 25;
+        toff[ks][h][e] = k < 25 ? (k / 5) * K4_TSTRIDE + k % 5 : 0;
+      }
+  float s[4][2], ss[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) s[nt][0] = s[nt][1] = ss[nt][0] = ss[nt][1] = 0.f;
   __syncthreads();
 
-  const long long n_blocks = gridDim.x;
-  for (int i = threadIdx.x; i < 2 * C; i += THREADS) {
-    const int st = i / C, c = i % C;
+  // work items: (row, 64-pixel segment) of the band, warp, warp + 8, ...
+  const int segs = 2;
+  for (int it = warp; it < nrows * segs; it += WARPS) {
+    const int i = it / segs, p0 = 64 * (it % segs) + 8 * g;  // the lane's pixels, tile-relative
+    const bool in = c0 + p0 < W;  // 8 pixels all in or all out (W % 8 == 0)
+    unsigned pk[4][2][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float* tr = tile + i * K4_TSTRIDE + p0 + 2 * t;  // pixel 8g + 2t
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        unsigned a[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* p = tr + toff[ks][h][0];
+          const float* pn = tr + toff[ks][h][1];
+          const float lo0 = tval[ks][h][0] ? p[0] : 0.f, lo1 = tval[ks][h][1] ? pn[0] : 0.f;
+          const float hi0 = tval[ks][h][0] ? p[1] : 0.f, hi1 = tval[ks][h][1] ? pn[1] : 0.f;
+          a[2 * h] = pack_bf16(lo0, lo1);      // row g: pixel 8g + 2t
+          a[2 * h + 1] = pack_bf16(hi0, hi1);  // row g + 8: pixel 8g + 2t + 1
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma16816(acc[nt], a, bw[nt][ks][0], bw[nt][ks][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v0 = rnd<bf16>(acc[nt][e] + bs[nt][e]);      // pixel 8g + 2t
+          const float v1 = rnd<bf16>(acc[nt][2 + e] + bs[nt][e]);  // pixel 8g + 2t + 1
+          if (in) {
+            s[nt][e] += v0;
+            ss[nt][e] = fmaf(v0, v0, ss[nt][e]);
+            s[nt][e] += v1;
+            ss[nt][e] = fmaf(v1, v1, ss[nt][e]);
+          }
+          pk[nt][e][t] = pack_bf16(v0, v1);
+        }
+    }
+    if (in) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long long o = ((b * MMA_CH + 8 * nt + 2 * q + e) * H + r0 + i) * W + c0 + p0;
+          *reinterpret_cast<uint4*>(y + o) =
+              make_uint4(pk[nt][e][0], pk[nt][e][1], pk[nt][e][2], pk[nt][e][3]);
+        }
+    }
+  }
+  // one reduction a block: over the 8 lanes of each channel, then the warps
+  // in order
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a = s[nt][e], c = ss[nt][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        c += __shfl_xor_sync(0xffffffffu, c, o);
+      }
+      if (g == 0) {
+        red[warp * MMA_CH + 8 * nt + 2 * q + e] = a;
+        red[(WARPS + warp) * MMA_CH + 8 * nt + 2 * q + e] = c;
+      }
+    }
+  __syncthreads();
+  if (threadIdx.x < 2 * MMA_CH) {
+    const int st = threadIdx.x / MMA_CH, ch = threadIdx.x % MMA_CH;
     float v = 0.f;
-    for (int g = 0; g < WARPS; ++g) v += red[(st * WARPS + g) * C + c];
-    partials[(long long)i * n_blocks + blk] = v;
+    for (int wp = 0; wp < WARPS; ++wp) v += red[(st * WARPS + wp) * MMA_CH + ch];
+    partials[((long long)st * MMA_CH + ch) * gridDim.x + slot] = v;
   }
 }
 
@@ -376,51 +657,8 @@ route_kernel(const T* __restrict__ y,           // (B, C, H, W)
 // ---------------------------------------------------------------------------
 // K4
 
-// the block geometry: row bands of at most K4_MAX_ROWS rows, as even as H
-// allows (H = 200 gives 8 bands of 25), column tiles of K4_COLS, and channel
-// groups of K4_WARPS; one slot of partial sums per (item, band, tile)
-struct K4Geometry {
-  int bands, rows, tiles_x, groups;
-  K4Geometry(int C, int H, int W) {
-    bands = (H + K4_MAX_ROWS - 1) / K4_MAX_ROWS;
-    rows = (H + bands - 1) / bands;
-    tiles_x = (W + K4_COLS - 1) / K4_COLS;
-    groups = (C + K4_WARPS - 1) / K4_WARPS;
-  }
-  long long slots(int B) const { return (long long)B * bands * tiles_x; }
-};
-
 size_t weight_grads_fma_smem_bytes() {
   return sizeof(float) * (size_t)(K4_MAX_ROWS + 4) * K4_TSTRIDE;
-}
-
-// four stored values from p on: one 16-byte (f32) or 8-byte (bf16) load
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const bf16* p, float* v) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-// the four pixels from column w0 on of a row: vector loads when W is a
-// multiple of 4 (then a lane's four columns are all in or all out), else
-// one load a column; zeros past W
-template <bool VEC, typename T>
-__device__ __forceinline__ void load_px(const T* p, int w0, int W, float* v) {
-  if (VEC) {
-    if (w0 < W) {
-      load4(p, v);
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = w0 + j < W ? to_f(p[j]) : 0.f;
-  }
 }
 
 template <typename T, bool VEC>
@@ -450,11 +688,7 @@ weight_grads_kernel(const float* __restrict__ x,     // (B, 1, H, W)
   const float* xb = x + b * H * W;
 
   // x with its zero halo (SAME padding), rounded as the dW products take it
-  for (int i = threadIdx.x; i < (nrows + 4) * K4_TSTRIDE; i += THREADS) {
-    const int gr = r0 + i / K4_TSTRIDE - 2, gc = c0 + i % K4_TSTRIDE - 2;
-    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W) ? rnd<T>(xb[(long long)gr * W + gc])
-                                                        : 0.f;
-  }
+  stage_x<T>(tile, xb, r0, c0, nrows, H, W);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -545,20 +779,6 @@ size_t weight_grads_mma_smem_bytes() {
                           + (size_t)WARPS * (K4M_TAPS + 1) * K4M_CH);
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float* d, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __global__ void __launch_bounds__(THREADS, 2)
 weight_grads_mma_kernel(const float* __restrict__ x,    // (B, 1, H, W)
                         const bf16* __restrict__ y,     // (B, C, H, W)
@@ -582,11 +802,7 @@ weight_grads_mma_kernel(const float* __restrict__ x,    // (B, 1, H, W)
   const int r0 = band * rows, c0 = tx * K4_COLS;
   const int nrows = min(rows, H - r0);
   const float* xb = x + b * H * W;
-  for (int i = threadIdx.x; i < (nrows + 4) * K4_TSTRIDE; i += THREADS) {
-    const int gr = r0 + i / K4_TSTRIDE - 2, gc = c0 + i % K4_TSTRIDE - 2;
-    tile[i] = (gr >= 0 && gr < H && gc >= 0 && gc < W)
-                  ? rnd<bf16>(xb[(long long)gr * W + gc]) : 0.f;
-  }
+  stage_x<bf16>(tile, xb, r0, c0, nrows, H, W);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -713,12 +929,22 @@ weight_grads_mma_kernel(const float* __restrict__ x,    // (B, 1, H, W)
 // ---------------------------------------------------------------------------
 // K5
 
-size_t input_grad_smem_bytes(int C) {
-  return sizeof(float) * ((size_t)C * WPAD + (size_t)HALO_H * HALO_W);
+size_t input_grad_fma_smem_bytes(int C) {
+  return sizeof(float) * ((size_t)C * WPAD + (size_t)WARPS * K4_MAX_ROWS * K4_COLS);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// One block a slot (item, band, 128-column tile), no atomics: each warp
+// owns channels warp, warp + 8, ...; each lane four adjacent output columns.
+// Per channel the lane streams y and dy of its columns as one 16-byte
+// (f32) or 8-byte (bf16) vector a row, two rows ahead, computes each dconv
+// element once, and takes the two columns on each side from its neighbour
+// lanes by shuffles (lanes 0 and 31 compute the tile's halo columns
+// themselves); a ring of five dconv rows slides down the band.  Each warp
+// keeps its partial dx of the band in shared memory (its own region, one
+// 16-byte read-modify-write a lane a row and channel), and the block sums
+// the eight partials in order once and writes dx once.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 input_grad_kernel(const T* __restrict__ y,         // (B, C, H, W)
                   const T* __restrict__ dy,        // (B, C, H, W)
                   const float* __restrict__ w,     // (C, 1, 5, 5)
@@ -728,16 +954,16 @@ input_grad_kernel(const T* __restrict__ y,         // (B, C, H, W)
                   const float* __restrict__ m1,
                   const float* __restrict__ m2,
                   float* __restrict__ dx,          // (B, 1, H, W)
-                  int C, int H, int W, int tiles_x, int tiles_y) {
+                  int C, int H, int W, int rows, int bands, int tiles_x) {
   extern __shared__ float4 smem4[];
   float* swf = reinterpret_cast<float*>(smem4);    // C x WPAD, flipped taps
-  float* dt = swf + C * WPAD;                       // HALO_H x HALO_W
+  float* part = swf + C * WPAD;                     // WARPS x rows x K4_COLS
 
-  const long long blk = blockIdx.x;
-  const int bx = (int)(blk % tiles_x), by = (int)(blk / tiles_x % tiles_y);
-  const long long b = blk / ((long long)tiles_x * tiles_y);
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int c0 = bx * TW, r0 = by * TH;
+  const long long slot = blockIdx.x;
+  const int tx = (int)(slot % tiles_x), band = (int)(slot / tiles_x % bands);
+  const long long b = slot / tiles_x / bands;
+  const int r0 = band * rows, c0 = tx * K4_COLS;
+  const int nrows = min(rows, H - r0);
 
   // dx(h, w) = sum over taps of wf[dh][dw] * dconv(h + dh - 2, w + dw - 2)
   // with wf[dh][dw] = W[4 - dh][4 - dw]
@@ -745,25 +971,18 @@ input_grad_kernel(const T* __restrict__ y,         // (B, C, H, W)
     const int c = i / WPAD, k = i % WPAD;
     swf[i] = k < 25 ? rnd<T>(w[c * 25 + 24 - k]) : 0.f;
   }
+  __syncthreads();
 
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  for (int c = 0; c < C; ++c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = c0 + 4 * lane;
+  // the halo columns lane 0 (c0 - 2, c0 - 1) or lane 31 (c0 + 128, + 129) computes
+  const int hc = lane == 0 ? c0 - 2 : c0 + K4_COLS;
+  const bool halo = lane == 0 || lane == 31;
+  float* pw = part + (size_t)warp * K4_MAX_ROWS * K4_COLS + 4 * lane;
+  bool first = true;
+  for (int c = warp; c < C; c += WARPS) {
     const float g = __ldg(ga + c), mu = __ldg(mean + c), iv = __ldg(inv + c);
     const float a1 = __ldg(m1 + c), a2 = __ldg(m2 + c);
-    const long long base = (b * C + c) * H * W;
-    __syncthreads();  // the previous channel's tile is consumed
-    for (int i = threadIdx.x; i < HALO_H * HALO_W; i += THREADS) {
-      const int gr = r0 + i / HALO_W - 2, gc = c0 + i % HALO_W - 2;
-      float d = 0.f;
-      if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-        const long long idx = base + (long long)gr * W + gc;
-        d = rnd<T>(dconv_of(to_f(y[idx]), to_f(dy[idx]), g, mu, iv, a1, a2));
-      }
-      dt[i] = d;
-    }
-    __syncthreads();
     float wk[WPAD];
     const float4* wc = reinterpret_cast<const float4*>(swf + c * WPAD);
 #pragma unroll
@@ -771,44 +990,295 @@ input_grad_kernel(const T* __restrict__ y,         // (B, C, H, W)
       const float4 v = wc[q];
       wk[4 * q] = v.x; wk[4 * q + 1] = v.y; wk[4 * q + 2] = v.z; wk[4 * q + 3] = v.w;
     }
-    float p[RPT + 4][5];
+    const long long base = (b * C + c) * H * W;
+    // y and dy of input row r0 - 2 + q, two rows ahead of their use
+    float py[2][4], pdy[2][4], hy[2][2], hdy[2][2];
+    bool pv[2];
+    auto fetch = [&](int q, int buf) {
+      const int r = r0 - 2 + q;
+      pv[buf] = q < nrows + 4 && r >= 0 && r < H;
+      if (pv[buf]) {
+        const long long o = base + (long long)r * W;
+        load_px<VEC>(y + o + w0, w0, W, py[buf]);
+        load_px<VEC>(dy + o + w0, w0, W, pdy[buf]);
+        if (halo) {
 #pragma unroll
-    for (int i = 0; i < RPT + 4; ++i)
+          for (int j = 0; j < 2; ++j) {
+            const bool in = hc + j >= 0 && hc + j < W;
+            hy[buf][j] = in ? to_f(y[o + hc + j]) : 0.f;
+            hdy[buf][j] = in ? to_f(dy[o + hc + j]) : 0.f;
+          }
+        }
+      }
+    };
+    // the 8-column dconv window (w0 - 2 .. w0 + 5) of a fetched row into a
+    // ring slot: dconv rounded as the products take it, 0 outside the image
+    float win[5][8];
+    auto stage = [&](int s, int buf) {
+      float d[4], h[2];
 #pragma unroll
-      for (int j = 0; j < 5; ++j) p[i][j] = dt[(ty * RPT + i) * HALO_W + tx + j];
+      for (int j = 0; j < 4; ++j)
+        d[j] = pv[buf] && w0 + j < W
+                   ? rnd<T>(dconv_of(py[buf][j], pdy[buf][j], g, mu, iv, a1, a2)) : 0.f;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+      for (int j = 0; j < 2; ++j)
+        h[j] = halo && pv[buf] && hc + j >= 0 && hc + j < W
+                   ? rnd<T>(dconv_of(hy[buf][j], hdy[buf][j], g, mu, iv, a1, a2)) : 0.f;
+      const float l0 = __shfl_up_sync(0xffffffffu, d[2], 1);
+      const float l1 = __shfl_up_sync(0xffffffffu, d[3], 1);
+      const float u0 = __shfl_down_sync(0xffffffffu, d[0], 1);
+      const float u1 = __shfl_down_sync(0xffffffffu, d[1], 1);
+      win[s][0] = lane == 0 ? h[0] : l0;
+      win[s][1] = lane == 0 ? h[1] : l1;
 #pragma unroll
-      for (int dh = 0; dh < 5; ++dh)
+      for (int j = 0; j < 4; ++j) win[s][2 + j] = d[j];
+      win[s][6] = lane == 31 ? h[0] : u0;
+      win[s][7] = lane == 31 ? h[1] : u1;
+    };
+    fetch(0, 0);
+    fetch(1, 1);
 #pragma unroll
-        for (int dw = 0; dw < 5; ++dw) acc[i] = fmaf(p[i + dh][dw], wk[dh * 5 + dw], acc[i]);
+    for (int q = 0; q < 4; ++q) {
+      stage(q, q % 2);
+      fetch(q + 2, q % 2);
+    }
+    // output row i reads input rows i .. i + 4 (ring slots (i + dh) % 5);
+    // unrolled by 10 so ring slots and fetch buffers are constants
+    for (int i0 = 0; i0 < nrows; i0 += 10) {
+#pragma unroll
+      for (int u = 0; u < 10; ++u) {
+        const int i = i0 + u;
+        if (i >= nrows) break;
+        stage((u + 4) % 5, u % 2);
+        fetch(i + 6, u % 2);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int dh = 0; dh < 5; ++dh)
+#pragma unroll
+            for (int dw = 0; dw < 5; ++dw)
+              acc[j] = fmaf(win[(u + dh) % 5][j + dw], wk[dh * 5 + dw], acc[j]);
+        float4* pp = reinterpret_cast<float4*>(pw + i * K4_COLS);
+        if (first) {
+          *pp = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        } else {
+          const float4 o = *pp;
+          *pp = make_float4(o.x + acc[0], o.y + acc[1], o.z + acc[2], o.w + acc[3]);
+        }
+      }
+    }
+    first = false;
   }
-  const int col = c0 + tx;
+  if (first)  // a warp without a channel (C < 8) adds nothing
+    for (int i = 0; i < nrows; ++i)
+      *reinterpret_cast<float4*>(pw + i * K4_COLS) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  // the warps' partials summed in order, dx written once
+  for (int idx = threadIdx.x; idx < nrows * 32; idx += THREADS) {
+    const int i = idx / 32, l = idx % 32, wc = c0 + 4 * l;
+    if (wc >= W) continue;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int wp = 0; wp < WARPS; ++wp) {
+      const float4 p = *reinterpret_cast<const float4*>(
+          part + ((size_t)wp * K4_MAX_ROWS + i) * K4_COLS + 4 * l);
+      v[0] += p.x; v[1] += p.y; v[2] += p.z; v[3] += p.w;
+    }
+    store_px<VEC>(dx + (b * H + r0 + i) * W + wc, wc, W, v);
+  }
+}
+
+// K5's bf16 mode on the tensor cores: P[h, w, dw] = sum over c, dh of
+// dconv_bf16(c, h + dh - 2, w) * wf[c, dh, dw], an implicit GEMM with M =
+// pixels, K = 32 channels x 5 row taps (ten k-steps of 16: (dh, channel
+// half)), N = dw (5, padded to 8), on mma.sync m16n8k16 bf16 -> f32; then
+// dx(h, w) = sum over dw of P[h, w + dw - 2, dw].  A warp takes a 16-column
+// segment down the band; m-tile rows g and g + 8 are pixels 2g and 2g + 1,
+// so a lane reads y and dy of its 8 channels as one 4-byte pair each, and
+// computes each dconv element of its segment once into a ring of five rows
+// of A fragments.  The B fragments (flipped weights) stay in registers.  P
+// goes to shared memory, and after the band the block takes the shift-sum
+// and writes dx once.  Needs C = 32, W a multiple of 16 and at most 128
+// (one column tile: the shift-sum's halo is the zero border).
+size_t input_grad_mma_smem_bytes() {
+  return sizeof(float) * ((size_t)5 * MMA_CH + (size_t)K4_MAX_ROWS * K4_COLS * 5);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+input_grad_mma_kernel(const bf16* __restrict__ y,      // (B, 32, H, W)
+                      const bf16* __restrict__ dy,     // (B, 32, H, W)
+                      const float* __restrict__ w,     // (32, 1, 5, 5)
+                      const float* __restrict__ ga,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ m1,
+                      const float* __restrict__ m2,
+                      float* __restrict__ dx,          // (B, 1, H, W)
+                      int H, int W, int rows, int bands) {
+  extern __shared__ float4 smem4[];
+  float* prm = reinterpret_cast<float*>(smem4);  // ga, mean, inv, m1, m2 x 32
+  float* ps = prm + 5 * MMA_CH;                  // rows x K4_COLS x 5: P[h, w, dw]
+
+  const long long slot = blockIdx.x;  // b * bands + band
+  const int band = (int)(slot % bands);
+  const long long b = slot / bands;
+  const int r0 = band * rows;
+  const int nrows = min(rows, H - r0);
+  if (threadIdx.x < MMA_CH) {
+    const int c = threadIdx.x;
+    prm[c] = ga[c]; prm[MMA_CH + c] = mean[c]; prm[2 * MMA_CH + c] = inv[c];
+    prm[3 * MMA_CH + c] = m1[c]; prm[4 * MMA_CH + c] = m2[c];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int seg0 = warp * 16;
+  if (seg0 < W) {
+    // k column 2q + e (+ 8) of channel half hf is channel 16 hf + 2q + e (+ 8):
+    // this lane's channels ch[hf][m], m = (e, + 8) in the order 2q, 2q+1, 2q+8, 2q+9
+    // B: b0 = taps (dh, channels 16 hf + 2q, +1) at dw = g, b1 = channels + 8
+    unsigned bw[5][2][2];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int h = r0 + ty * RPT + i;
-    if (col < W && h < H) dx[(b * H + h) * W + col] = acc[i];
+    for (int dh = 0; dh < 5; ++dh)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 16 * hf + 8 * h + 2 * q;
+          // wf[c, dh, dw] = W[c, 4 - dh, 4 - dw]
+          bw[dh][hf][h] = g < 5 ? pack_bf16(w[c * 25 + (4 - dh) * 5 + 4 - g],
+                                            w[(c + 1) * 25 + (4 - dh) * 5 + 4 - g]) : 0u;
+        }
+    // y and dy of the lane's pixels (2g, 2g + 1) and 8 channels, one row ahead
+    const long long px = b * MMA_CH * H * W + seg0 + 2 * g;
+    unsigned ny[8], ndy[8];
+    bool nv;
+    auto fetch = [&](int qr) {
+      const int r = r0 - 2 + qr;
+      nv = qr < nrows + 4 && r >= 0 && r < H;
+      if (nv) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int c = 16 * (m >> 2) + 2 * q + (m & 1) + 8 * ((m >> 1) & 1);
+          const long long o = px + ((long long)c * H + r) * W;
+          ny[m] = __ldg(reinterpret_cast<const unsigned*>(y + o));
+          ndy[m] = __ldg(reinterpret_cast<const unsigned*>(dy + o));
+        }
+      }
+    };
+    // the A fragments of a row: a[hf] = {(2g; c, c+1), (2g+1; c, c+1),
+    // (2g; c+8, c+9), (2g+1; c+8, c+9)} with c = 16 hf + 2q, dconv rounded
+    unsigned ring[5][2][4];
+    auto stage = [&](int s) {
+      float d[8][2];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int c = 16 * (m >> 2) + 2 * q + (m & 1) + 8 * ((m >> 1) & 1);
+        const float2 yv = unpack_bf16(ny[m]), dv = unpack_bf16(ndy[m]);
+        const float gg = prm[c], mu = prm[MMA_CH + c], iv = prm[2 * MMA_CH + c];
+        const float a1 = prm[3 * MMA_CH + c], a2 = prm[4 * MMA_CH + c];
+        d[m][0] = nv ? dconv_of(yv.x, dv.x, gg, mu, iv, a1, a2) : 0.f;
+        d[m][1] = nv ? dconv_of(yv.y, dv.y, gg, mu, iv, a1, a2) : 0.f;
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = 4 * hf;  // channels c, c+1 are m, m+1; c+8, c+9 are m+2, m+3
+        ring[s][hf][0] = pack_bf16(d[m][0], d[m + 1][0]);
+        ring[s][hf][1] = pack_bf16(d[m][1], d[m + 1][1]);
+        ring[s][hf][2] = pack_bf16(d[m + 2][0], d[m + 3][0]);
+        ring[s][hf][3] = pack_bf16(d[m + 2][1], d[m + 3][1]);
+      }
+    };
+    fetch(0);
+#pragma unroll
+    for (int qr = 0; qr < 4; ++qr) {
+      stage(qr);
+      fetch(qr + 1);
+    }
+    for (int i0 = 0; i0 < nrows; i0 += 5) {
+#pragma unroll
+      for (int u = 0; u < 5; ++u) {
+        const int i = i0 + u;
+        if (i >= nrows) break;
+        stage((u + 4) % 5);
+        fetch(i + 5);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int dh = 0; dh < 5; ++dh)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            mma16816(acc, ring[(u + dh) % 5][hf], bw[dh][hf][0], bw[dh][hf][1]);
+        // acc: (pixel 2g; dw 2q, 2q+1), (pixel 2g+1; dw 2q, 2q+1)
+        float* pr = ps + ((size_t)i * K4_COLS + seg0 + 2 * g) * 5;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (2 * q + e < 5) {
+            pr[2 * q + e] = acc[e];
+            pr[5 + 2 * q + e] = acc[2 + e];
+          }
+      }
+    }
+  }
+  __syncthreads();
+  // the shift-sum, dx written once: P past the image's columns is 0
+  for (int idx = threadIdx.x; idx < nrows * W; idx += THREADS) {
+    const int i = idx / W, wc = idx % W;
+    float v = 0.f;
+#pragma unroll
+    for (int dw = 0; dw < 5; ++dw) {
+      const int p = wc + dw - 2;
+      if (p >= 0 && p < W) v += ps[((size_t)i * K4_COLS + p) * 5 + dw];
+    }
+    dx[(b * H + r0 + i) * W + wc] = v;
   }
 }
 
 // ---------------------------------------------------------------------------
 // launches, one per mode each
 
+template <typename T, bool VEC>
+int launch_conv_stats(const float* x, const float* w, const float* bias, T* y, float* scratch,
+                      int B, int C, int H, int W, void* stream) {
+  const size_t smem = conv_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stats_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const K4Geometry geo(C, H, W);
+  const long long n_blocks = geo.slots(B);
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  conv_stats_kernel<T, VEC><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      x, w, bias, y, scratch, H, W, C, geo.rows, geo.bands, geo.tiles_x);
+  return (int)cudaGetLastError();
+}
+
+int launch_conv_stats_mma(const float* x, const float* w, const float* bias, bf16* y,
+                          float* scratch, int B, int H, int W, void* stream) {
+  const size_t smem = conv_stats_mma_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stats_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const K4Geometry geo(MMA_CH, H, W);
+  const long long n_blocks = geo.slots(B);
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  conv_stats_mma_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      x, w, bias, y, scratch, H, W, geo.rows, geo.bands, geo.tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 mode on the tensor cores for the model's 32 channels at widths
+// that are a multiple of 8 (16-byte stores), else the FMA kernel (vector
+// stores when W is a multiple of 4)
 template <typename T>
 int conv_stats(const float* x, const float* w, const float* bias, T* y, float* sums,
                float* scratch, int B, int C, int H, int W, void* stream) {
-  const size_t smem = conv_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const long long n_blocks = conv_blocks(B, H, W);
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  conv_stats_kernel<T><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, w, bias, y, scratch, H, W, C, tiles_x, tiles_y);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(scratch, sums, n_blocks);
+  const int err = sizeof(T) == 2 && C == MMA_CH && W % 8 == 0
+      ? launch_conv_stats_mma(x, w, bias, reinterpret_cast<bf16*>(y), scratch, B, H, W, stream)
+      : W % 4 == 0 ? launch_conv_stats<T, true>(x, w, bias, y, scratch, B, C, H, W, stream)
+                   : launch_conv_stats<T, false>(x, w, bias, y, scratch, B, C, H, W, stream);
+  if (err) return err;
+  reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(
+      scratch, sums, K4Geometry(C, H, W).slots(B));
   return (int)cudaGetLastError();
 }
 
@@ -906,20 +1376,58 @@ int weight_grads(const float* x, const T* y, const T* dy, const float* ga, const
   return (int)cudaGetLastError();
 }
 
+size_t input_grad_smem_bytes(int C) {
+  return std::max(input_grad_fma_smem_bytes(C), input_grad_mma_smem_bytes());
+}
+
+template <typename T, bool VEC>
+int launch_input_grad(const T* y, const T* dy, const float* w, const float* ga,
+                      const float* mean, const float* inv, const float* m1, const float* m2,
+                      float* dx, int B, int C, int H, int W, void* stream) {
+  const size_t smem = input_grad_fma_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      input_grad_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const K4Geometry geo(C, H, W);
+  const long long n_blocks = geo.slots(B);
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  input_grad_kernel<T, VEC><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      y, dy, w, ga, mean, inv, m1, m2, dx, C, H, W, geo.rows, geo.bands, geo.tiles_x);
+  return (int)cudaGetLastError();
+}
+
+int launch_input_grad_mma(const bf16* y, const bf16* dy, const float* w, const float* ga,
+                          const float* mean, const float* inv, const float* m1,
+                          const float* m2, float* dx, int B, int H, int W, void* stream) {
+  const size_t smem = input_grad_mma_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      input_grad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const K4Geometry geo(MMA_CH, H, W);
+  const long long n_blocks = (long long)B * geo.bands;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  input_grad_mma_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      y, dy, w, ga, mean, inv, m1, m2, dx, H, W, geo.rows, geo.bands);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 mode on the tensor cores for the model's 32 channels at widths
+// that are a multiple of 16 up to one column tile (the training windows'
+// 128), else the FMA kernel (vector loads and stores when W is a multiple
+// of 4 and y, dy start on a 4-element boundary)
 template <typename T>
 int input_grad(const T* y, const T* dy, const float* w, const float* ga, const float* mean,
                const float* inv, const float* m1, const float* m2, float* dx, int B, int C,
                int H, int W, void* stream) {
-  const size_t smem = input_grad_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      input_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const long long n_blocks = (long long)tiles_x * tiles_y * B;
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  input_grad_kernel<T><<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      y, dy, w, ga, mean, inv, m1, m2, dx, C, H, W, tiles_x, tiles_y);
-  return (int)cudaGetLastError();
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(y) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(dy) % (4 * sizeof(T)) == 0;
+  if (sizeof(T) == 2 && C == MMA_CH && W % 16 == 0 && W <= K4_COLS && vec)
+    return launch_input_grad_mma(reinterpret_cast<const bf16*>(y),
+                                 reinterpret_cast<const bf16*>(dy), w, ga, mean, inv, m1, m2,
+                                 dx, B, H, W, stream);
+  return vec ? launch_input_grad<T, true>(y, dy, w, ga, mean, inv, m1, m2, dx, B, C, H, W, stream)
+             : launch_input_grad<T, false>(y, dy, w, ga, mean, inv, m1, m2, dx, B, C, H, W,
+                                           stream);
 }
 
 }  // namespace
@@ -932,10 +1440,12 @@ const char* sept_error_string(int err) { return cudaGetErrorString((cudaError_t)
 
 // Floats of scratch sept_conv_stats needs for its per-block partial sums.
 long long sept_conv_stats_scratch_floats(int B, int C, int H, int W) {
-  return 2LL * C * conv_blocks(B, H, W);
+  return 2LL * C * K4Geometry(C, H, W).slots(B);
 }
 
-long long sept_conv_stats_smem_bytes(int C) { return (long long)conv_smem_bytes(C); }
+long long sept_conv_stats_smem_bytes(int C) {
+  return (long long)std::max(conv_smem_bytes(C), conv_stats_mma_smem_bytes());
+}
 
 int sept_conv_stats(const float* x, const float* w, const float* bias, float* y,
                     float* sums, float* scratch, int B, int C, int H, int W,

@@ -38,20 +38,37 @@
 //   zeros past the row's end) in shared memory once, beside the window and
 //   one complex float64 buffer pair per warp.  The twiddles stay in device
 //   memory, read through the read-only cache (every warp reads the same).
-// - One warp owns one frame at a time (8 warps, TF/8 frames each).  The real
-//   FFT of n_fft is a complex FFT of M = n_fft/2 on z[n] = x[2n] + i x[2n+1]
-//   (the window applied as the frame is packed), then the split post-pass
+// - One warp owns one frame at a time (two for an odd n_fft; WP warps).  For
+//   an even n_fft the real FFT is a complex FFT of M = n_fft/2 on z[n] =
+//   x[2n] + i x[2n+1] (the window applied as the frame is packed), then the
+//   split post-pass
 //       X[k] = E + W^k O,  X[M-k] = conj(E - W^k O),  W = exp(-2 pi i / n_fft)
 //       E = (Z[k] + conj(Z[M-k])) / 2,  O = -i (Z[k] - conj(Z[M-k])) / 2
-//   for k = 0..M/2 (Z[M] = Z[0], so k = 0 gives bins 0 and M).
-// - The complex FFT is a Stockham autosort FFT (no bit-reversal pass) of
-//   radix-4, 2, 5 and 3 passes in the order of the plan ops/mel.py builds
-//   per n_fft: M must factor into 2, 3 and 5 (200, 400, 800 on the repo's
-//   paths).  A pass of radix R over p already-combined points maps input
-//   i + r*M/R to output (i - i%p)*R + i%p + s*p after the twiddles
-//   exp(-2 pi i r (i%p) / (p R)) and a length-R DFT; the twiddles come from
-//   tables computed in float64.  Passes ping-pong between the warp's two
-//   buffers with __syncwarp between them.
+//   for k = 0..M/2 (Z[M] = Z[0], so k = 0 gives bins 0 and M).  An odd
+//   n_fft has no half-length packing: a warp takes two frames at once, z[n]
+//   = x1[n] + i x2[n], a complex FFT of M = n_fft, and X1[k] = E, X2[k] = O
+//   for k = 0..n_fft/2.
+// - The complex FFT is a Stockham autosort FFT (no bit-reversal pass) in the
+//   order of the plan ops/mel.py builds per n_fft: radix-4, 2, 5 and 3
+//   passes, then one pass per other prime factor p of M up to 31,
+//   ascending.  A pass of radix R over q already-combined points maps input
+//   i + r*M/R to output (i - i%q)*R + i%q + s*q after the twiddles
+//   exp(-2 pi i r (i%q) / (q R)) and a length-R DFT; the twiddles come from
+//   tables computed in float64.  Radices 2-5 keep the R inputs of a
+//   butterfly in registers.  A prime p from 7 to 31 takes the generic pass:
+//   the lanes first twiddle the inputs in place, then each lane computes
+//   whole outputs as a direct length-p DFT, u'[s] = sum_r u[r] w[(r s) mod
+//   p], the p roots w from a float64 table the plan stores after that
+//   pass's twiddles, in four independent chains.  Where M has a prime
+//   factor above 31 (n_fft 802: M = 401) a direct pass costs O(M p) and was
+//   latency-bound (0.94 ms for 80 frames at n_fft 802 against the dense
+//   plain version's 0.055; PERF.md), so M's DFT runs as Bluestein's cyclic
+//   convolution of a 2-3-5-smooth length F >= 2M - 1: X[k] = w[k] (a * h)[k]
+//   with the chirp w[n] = exp(-pi i n^2 / M), a = x w zero-padded to F and h
+//   = conj(w) wrapped; two FFTs of F (the inverse as the forward FFT of the
+//   conjugate) with the filter's spectrum FFT(h) / F from the plan's table.
+//   Passes ping-pong between the warp's two buffers with __syncwarp between
+//   them.
 // - X rounds to f32 and the power |X|^2 is f32 with no contraction
 //   (__fmul_rn, __fadd_rn), as the plain version rounds it, into the warp's
 //   free buffer.
@@ -62,23 +79,29 @@
 //   elsewhere), takes 10*log10(max(., 1e-10)), and the warp writes the
 //   frame's n_mels floats as one coalesced row.
 // - No TF32 anywhere.
-// - Shared memory grows with n_fft and hop; the block takes 32 frames, or 16
-//   or 8 where 32 do not fit the card's 227 KB (n_fft 1600 at hop 160 takes
-//   16 frames, ~222 KB).
+// - Shared memory grows with n_fft and hop (two buffers of F complex
+//   float64 values a warp, F = M or the Bluestein length); the block takes
+//   8 warps and 32 frames, or the largest (warps, frames) of 8, 4, 2, 1
+//   warps and 32 ... 1 frames (never fewer frames than warps) that fits the
+//   card's 227 KB: n_fft 1600 at hop 160 takes 8 warps and 16 frames (~222
+//   KB), n_fft 2048 4 warps, n_fft 2042 (F = 2048) 2 warps, n_fft 2047 (F =
+//   4096) 1 warp.  Every n_fft from 2 to 2048 at hop 160 fits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 8;              // warps a block, one frame each at a time
+constexpr int WARPS = 8;              // most warps a block, one frame each at a time
 constexpr int THREADS = 32 * WARPS;   // 256
 constexpr int MEL_MAX = 256;          // widest mel bank taken
 constexpr int MAX_STAGES = 24;        // radix passes of the plan
 constexpr int SMEM_LIMIT = 232448;    // shared memory a block may opt into on Hopper
 
+// The Stockham passes of one complex FFT of length len (the product of the
+// radices); n_tables: complex values of their twiddle and root tables.
 struct FftPlan {
-  int n_stages;
+  int n_stages, len, n_tables;
   int radix[MAX_STAGES];
 };
 
@@ -160,26 +183,119 @@ __device__ __forceinline__ void fft_pass(const double2* __restrict__ in, double2
   }
 }
 
+// The generic Stockham pass of a prime radix R (>= 7, at run time): tw the
+// pass's p x (R-1) twiddles, then its R roots exp(-2 pi i j / R).  The
+// lanes twiddle the inputs in place (in is consumed by this pass), then
+// each output is a direct length-R DFT over them.  A lane's terms run as
+// four independent chains (r mod 4), each root stepped by w^(4 s) and
+// taken afresh from the table every 32 terms: one dependent chain a term
+// left the pass waiting on shared-memory and float64 latency.
+__device__ __noinline__ void fft_pass_prime(double2* __restrict__ in, double2* __restrict__ out,
+                                            int M, int p, int R, const double2* __restrict__ tw,
+                                            int lane) {
+  const int nb = M / R;
+  const double2* roots = tw + p * (R - 1);
+  for (int idx = lane + nb; idx < M; idx += 32) {  // input i + r*nb, r >= 1
+    const int r = idx / nb, i = idx - r * nb;
+    in[idx] = cmul(in[idx], __ldg(tw + (i % p) * (R - 1) + r - 1));
+  }
+  __syncwarp();
+  for (int idx = lane; idx < M; idx += 32) {  // output s of butterfly i
+    const int s = idx / nb, i = idx - s * nb;
+    const int k = i % p;
+    const int s4 = (4 * s) % R;
+    const double2 ws4 = __ldg(roots + s4);
+    double2 acc[4] = {in[i], make_double2(0.0, 0.0), make_double2(0.0, 0.0),
+                      make_double2(0.0, 0.0)};
+    double2 w[4];
+    int e = s;  // (r * s) mod R
+    int r = 1;
+    for (; r + 3 < R; r += 4) {
+      if (((r - 1) & 31) == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = __ldg(roots + (e + j * s) % R);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double2 v = in[i + (r + j) * nb];
+        acc[j].x = fma(v.x, w[j].x, fma(-v.y, w[j].y, acc[j].x));
+        acc[j].y = fma(v.x, w[j].y, fma(v.y, w[j].x, acc[j].y));
+        w[j] = cmul(w[j], ws4);
+      }
+      e += s4;
+      if (e >= R) e -= R;
+    }
+    for (; r < R; ++r) {
+      const double2 v = in[i + r * nb], wr = __ldg(roots + e);
+      acc[0].x = fma(v.x, wr.x, fma(-v.y, wr.y, acc[0].x));
+      acc[0].y = fma(v.x, wr.y, fma(v.y, wr.x, acc[0].y));
+      e += s;
+      if (e >= R) e -= R;
+    }
+    out[(i - k) * R + k + s * p] = cadd(cadd(acc[0], acc[1]), cadd(acc[2], acc[3]));
+  }
+}
+
+// The plan's passes over a warp's two buffers, __syncwarp after each;
+// returns the buffer that holds the result.
+__device__ double2* stockham(double2* src, double2* dst, const FftPlan& plan,
+                             const double2* __restrict__ twiddles, int lane) {
+  const int F = plan.len;
+  const double2* twp = twiddles;
+  int p = 1;
+  for (int s = 0; s < plan.n_stages; ++s) {
+    const int r = plan.radix[s];
+    switch (r) {
+      case 4: fft_pass<4>(src, dst, F, p, twp, lane); break;
+      case 2: fft_pass<2>(src, dst, F, p, twp, lane); break;
+      case 5: fft_pass<5>(src, dst, F, p, twp, lane); break;
+      case 3: fft_pass<3>(src, dst, F, p, twp, lane); break;
+      default: fft_pass_prime(src, dst, F, p, r, twp, lane); break;
+    }
+    twp += p * (r - 1) + (r > 5 ? r : 0);  // the generic pass's roots follow its twiddles
+    p *= r;
+    double2* sw = src; src = dst; dst = sw;
+    __syncwarp();
+  }
+  return src;
+}
+
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// shared memory, in bytes: the segment, the window and two buffers of M
-// complex float64 values a warp
+// the complex FFT's length: n_fft / 2 (the half-length packing) for an even
+// n_fft, n_fft itself for an odd one
+__host__ __device__ inline int fft_len(int n_fft) { return n_fft % 2 ? n_fft : n_fft / 2; }
+
+// shared memory, in bytes: the segment of tf frames, the window and two
+// buffers of F complex float64 values (F the plan's length) for each of wp
+// warps
 struct MelLayout {
   size_t seg, win, buf, total;
-  __host__ __device__ MelLayout(int n_fft, int hop, int tf) {
+  __host__ __device__ MelLayout(int n_fft, int hop, int F, int tf, int wp) {
     seg = 0;
     win = align16(seg + ((size_t)(tf - 1) * hop + n_fft) * 4);
     buf = align16(win + (size_t)n_fft * 4);
-    total = align16(buf + (size_t)WARPS * 2 * (n_fft / 2) * 16);
+    total = align16(buf + (size_t)wp * 2 * F * 16);
   }
 };
 
-// frames a block: 32, or 16 or 8 where 32 do not fit
-int frames_per_block(int n_fft, int hop) {
-  for (int tf = 32; tf > WARPS; tf /= 2)
-    if (MelLayout(n_fft, hop, tf).total <= (size_t)SMEM_LIMIT) return tf;
-  return WARPS;
-}
+// (frames, warps) of a block: 8 warps and the most frames of 32, 16, 8 that
+// fit; else the same with 4, 2, then 1 warp (frames >= warps).  Nothing may
+// fit (1 warp, 1 frame): the wrapper refuses that shape by its size.
+struct MelConfig {
+  int tf, wp;
+  MelLayout lay;
+  MelConfig(int n_fft, int hop, int F) : tf(1), wp(1), lay(n_fft, hop, F, 1, 1) {
+    for (int w = WARPS; w >= 1; w /= 2)
+      for (int f = 32; f >= w; f /= 2)
+        if (MelLayout(n_fft, hop, F, f, w).total <= (size_t)SMEM_LIMIT) {
+          tf = f;
+          wp = w;
+          lay = MelLayout(n_fft, hop, F, f, w);
+          return;
+        }
+  }
+};
 
 __global__ void __launch_bounds__(THREADS)
 mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
@@ -188,14 +304,24 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
                const int* __restrict__ bank_idx,    // (3, n_mels): first bin, count, offset
                const float* __restrict__ bank_w,    // flat band weights
                float* __restrict__ out,             // (B, T, n_mels)
-               int L, int T, int n_fft, int hop, int n_mels, int tf, int n_ttiles,
+               int L, int T, int n_fft, int hop, int n_mels, int tf, int wp, int n_ttiles,
                FftPlan plan) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const MelLayout lay(n_fft, hop, tf);
+  const int F = plan.len;
+  const MelLayout lay(n_fft, hop, F, tf, wp);
   float* seg = reinterpret_cast<float*>(smem + lay.seg);
   float* win = reinterpret_cast<float*>(smem + lay.win);
-  const int M = n_fft / 2;
+  const bool odd = n_fft % 2;
+  const int M = fft_len(n_fft);
+  const bool blue = F != M;  // Bluestein: M's DFT as a cyclic convolution of length F
+  // after the plan's tables: the split post-pass's twiddles (even n_fft),
+  // then for Bluestein the chirp w[n] = exp(-pi i n^2 / M), n < M, and the
+  // filter's spectrum FFT_F(conj w, wrapped) / F
+  const double2* post = twiddles + plan.n_tables;
+  const double2* chirp = post + (odd ? 0 : n_fft / 4 + 1);
+  const double2* filt = chirp + M;
+  const int nthreads = 32 * wp;
 
   const int tid = threadIdx.x;
   const int tt = blockIdx.x % n_ttiles;
@@ -204,69 +330,100 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
   const int seg_len = (tf - 1) * hop + n_fft;
   const long long base = (long long)b * L + (long long)t0 * hop;
   const long long avail = (long long)L - (long long)t0 * hop;
-  for (int i = tid; i < seg_len; i += THREADS) seg[i] = i < avail ? wave[base + i] : 0.f;
-  for (int i = tid; i < n_fft; i += THREADS) win[i] = window[i];
+  for (int i = tid; i < seg_len; i += nthreads) seg[i] = i < avail ? wave[base + i] : 0.f;
+  for (int i = tid; i < n_fft; i += nthreads) win[i] = window[i];
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
-  double2* buf0 = reinterpret_cast<double2*>(smem + lay.buf) + (size_t)warp * 2 * M;
-  double2* buf1 = buf0 + M;
+  double2* buf0 = reinterpret_cast<double2*>(smem + lay.buf) + (size_t)warp * 2 * F;
+  double2* buf1 = buf0 + F;
   const int* first = bank_idx;
   const int* count = bank_idx + n_mels;
   const int* offset = bank_idx + 2 * n_mels;
 
-  for (int f = warp; f < tf; f += WARPS) {
+  // an odd n_fft has no half-length packing: a warp takes two frames at
+  // once as the real and imaginary parts of one complex FFT of n_fft
+  const int step = odd ? 2 : 1;
+  const int nb = n_fft / 2 + 1;  // bins
+  for (int f = warp * step; f < tf; f += wp * step) {
     const int t = t0 + f;
     if (t >= T) break;
+    const bool two = odd && f + 1 < tf && t + 1 < T;
     const float* x = seg + f * hop;
+    const float* x2 = x + hop;
     __syncwarp();  // the previous frame's mel stage is done with the buffers
-    // pack the windowed frame, z[n] = x[2n] + i x[2n+1]: a product of two
-    // f32 values is exact in float64
-    for (int n = lane; n < M; n += 32)
-      buf0[n] = make_double2((double)x[2 * n] * (double)win[2 * n],
-                             (double)x[2 * n + 1] * (double)win[2 * n + 1]);
-    __syncwarp();
-    double2* src = buf0;
-    double2* dst = buf1;
-    const double2* twp = twiddles;
-    int p = 1;
-    for (int s = 0; s < plan.n_stages; ++s) {
-      const int r = plan.radix[s];
-      switch (r) {
-        case 4: fft_pass<4>(src, dst, M, p, twp, lane); break;
-        case 2: fft_pass<2>(src, dst, M, p, twp, lane); break;
-        case 5: fft_pass<5>(src, dst, M, p, twp, lane); break;
-        default: fft_pass<3>(src, dst, M, p, twp, lane); break;
+    // pack the windowed frame (a product of two f32 values is exact in
+    // float64): z[n] = x[2n] + i x[2n+1] for an even n_fft, x[n] + i x2[n]
+    // (x2 the next frame, or 0) for an odd one; for Bluestein times the
+    // chirp, zeros from M to F
+    for (int n = lane; n < F; n += 32) {
+      double2 z = make_double2(0.0, 0.0);
+      if (n < M) {
+        z = odd ? make_double2((double)x[n] * (double)win[n],
+                               two ? (double)x2[n] * (double)win[n] : 0.0)
+                : make_double2((double)x[2 * n] * (double)win[2 * n],
+                               (double)x[2 * n + 1] * (double)win[2 * n + 1]);
+        if (blue) z = cmul(z, __ldg(chirp + n));
       }
-      twp += p * (r - 1);
-      p *= r;
-      double2* sw = src; src = dst; dst = sw;
+      buf0[n] = z;
+    }
+    __syncwarp();
+    double2* src = stockham(buf0, buf1, plan, twiddles, lane);
+    if (blue) {
+      // times the filter's spectrum, then the inverse FFT as the forward one
+      // of the conjugate: Z[k] = w[k] conj(FFT(conj(A Hf)))[k] for k < M
+      for (int k = lane; k < F; k += 32) {
+        const double2 v = cmul(src[k], __ldg(filt + k));
+        src[k] = make_double2(v.x, -v.y);
+      }
+      __syncwarp();
+      src = stockham(src, src == buf0 ? buf1 : buf0, plan, twiddles, lane);
+      for (int k = lane; k < M; k += 32) {
+        const double2 v = src[k];
+        src[k] = cmul(__ldg(chirp + k), make_double2(v.x, -v.y));
+      }
       __syncwarp();
     }
-    // split post-pass: Z in src, the power of bins 0..M into dst; X rounds
-    // to f32 and the power is f32 with no contraction, as the plain version
-    // computes it
-    float* power = reinterpret_cast<float*>(dst);
-    for (int k = lane; k <= M / 2; k += 32) {
-      const double2 zk = src[k], zm = src[k == 0 ? 0 : M - k];
-      const double2 zc = make_double2(zm.x, -zm.y);
-      const double2 e = cscale(cadd(zk, zc), 0.5);
-      const double2 o = cscale(mul_mi(csub(zk, zc)), 0.5);
-      const double2 wo = cmul(__ldg(twp + k), o);
-      const double2 x1 = cadd(e, wo), x2 = csub(e, wo);  // X[k], conj(X[M-k])
-      const float r1 = (float)x1.x, i1 = (float)x1.y, r2 = (float)x2.x, i2 = (float)x2.y;
-      power[k] = __fadd_rn(__fmul_rn(r1, r1), __fmul_rn(i1, i1));
-      if (M - k != k) power[M - k] = __fadd_rn(__fmul_rn(r2, r2), __fmul_rn(i2, i2));
+    // Z in src; the power of bins 0..n_fft/2 into dst (an odd n_fft's
+    // second frame after the first's).  X rounds to f32 and the power is
+    // f32 with no contraction, as the plain version computes it
+    float* power = reinterpret_cast<float*>(src == buf0 ? buf1 : buf0);
+    if (odd) {
+      // X1[k] = (Z[k] + conj(Z[M-k])) / 2, X2[k] = -i (Z[k] - conj(Z[M-k])) / 2
+      for (int k = lane; k < nb; k += 32) {
+        const double2 zk = src[k], zm = src[k == 0 ? 0 : M - k];
+        const double2 zc = make_double2(zm.x, -zm.y);
+        const double2 x1 = cscale(cadd(zk, zc), 0.5), x2 = cscale(mul_mi(csub(zk, zc)), 0.5);
+        const float r1 = (float)x1.x, i1 = (float)x1.y, r2 = (float)x2.x, i2 = (float)x2.y;
+        power[k] = __fadd_rn(__fmul_rn(r1, r1), __fmul_rn(i1, i1));
+        power[nb + k] = __fadd_rn(__fmul_rn(r2, r2), __fmul_rn(i2, i2));
+      }
+    } else {
+      // the split post-pass
+      for (int k = lane; k <= M / 2; k += 32) {
+        const double2 zk = src[k], zm = src[k == 0 ? 0 : M - k];
+        const double2 zc = make_double2(zm.x, -zm.y);
+        const double2 e = cscale(cadd(zk, zc), 0.5);
+        const double2 o = cscale(mul_mi(csub(zk, zc)), 0.5);
+        const double2 wo = cmul(__ldg(post + k), o);
+        const double2 x1 = cadd(e, wo), x2 = csub(e, wo);  // X[k], conj(X[M-k])
+        const float r1 = (float)x1.x, i1 = (float)x1.y, r2 = (float)x2.x, i2 = (float)x2.y;
+        power[k] = __fadd_rn(__fmul_rn(r1, r1), __fmul_rn(i1, i1));
+        if (M - k != k) power[M - k] = __fadd_rn(__fmul_rn(r2, r2), __fmul_rn(i2, i2));
+      }
     }
     __syncwarp();
     // the sparse mel bank, each band's bins in ascending order
-    float* orow = out + ((long long)b * T + t) * n_mels;
-    for (int m = lane; m < n_mels; m += 32) {
-      const int f0 = __ldg(first + m), nf = __ldg(count + m);
-      const float* w = bank_w + __ldg(offset + m);
-      float acc = 0.f;
-      for (int q = 0; q < nf; ++q) acc = fmaf(power[f0 + q], __ldg(w + q), acc);
-      orow[m] = 10.f * log10f(fmaxf(acc, 1e-10f));
+    for (int u = 0; u < (two ? 2 : 1); ++u) {
+      const float* pw = power + u * nb;
+      float* orow = out + ((long long)b * T + t + u) * n_mels;
+      for (int m = lane; m < n_mels; m += 32) {
+        const int f0 = __ldg(first + m), nf = __ldg(count + m);
+        const float* w = bank_w + __ldg(offset + m);
+        float acc = 0.f;
+        for (int q = 0; q < nf; ++q) acc = fmaf(pw[f0 + q], __ldg(w + q), acc);
+        orow[m] = 10.f * log10f(fmaxf(acc, 1e-10f));
+      }
     }
   }
 }
@@ -527,44 +684,60 @@ int sept_mel_db_max_mels() { return MEL_MAX; }
 
 // Shared memory one block needs; the wrapper refuses shapes above the
 // card's per-block limit before launching.
-long long sept_mel_db_smem_bytes(int n_fft, int hop) {
-  return (long long)MelLayout(n_fft, hop, frames_per_block(n_fft, hop)).total;
+// Shared memory and block shape {frames, warps} for (n_fft, hop) and a plan
+// of length F (the product of its radices).
+long long sept_mel_db_smem_bytes(int n_fft, int hop, int F) {
+  return (long long)MelConfig(n_fft, hop, F).lay.total;
+}
+
+void sept_mel_db_block(int n_fft, int hop, int F, int* out2) {
+  const MelConfig cfg(n_fft, hop, F);
+  out2[0] = cfg.tf;
+  out2[1] = cfg.wp;
 }
 
 // wave (B, L) f32; window (n_fft,) f32; twiddles (n_tw,) complex float64:
-// each pass's p x (R-1) table in the plan's order, then exp(-2 pi i k /
-// n_fft) for k = 0..n_fft/4; bank_idx (3, n_mels) int32 (first bin, bin
-// count, offset into bank_w); radices (n_stages,) on the host, whose product
-// is n_fft / 2; out (B, T, n_mels) f32.
+// each pass's p x (R-1) table in the plan's order (a pass of a prime R > 5
+// followed by its R roots), then, for an even n_fft, exp(-2 pi i k / n_fft)
+// for k = 0..n_fft/4, then for Bluestein the chirp (M values) and the
+// filter's spectrum (F values); bank_idx (3, n_mels) int32 (first bin, bin
+// count, offset into bank_w); radices (n_stages,) on the host, whose
+// product F is M = n_fft / 2 (even n_fft) or n_fft (odd), or, for
+// Bluestein, at least 2M - 1; out (B, T, n_mels) f32.
 int sept_mel_db(const float* wave, const float* window, const double* twiddles,
                 const int* bank_idx, const float* bank_w, float* out, int B, int L, int T,
                 int n_fft, int hop, int n_mels, int n_tw, const int* radices, int n_stages,
                 void* stream) {
-  if (n_mels > MEL_MAX || n_mels < 1 || hop < 1 || n_fft < 2 || n_fft % 2 ||
-      n_stages < 0 || n_stages > MAX_STAGES)
+  if (n_mels > MEL_MAX || n_mels < 1 || hop < 1 || n_fft < 2 || n_stages < 0 ||
+      n_stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   FftPlan plan;
   plan.n_stages = n_stages;
-  long long prod = 1, n_pass_tw = 0;
+  long long prod = 1, n_tables = 0;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
-    if (r != 2 && r != 3 && r != 4 && r != 5) return (int)cudaErrorInvalidValue;
+    if (r < 2 || r > 2 * n_fft) return (int)cudaErrorInvalidValue;
     plan.radix[s] = r;
-    n_pass_tw += prod * (r - 1);
+    n_tables += prod * (r - 1) + (r > 5 ? r : 0);
     prod *= r;
   }
-  if (prod != n_fft / 2 || n_tw != n_pass_tw + n_fft / 4 + 1) return (int)cudaErrorInvalidValue;
-  const int tf = frames_per_block(n_fft, hop);
-  const size_t smem = MelLayout(n_fft, hop, tf).total;
+  const long long M = fft_len(n_fft);
+  if (prod != M && (prod < 2 * M - 1 || prod > 4 * M)) return (int)cudaErrorInvalidValue;
+  plan.len = (int)prod;
+  plan.n_tables = (int)n_tables;
+  const long long n_all = n_tables + (n_fft % 2 ? 0 : n_fft / 4 + 1) + (prod != M ? M + prod : 0);
+  if (n_tw != n_all) return (int)cudaErrorInvalidValue;
+  const MelConfig cfg(n_fft, hop, plan.len);
+  if (cfg.lay.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
-      mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.lay.total);
   if (err != cudaSuccess) return (int)err;
-  const int n_ttiles = (T + tf - 1) / tf;
+  const int n_ttiles = (T + cfg.tf - 1) / cfg.tf;
   const long long blocks = (long long)n_ttiles * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  mel_fft_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  mel_fft_kernel<<<(unsigned)blocks, 32 * cfg.wp, cfg.lay.total, (cudaStream_t)stream>>>(
       wave, window, reinterpret_cast<const double2*>(twiddles), bank_idx, bank_w, out, L, T,
-      n_fft, hop, n_mels, tf, n_ttiles, plan);
+      n_fft, hop, n_mels, cfg.tf, cfg.wp, n_ttiles, plan);
   return (int)cudaGetLastError();
 }
 

@@ -8,12 +8,15 @@ places, f32 accumulation; the throughput mode).  Each mode has its own launch
 count.  A CPU tensor runs :func:`mel_db_plain` in the same mode; any other
 input raises.
 
-The f32 kernel is FFT-structured, one launch a call: a real FFT of n_fft as
-a complex FFT of n_fft / 2 in radix-4, 2, 5 and 3 Stockham passes, in
-float64, then the f32 power and the sparse mel bank.  It takes every even
-n_fft whose half factors into 2, 3 and 5 (400, 800 and 1600 on the repo's
-paths); :func:`fft_radices` refuses any other n_fft with ``ValueError``
-before a launch.  The CPU plain version takes any n_fft.  :func:`fft_plan`
+The f32 kernel is FFT-structured, one launch a call: a real FFT of n_fft (a
+complex FFT of M = n_fft / 2 for an even n_fft, of M = n_fft for an odd one)
+in radix-4, 2, 5 and 3 Stockham passes and a direct generic pass per other
+prime factor up to 31 -- or, where M has a larger prime factor, Bluestein's
+convolution of a 2-3-5-smooth length -- in float64, then the f32 power and
+the sparse mel bank.  It takes
+any n_fft >= 2 (:func:`fft_radices` refuses smaller ones before a launch);
+only a shape whose buffers do not fit a block of one warp raises, by its
+shared memory.  :func:`fft_plan`
 (radices and float64 twiddles) and :func:`sparse_bank` (each band's first
 bin, bin count and weights) are the kernel's tables, built once per (n_fft,
 device).
@@ -30,11 +33,12 @@ import torch
 from sept_tpu_torch.ops import cuda_lib
 from sept_tpu_torch.ops import frontend as F
 
-__all__ = ["mel_db", "mel_db_bf16", "mel_db_plain", "fft_radices", "fft_plan",
-           "sparse_bank", "AMIN"]
+__all__ = ["mel_db", "mel_db_bf16", "mel_db_plain", "fft_length", "bluestein_length",
+           "fft_radices", "fft_plan", "sparse_bank", "AMIN", "DIRECT_PRIME_MAX"]
 
 AMIN = 1e-10  # the AmplitudeToDB power clamp
 _RADICES = (4, 2, 5, 3)  # the kernel's Stockham passes, in the order they run
+DIRECT_PRIME_MAX = 31  # largest prime factor the kernel's direct generic pass takes
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,39 +78,82 @@ def _kernel_tables_bf16(n_fft: int, n_mels: int, geometry: tuple, device: torch.
     return tuple(t.contiguous().to(device) for t in (window, dft, fbt))
 
 
-def fft_radices(n_fft: int) -> tuple[int, ...]:
-    """The f32 kernel's passes for a complex FFT of n_fft / 2: as many
-    radix-4 passes as divide it, then radix 2, 5 and 3.  Raises
-    ``ValueError`` unless n_fft is even and n_fft / 2 factors into 2, 3 and
-    5."""
-    m = n_fft // 2
-    if n_fft < 2 or n_fft % 2:
-        raise ValueError(f"mel_db: the FFT kernel takes an even n_fft whose half "
-                         f"factors into 2, 3 and 5, got {n_fft}")
-    radices = []
+def fft_length(n_fft: int) -> int:
+    """The length M of the complex FFT the f32 kernel computes: n_fft / 2
+    for an even n_fft (the half-length packing), n_fft for an odd one."""
+    return n_fft if n_fft % 2 else n_fft // 2
+
+
+def _factors(m: int) -> list[int]:
+    """m's passes: as many radix-4 as divide it, then 2, 5, 3, then each
+    other prime factor in ascending order."""
+    out = []
     for r in _RADICES:
         while m % r == 0:
-            radices.append(r)
+            out.append(r)
             m //= r
-    if m != 1:
-        raise ValueError(f"mel_db: the FFT kernel takes an even n_fft whose half "
-                         f"factors into 2, 3 and 5, got {n_fft} (n_fft / 2 = "
-                         f"{n_fft // 2} has the factor {m})")
-    return tuple(radices)
+    p = 7
+    while m > 1:
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 2
+    return out
+
+
+def bluestein_length(n_fft: int) -> int:
+    """0 where the kernel runs M's own passes; else the length of the
+    cyclic convolution that computes M's DFT (Bluestein): the least
+    2-3-5-smooth length >= 2M - 1.  Taken where M has a prime factor above
+    DIRECT_PRIME_MAX, whose direct pass would cost more than the three FFTs
+    of the convolution."""
+    m = fft_length(n_fft)
+    if max(_factors(m), default=1) <= DIRECT_PRIME_MAX:
+        return 0
+    n = 2 * m - 1
+    while max(_factors(n)) > 5:
+        n += 1
+    return n
+
+
+def fft_radices(n_fft: int) -> tuple[int, ...]:
+    """The f32 kernel's Stockham passes: of M (:func:`fft_length`) -- radix
+    4, 2, 5 and 3, then a generic pass for each other prime factor, at most
+    DIRECT_PRIME_MAX -- or, where M has a larger prime factor, of the
+    Bluestein length (:func:`bluestein_length`), in radices 4, 2, 5 and 3
+    only.  Raises ``ValueError`` for n_fft < 2."""
+    if n_fft < 2:
+        raise ValueError(f"mel_db: n_fft must be >= 2, got {n_fft}")
+    return tuple(_factors(bluestein_length(n_fft) or fft_length(n_fft)))
 
 
 def fft_plan(n_fft: int) -> tuple[tuple[int, ...], np.ndarray]:
-    """(radices, twiddles) of the f32 kernel's FFT: for each pass of radix R
-    over p combined points, exp(-2 pi i r k / (p R)) for k < p, r = 1..R-1
-    (k major), then the split post-pass's exp(-2 pi i k / n_fft) for k =
-    0..n_fft/4; complex128, as the kernel takes them."""
+    """(radices, tables) of the f32 kernel's FFT, complex128 as the kernel
+    takes them: for each pass of radix R over p combined points, exp(-2 pi
+    i r k / (p R)) for k < p, r = 1..R-1 (k major), and for a prime R > 5
+    then its R roots exp(-2 pi i j / R); for an even n_fft the split
+    post-pass's exp(-2 pi i k / n_fft) for k = 0..n_fft/4; for Bluestein
+    (length F) last the chirp w[n] = exp(-pi i n^2 / M) for n < M and the
+    spectrum of the wrapped filter conj(w), FFT_F(h) / F."""
     radices = fft_radices(n_fft)
     parts, p = [], 1
     for r in radices:
         k, rr = np.arange(p)[:, None], np.arange(1, r)[None, :]
         parts.append(np.exp(-2j * np.pi * k * rr / (p * r)).ravel())
+        if r > 5:
+            parts.append(np.exp(-2j * np.pi * np.arange(r) / r))
         p *= r
-    parts.append(np.exp(-2j * np.pi * np.arange(n_fft // 4 + 1) / n_fft))
+    if n_fft % 2 == 0:
+        parts.append(np.exp(-2j * np.pi * np.arange(n_fft // 4 + 1) / n_fft))
+    f = bluestein_length(n_fft)
+    if f:
+        m = fft_length(n_fft)
+        n = np.arange(m, dtype=np.int64)
+        chirp = np.exp(-1j * np.pi * ((n * n) % (2 * m)) / m)
+        h = np.zeros(f, np.complex128)
+        h[:m] = chirp.conj()
+        h[f - m + 1:] = chirp[1:].conj()[::-1]
+        parts += [chirp, np.fft.fft(h) / f]
     return radices, np.concatenate(parts)
 
 
@@ -203,7 +250,7 @@ def mel_db(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
         raise ValueError(f"mel_db: the kernel takes at most {max_mels} mels, got {n_mels}")
     radices, window, twiddles, index, weights = _fft_tables(n_fft, n_mels, dev)
     n_tw = twiddles.numel() // 2
-    smem = lib.sept_mel_db_smem_bytes(n_fft, hop)
+    smem = lib.sept_mel_db_smem_bytes(n_fft, hop, int(np.prod(radices)))
     if smem > cuda_lib.max_smem_per_block(dev):
         raise ValueError(f"mel_db: n_fft {n_fft} / hop {hop} need {smem} bytes "
                          "of shared memory a block, above the card's limit")

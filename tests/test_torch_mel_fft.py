@@ -6,9 +6,14 @@ The CUDA kernel runs only on the card.  What it computes is restated here in
 torch, step for step: the windowed frame packed as z[n] = x[2n] + i x[2n+1]
 in float64, the plan's Stockham passes (input i + r*M/R of a radix-R pass
 over p combined points, twiddled by the plan's exp(-2 pi i r (i%p) / (p R)),
-goes through a length-R DFT to output (i - i%p)*R + i%p + s*p) and the split
-post-pass for bins 0..n_fft/2 in float64, then X rounded to f32, the f32
-power, and each band's bins summed in ascending order from the sparse bank.
+goes through a length-R DFT to output (i - i%p)*R + i%p + s*p; for a prime
+R above 5 the DFT reads the plan's table of roots, as the kernel's generic
+pass does; where M has a prime factor above 31, Bluestein's convolution
+over the plan's chirp and filter tables) and the split post-pass for bins
+0..n_fft/2 in float64 (for an odd n_fft: frames 2j and 2j + 1 as the real
+and imaginary parts of one complex FFT of n_fft, split after it),
+then X rounded to f32, the f32 power, and each band's bins summed in
+ascending order from the sparse bank.
 
 The bound is 1e-3 dB, the kernel's tolerance against its plain version, on
 ``speechlike`` signals, held cell by cell as ``chip_smoke.py`` holds the
@@ -66,7 +71,9 @@ def assert_within(ours, ref, truth, tol=1e-3):
 
 def _stockham(z, radices, tw):
     """The plan's passes over the last axis of ``z`` (complex), as the
-    kernel's fft_pass runs them; returns (Z, twiddles used)."""
+    kernel runs them: fft_pass for radices 2-5, the generic pass (a direct
+    DFT over the plan's table of roots) for a prime above 5; returns (Z,
+    table entries used)."""
     m = z.shape[-1]
     p, off = 1, 0
     for r in radices:
@@ -77,40 +84,71 @@ def _stockham(z, radices, tw):
         t = tw[off:off + p * (r - 1)].reshape(p, r - 1)[k].T
         u = torch.cat([u[:1], u[1:] * t.reshape((r - 1,) + (1,) * (z.dim() - 1) + (nb,))])
         s = torch.arange(r)
-        omega = torch.exp(-2j * torch.pi * torch.outer(s, s).to(torch.float64) / r).to(z.dtype)
+        if r > 5:  # the roots stored after the pass's twiddles, w[(r s) mod R]
+            roots = tw[off + p * (r - 1):off + p * (r - 1) + r]
+            omega = roots[torch.outer(s, s) % r].to(z.dtype)
+        else:
+            omega = torch.exp(-2j * torch.pi * torch.outer(s, s).to(torch.float64) / r).to(z.dtype)
         v = torch.einsum("sr,r...->s...", omega, u)
         out = torch.empty_like(z)
         j = (i - k) * r + k
         for q in range(r):
             out[..., j + q * p] = v[q]
-        z, off, p = out, off + p * (r - 1), p * r
+        z, off, p = out, off + p * (r - 1) + (r if r > 5 else 0), p * r
     return z, off
+
+
+def _fft_m(z, n_fft, radices, tw):
+    """The kernel's complex DFT of length M over the last axis of ``z``: the
+    plan's passes, or Bluestein's convolution where the plan's length F is
+    not M (z times the chirp, zero-padded to F; the passes; times the
+    filter's spectrum; the passes again on the conjugate; the conjugate
+    times the chirp).  Returns (Z, offset of the post-pass twiddles)."""
+    m = z.shape[-1]
+    f = M.bluestein_length(n_fft)
+    if not f:
+        return _stockham(z, radices, tw)
+    chirp, filt = tw[len(tw) - f - m:len(tw) - f], tw[len(tw) - f:]
+    a = torch.zeros(z.shape[:-1] + (f,), dtype=z.dtype)
+    a[..., :m] = z * chirp
+    a, off = _stockham(a, radices, tw)
+    c, _ = _stockham((a * filt).conj(), radices, tw)
+    return chirp * c[..., :m].conj(), off
 
 
 def mel_fft_restated(padded, t, n_fft, hop, n_mels=128, dtype=torch.float32):
     """The f32 kernel's function on the CPU: the windowed frame (exact in
-    float64), the FFT and the post-pass in float64, then ``dtype`` for X, the
-    power and the bank (float32: as the kernel rounds them, up to summation
-    order; float64: the function unrounded)."""
+    float64), the FFT and, for an even n_fft, the post-pass in float64, then
+    ``dtype`` for X, the power and the bank (float32: as the kernel rounds
+    them, up to summation order; float64: the function unrounded)."""
     radices, tw = M.fft_plan(n_fft)
     tw = torch.from_numpy(tw)
     index, weights = M.sparse_bank(n_fft, n_mels)
     window = torch.from_numpy(TF.hann_window(n_fft)).double()
     frames = torch.from_numpy(padded).double().unfold(1, n_fft, hop)[:, :t] * window
-    z = torch.complex(frames[..., 0::2], frames[..., 1::2])
-    zk, off = _stockham(z, radices, tw)
-    m = n_fft // 2
-    k = torch.arange(m // 2 + 1)
-    zc = zk[..., (m - k) % m].conj()
-    e = (zk[..., k] + zc) * 0.5
-    o = -1j * (zk[..., k] - zc) * 0.5
-    wo = tw[off:] * o
-    x1, x2 = e + wo, e - wo  # X[k], conj(X[m - k])
     cd = torch.complex64 if dtype == torch.float32 else torch.complex128
-    x1, x2 = x1.to(cd), x2.to(cd)
+    m = n_fft // 2
     power = torch.empty(frames.shape[:-1] + (m + 1,), dtype=dtype)
-    power[..., m - k] = x2.real * x2.real + x2.imag * x2.imag
-    power[..., k] = x1.real * x1.real + x1.imag * x1.imag
+    if n_fft % 2:  # frames 2j and 2j + 1 as one complex FFT of n_fft, then split
+        pairs = torch.nn.functional.pad(frames, (0, 0, 0, frames.shape[1] % 2))
+        z = torch.complex(pairs[:, 0::2], pairs[:, 1::2])
+        zk, _ = _fft_m(z, n_fft, radices, tw)
+        k = torch.arange(m + 1)
+        zc = zk[..., (n_fft - k) % n_fft].conj()
+        x = torch.stack([(zk[..., k] + zc) * 0.5, -0.5j * (zk[..., k] - zc)], 2)
+        x = x.flatten(1, 2)[:, :frames.shape[1]].to(cd)  # frames back in order
+        power[:] = x.real * x.real + x.imag * x.imag
+    else:
+        z = torch.complex(frames[..., 0::2], frames[..., 1::2])
+        zk, off = _fft_m(z, n_fft, radices, tw)
+        k = torch.arange(m // 2 + 1)
+        zc = zk[..., (m - k) % m].conj()
+        e = (zk[..., k] + zc) * 0.5
+        o = -1j * (zk[..., k] - zc) * 0.5
+        wo = tw[off:off + m // 2 + 1] * o
+        x1, x2 = (e + wo).to(cd), (e - wo).to(cd)  # X[k], conj(X[m - k])
+        power[..., m - k] = x2.real * x2.real + x2.imag * x2.imag
+        power[..., k] = x1.real * x1.real + x1.imag * x1.imag
     mel = torch.zeros(frames.shape[:-1] + (n_mels,), dtype=dtype)
     w = torch.from_numpy(weights).to(dtype)
     for band in range(n_mels):
@@ -134,10 +172,45 @@ def test_fft_plan_factors_half_of_n_fft(n_fft):
     np.testing.assert_allclose(np.abs(tw), 1.0, atol=1e-15)
 
 
-@pytest.mark.parametrize("n_fft", [802, 402, 14, 7, 0])
+@pytest.mark.parametrize("n_fft", [0, 1])
 def test_fft_radices_refuse_n_fft_outside_the_rule(n_fft):
-    with pytest.raises(ValueError, match="factors into 2, 3 and 5"):
+    with pytest.raises(ValueError, match="n_fft must be >= 2"):
         M.fft_radices(n_fft)
+
+
+# n_fft off the 2-3-5 rule: direct generic passes for primes up to 31 (a
+# prime odd n_fft 7, 14, 858 = 2 * 3 * 11 * 13, odd 1001 = 7 * 11 * 13);
+# Bluestein where M has a larger prime factor (prime halves 802 and 2042,
+# 402 = 2 * 3 * 67, 1022 = 2 * 7 * 73, odd 799 = 17 * 47 and 2047 = 23 * 89,
+# the largest buffers); and 2048 (4 warps a block)
+@pytest.mark.parametrize("n_fft", [802, 402, 14, 7, 799, 1022, 2042, 2048, 858, 1001, 2047])
+def test_any_n_fft_plans_and_restates(rng, n_fft):
+    hop = 160
+    radices, tw = M.fft_plan(n_fft)
+    m, f = M.fft_length(n_fft), M.bluestein_length(n_fft)
+    assert m == (n_fft if n_fft % 2 else n_fft // 2)
+    if f:  # a prime factor above the direct pass's: Bluestein's smooth length
+        assert max(M._factors(m)) > M.DIRECT_PRIME_MAX
+        assert f >= 2 * m - 1 and set(radices) <= {2, 3, 4, 5}
+    assert int(np.prod(radices)) == (f or m)
+    small = [r for r in radices if r <= 5]
+    assert small == sorted(small, key=(4, 2, 5, 3).index)
+    assert radices == tuple(small) + tuple(sorted(r for r in radices if r > 5))
+    assert all(r <= M.DIRECT_PRIME_MAX for r in radices)
+    padded = _padded(rng, (3000,), n_fft)
+    t = (padded.shape[1] - n_fft) // hop + 1
+    frames = (padded.astype(np.float64)[0, np.arange(t)[:, None] * hop + np.arange(n_fft)]
+              * TF.hann_window(n_fft).astype(np.float64))
+    z = frames + 0j if n_fft % 2 else frames[:, 0::2] + 1j * frames[:, 1::2]
+    zk, used = _fft_m(torch.from_numpy(z), n_fft, radices, torch.from_numpy(tw))
+    assert used + (0 if n_fft % 2 else n_fft // 4 + 1) + (m + f if f else 0) == len(tw)
+    np.testing.assert_allclose(zk.numpy(), np.fft.fft(z), atol=1e-9)
+    dense = TF.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, 128, 16000).astype(np.float64)
+    want = 10 * np.log10(np.maximum((np.abs(np.fft.rfft(frames)) ** 2) @ dense, M.AMIN))
+    ours = mel_fft_restated(padded, t, n_fft, hop, dtype=torch.float64).numpy()[0]
+    np.testing.assert_allclose(ours, want, atol=1e-9)
+    ours = mel_fft_restated(padded, t, n_fft, hop).numpy()
+    np.testing.assert_allclose(ours, _truth(padded, t, n_fft, hop), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("n_fft,n_mels", [(400, 128), (800, 128), (1600, 128), (800, 40)])
@@ -154,7 +227,7 @@ def test_sparse_bank_expands_to_the_dense_bank(n_fft, n_mels):
     assert (np.diff(index[2]) == index[1][:-1]).all()  # bands one after another
 
 
-@pytest.mark.parametrize("n_fft,hop", SHAPES)
+@pytest.mark.parametrize("n_fft,hop", SHAPES + [(802, 160)])
 def test_restated_kernel_matches_plain_and_pallas(rng, n_fft, hop):
     padded = _padded(rng, (7000, 4100), n_fft)
     t = (padded.shape[1] - n_fft) // hop + 1 - 3  # not a multiple of the block's frames
@@ -216,12 +289,16 @@ def test_restated_post_pass_gives_the_real_dft_power(rng):
 
 
 def test_mel_db_refuses_n_fft_outside_the_rule_before_a_launch():
-    """A tensor off the CPU meets the factor rule before anything else of the
-    kernel's path; the CPU plain version takes any n_fft."""
+    """A tensor off the CPU meets the n_fft rule before anything else of the
+    kernel's path: n_fft 802 passes it and reaches the device check (a meta
+    tensor has no kernel), n_fft 0 does not; the CPU plain version takes any
+    n_fft."""
     launches = M.mel_db.launches
     x = torch.empty((2, 3000), device="meta")
-    with pytest.raises(ValueError, match="factors into 2, 3 and 5"):
+    with pytest.raises(ValueError, match="no kernel for meta"):
         M.mel_db(x, 5, n_fft=802)
+    with pytest.raises(ValueError, match="n_fft must be >= 2"):
+        M.mel_db(x, 5, n_fft=0)
     assert M.mel_db.launches == launches
     cpu = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 3000)).astype(np.float32))
     assert M.mel_db(cpu, 5, n_fft=802).shape == (1, 5, 128)
