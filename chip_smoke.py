@@ -120,7 +120,6 @@ The result lines (with the card's) are also written whole to
 """
 
 import base64
-import ctypes
 import json
 import re
 import subprocess
@@ -152,12 +151,10 @@ SUMS_RTOL = 1e-5   # K3's per-channel sums, of the sum of |terms|
 # ragged band (K4's bf16 tensor-core path)
 K4_EDGES = ((1, 37, 29), (3, 64, 33), (2, 37, 48))
 # and a width of three column tiles, the last ragged (K1 and K5 across tile
-# borders, K5's halo columns from both neighbours)
-WIDE_EDGE = (1, 27, 260)
-# device ms of the designs the current K1 and K5 replaced (PERF.md §6, a
-# whole run on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
-PREVIOUS_DEVICE_MS = {"block1_conv_stats": 0.166, "block1_conv_stats_bf16": 0.091,
-                 "block1_input_grad": 0.226, "block1_input_grad_bf16": 0.219}
+# borders, K5's halo columns from both neighbours); a multiple of 8, so K1's
+# bf16 tensor-core path crosses the tiles too, and not of 16, so K4 and K5
+# bf16 keep their FMA paths there
+WIDE_EDGE = (1, 27, 264)
 BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
 BLOCK1 = ("block1_conv_stats", "block1_norm_pool") + BACKWARD
 BLOCK1_BF16 = tuple(f"{k}_bf16" for k in BLOCK1)  # the kernels' bf16 mode, counted apart
@@ -548,7 +545,6 @@ def edge_phase(device):
     ragged frame and pixel tiles, odd sizes, n_fft 1600, one row, and
     n_fft off the 2-3-5 rule (prime halves, an odd n_fft, 2048)."""
     from sept_tpu_torch.ops import conv_block1 as K
-    from sept_tpu_torch.ops import cuda_lib
     from sept_tpu_torch.ops import mel as M
 
     g = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -571,13 +567,11 @@ def edge_phase(device):
             for key in ("kernel_vs_f64", "plain_vs_f64"):
                 worst[f"mel_db_{key}"] = max(worst.get(f"mel_db_{key}", 0.0), c[key])
         # n_fft off the 2-3-5 rule at hop 160, at a featurize chunk's size
-        # (64 rows, 401 frames): direct generic passes (858 = 2 * 3 * 11 *
-        # 13, odd 1001 = 7 * 11 * 13), Bluestein (prime halves 802 and 2042,
-        # 1022 = 2 * 7 * 73, odd 799 = 17 * 47) and 2048 (4 warps a block);
-        # each launches and holds check_mel's rule, timed beside its plain
-        # version
+        # (64 rows, 401 frames): Bluestein (prime halves 802 and 2042, 1022 =
+        # 2 * 7 * 73, 858 = 2 * 3 * 11 * 13, odd 799 = 17 * 47 and 1001 = 7 *
+        # 11 * 13) and 2048 (radix 4, 4 warps a block); each launches and
+        # holds check_mel's rule, timed beside its plain version
         worst["mel_db_any_n_fft"] = []
-        lib = cuda_lib.load("mel")
         for n_fft in (802, 1022, 799, 2042, 2048, 858, 1001):
             b, t = 64, 401
             x = 0.3 * torch.randn(b, (t - 1) * HOP + n_fft + 77, device=device, generator=g_mel)
@@ -586,13 +580,10 @@ def edge_phase(device):
             require(M.mel_db.launches == before + 1, f"mel_db did not launch at n_fft {n_fft}")
             p = M.mel_db_plain(x, t, n_fft, HOP, N_MELS)
             c = check_mel(k, p, x, t, n_fft, HOP, f"edge n_fft {n_fft}")
-            radices = M.fft_radices(n_fft)
-            block = (ctypes.c_int * 2)()
-            lib.sept_mel_db_block(n_fft, HOP, int(np.prod(radices)), block)
             worst["mel_db_any_n_fft"].append({
                 "n_fft": n_fft, "hop": HOP, "shape": [b, x.shape[1], t],
-                "radices": list(radices), "bluestein_length": M.bluestein_length(n_fft),
-                "block_frames_warps": list(block),
+                "radices": list(M.fft_radices(n_fft)),
+                "bluestein_length": M.bluestein_length(n_fft),
                 "max_abs_vs_plain": c["max_abs_vs_plain"], "check_vs_f64": c,
                 "device_ms": device_ms(lambda: M.mel_db(x, t, n_fft, HOP, N_MELS)),
                 "plain_device_ms": device_ms(lambda: M.mel_db_plain(x, t, n_fft, HOP, N_MELS))})
@@ -1974,8 +1965,6 @@ def main():
         capture_block1(ds_bf16, order_bf16, sds, "bfloat16"), paths)
     kernels += bf16_kernels
     for k in kernels:
-        if k["name"] in PREVIOUS_DEVICE_MS:
-            k["previous_design_device_ms"] = PREVIOUS_DEVICE_MS[k["name"]]
         if isinstance(k["device_ms"], float):
             k["bound_share_of_device_ms"] = k["bound_ms"] / k["device_ms"]
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s; shapes {shapes}")

@@ -50,25 +50,23 @@
 //   for k = 0..n_fft/2.
 // - The complex FFT is a Stockham autosort FFT (no bit-reversal pass) in the
 //   order of the plan ops/mel.py builds per n_fft: radix-4, 2, 5 and 3
-//   passes, then one pass per other prime factor p of M up to 31,
-//   ascending.  A pass of radix R over q already-combined points maps input
+//   passes.  A pass of radix R over q already-combined points maps input
 //   i + r*M/R to output (i - i%q)*R + i%q + s*q after the twiddles
-//   exp(-2 pi i r (i%q) / (q R)) and a length-R DFT; the twiddles come from
-//   tables computed in float64.  Radices 2-5 keep the R inputs of a
-//   butterfly in registers.  A prime p from 7 to 31 takes the generic pass:
-//   the lanes first twiddle the inputs in place, then each lane computes
-//   whole outputs as a direct length-p DFT, u'[s] = sum_r u[r] w[(r s) mod
-//   p], the p roots w from a float64 table the plan stores after that
-//   pass's twiddles, in four independent chains.  Where M has a prime
-//   factor above 31 (n_fft 802: M = 401) a direct pass costs O(M p) and was
-//   latency-bound (0.94 ms for 80 frames at n_fft 802 against the dense
-//   plain version's 0.055; PERF.md), so M's DFT runs as Bluestein's cyclic
-//   convolution of a 2-3-5-smooth length F >= 2M - 1: X[k] = w[k] (a * h)[k]
-//   with the chirp w[n] = exp(-pi i n^2 / M), a = x w zero-padded to F and h
-//   = conj(w) wrapped; two FFTs of F (the inverse as the forward FFT of the
+//   exp(-2 pi i r (i%q) / (q R)) and a length-R DFT on the R inputs of a
+//   butterfly in registers; the twiddles come from tables computed in
+//   float64.  Where M has a prime factor above 5 (n_fft 802: M = 401; odd
+//   799 = 17 * 47) M's DFT runs as Bluestein's cyclic convolution of a
+//   2-3-5-smooth length F >= 2M - 1: X[k] = w[k] (a * h)[k] with the chirp
+//   w[n] = exp(-pi i n^2 / M), a = x w zero-padded to F and h = conj(w)
+//   wrapped; two FFTs of F (the inverse as the forward FFT of the
 //   conjugate) with the filter's spectrum FFT(h) / F from the plan's table.
-//   Passes ping-pong between the warp's two buffers with __syncwarp between
-//   them.
+//   So one path takes every M off the 2-3-5 rule, at O(F log F).  Passes
+//   ping-pong between the warp's two buffers with __syncwarp between them.
+// - The plan's radices are staged in shared memory once a block, and the
+//   kernel takes a budget of 128 registers (__maxnreg__): with the radices
+//   read from the kernel's parameter space in the stage loop, and the 64
+//   registers ptxas picks on its own (spilling), the kernel ran slower at
+//   every n_fft (PERF.md).
 // - X rounds to f32 and the power |X|^2 is f32 with no contraction
 //   (__fmul_rn, __fadd_rn), as the plain version rounds it, into the warp's
 //   free buffer.
@@ -93,13 +91,12 @@
 namespace {
 
 constexpr int WARPS = 8;              // most warps a block, one frame each at a time
-constexpr int THREADS = 32 * WARPS;   // 256
 constexpr int MEL_MAX = 256;          // widest mel bank taken
 constexpr int MAX_STAGES = 24;        // radix passes of the plan
 constexpr int SMEM_LIMIT = 232448;    // shared memory a block may opt into on Hopper
 
 // The Stockham passes of one complex FFT of length len (the product of the
-// radices); n_tables: complex values of their twiddle and root tables.
+// radices, each 2-5); n_tables: complex values of their twiddle tables.
 struct FftPlan {
   int n_stages, len, n_tables;
   int radix[MAX_STAGES];
@@ -183,76 +180,21 @@ __device__ __forceinline__ void fft_pass(const double2* __restrict__ in, double2
   }
 }
 
-// The generic Stockham pass of a prime radix R (>= 7, at run time): tw the
-// pass's p x (R-1) twiddles, then its R roots exp(-2 pi i j / R).  The
-// lanes twiddle the inputs in place (in is consumed by this pass), then
-// each output is a direct length-R DFT over them.  A lane's terms run as
-// four independent chains (r mod 4), each root stepped by w^(4 s) and
-// taken afresh from the table every 32 terms: one dependent chain a term
-// left the pass waiting on shared-memory and float64 latency.
-__device__ __noinline__ void fft_pass_prime(double2* __restrict__ in, double2* __restrict__ out,
-                                            int M, int p, int R, const double2* __restrict__ tw,
-                                            int lane) {
-  const int nb = M / R;
-  const double2* roots = tw + p * (R - 1);
-  for (int idx = lane + nb; idx < M; idx += 32) {  // input i + r*nb, r >= 1
-    const int r = idx / nb, i = idx - r * nb;
-    in[idx] = cmul(in[idx], __ldg(tw + (i % p) * (R - 1) + r - 1));
-  }
-  __syncwarp();
-  for (int idx = lane; idx < M; idx += 32) {  // output s of butterfly i
-    const int s = idx / nb, i = idx - s * nb;
-    const int k = i % p;
-    const int s4 = (4 * s) % R;
-    const double2 ws4 = __ldg(roots + s4);
-    double2 acc[4] = {in[i], make_double2(0.0, 0.0), make_double2(0.0, 0.0),
-                      make_double2(0.0, 0.0)};
-    double2 w[4];
-    int e = s;  // (r * s) mod R
-    int r = 1;
-    for (; r + 3 < R; r += 4) {
-      if (((r - 1) & 31) == 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = __ldg(roots + (e + j * s) % R);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const double2 v = in[i + (r + j) * nb];
-        acc[j].x = fma(v.x, w[j].x, fma(-v.y, w[j].y, acc[j].x));
-        acc[j].y = fma(v.x, w[j].y, fma(v.y, w[j].x, acc[j].y));
-        w[j] = cmul(w[j], ws4);
-      }
-      e += s4;
-      if (e >= R) e -= R;
-    }
-    for (; r < R; ++r) {
-      const double2 v = in[i + r * nb], wr = __ldg(roots + e);
-      acc[0].x = fma(v.x, wr.x, fma(-v.y, wr.y, acc[0].x));
-      acc[0].y = fma(v.x, wr.y, fma(v.y, wr.x, acc[0].y));
-      e += s;
-      if (e >= R) e -= R;
-    }
-    out[(i - k) * R + k + s * p] = cadd(cadd(acc[0], acc[1]), cadd(acc[2], acc[3]));
-  }
-}
-
 // The plan's passes over a warp's two buffers, __syncwarp after each;
 // returns the buffer that holds the result.
-__device__ double2* stockham(double2* src, double2* dst, const FftPlan& plan,
-                             const double2* __restrict__ twiddles, int lane) {
-  const int F = plan.len;
+__device__ double2* stockham(double2* src, double2* dst, const int* radix, int n_stages,
+                             int F, const double2* __restrict__ twiddles, int lane) {
   const double2* twp = twiddles;
   int p = 1;
-  for (int s = 0; s < plan.n_stages; ++s) {
-    const int r = plan.radix[s];
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radix[s];
     switch (r) {
       case 4: fft_pass<4>(src, dst, F, p, twp, lane); break;
       case 2: fft_pass<2>(src, dst, F, p, twp, lane); break;
       case 5: fft_pass<5>(src, dst, F, p, twp, lane); break;
       case 3: fft_pass<3>(src, dst, F, p, twp, lane); break;
-      default: fft_pass_prime(src, dst, F, p, r, twp, lane); break;
     }
-    twp += p * (r - 1) + (r > 5 ? r : 0);  // the generic pass's roots follow its twiddles
+    twp += p * (r - 1);
     p *= r;
     double2* sw = src; src = dst; dst = sw;
     __syncwarp();
@@ -266,16 +208,17 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(
 // n_fft, n_fft itself for an odd one
 __host__ __device__ inline int fft_len(int n_fft) { return n_fft % 2 ? n_fft : n_fft / 2; }
 
-// shared memory, in bytes: the segment of tf frames, the window and two
+// shared memory, in bytes: the segment of tf frames, the window, two
 // buffers of F complex float64 values (F the plan's length) for each of wp
-// warps
+// warps, and the plan's radices
 struct MelLayout {
-  size_t seg, win, buf, total;
+  size_t seg, win, buf, rad, total;
   __host__ __device__ MelLayout(int n_fft, int hop, int F, int tf, int wp) {
     seg = 0;
     win = align16(seg + ((size_t)(tf - 1) * hop + n_fft) * 4);
     buf = align16(win + (size_t)n_fft * 4);
-    total = align16(buf + (size_t)wp * 2 * F * 16);
+    rad = align16(buf + (size_t)wp * 2 * F * 16);
+    total = align16(rad + (size_t)MAX_STAGES * 4);
   }
 };
 
@@ -297,7 +240,7 @@ struct MelConfig {
   }
 };
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __maxnreg__(128)
 mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
                const float* __restrict__ window,    // (n_fft,)
                const double2* __restrict__ twiddles,  // (n_tw,) complex float64
@@ -312,6 +255,7 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
   const MelLayout lay(n_fft, hop, F, tf, wp);
   float* seg = reinterpret_cast<float*>(smem + lay.seg);
   float* win = reinterpret_cast<float*>(smem + lay.win);
+  int* radix = reinterpret_cast<int*>(smem + lay.rad);
   const bool odd = n_fft % 2;
   const int M = fft_len(n_fft);
   const bool blue = F != M;  // Bluestein: M's DFT as a cyclic convolution of length F
@@ -332,6 +276,7 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
   const long long avail = (long long)L - (long long)t0 * hop;
   for (int i = tid; i < seg_len; i += nthreads) seg[i] = i < avail ? wave[base + i] : 0.f;
   for (int i = tid; i < n_fft; i += nthreads) win[i] = window[i];
+  if (tid < plan.n_stages) radix[tid] = plan.radix[tid];
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
@@ -368,7 +313,7 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
       buf0[n] = z;
     }
     __syncwarp();
-    double2* src = stockham(buf0, buf1, plan, twiddles, lane);
+    double2* src = stockham(buf0, buf1, radix, plan.n_stages, F, twiddles, lane);
     if (blue) {
       // times the filter's spectrum, then the inverse FFT as the forward one
       // of the conjugate: Z[k] = w[k] conj(FFT(conj(A Hf)))[k] for k < M
@@ -377,7 +322,8 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
         src[k] = make_double2(v.x, -v.y);
       }
       __syncwarp();
-      src = stockham(src, src == buf0 ? buf1 : buf0, plan, twiddles, lane);
+      src = stockham(src, src == buf0 ? buf1 : buf0, radix, plan.n_stages, F, twiddles,
+                     lane);
       for (int k = lane; k < M; k += 32) {
         const double2 v = src[k];
         src[k] = cmul(__ldg(chirp + k), make_double2(v.x, -v.y));
@@ -682,28 +628,20 @@ const char* sept_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // Widest mel bank the kernel takes; the wrapper refuses wider ones.
 int sept_mel_db_max_mels() { return MEL_MAX; }
 
-// Shared memory one block needs; the wrapper refuses shapes above the
-// card's per-block limit before launching.
-// Shared memory and block shape {frames, warps} for (n_fft, hop) and a plan
-// of length F (the product of its radices).
+// Shared memory one block needs for (n_fft, hop) and a plan of length F
+// (the product of its radices); the wrapper refuses shapes above the card's
+// per-block limit before launching.
 long long sept_mel_db_smem_bytes(int n_fft, int hop, int F) {
   return (long long)MelConfig(n_fft, hop, F).lay.total;
 }
 
-void sept_mel_db_block(int n_fft, int hop, int F, int* out2) {
-  const MelConfig cfg(n_fft, hop, F);
-  out2[0] = cfg.tf;
-  out2[1] = cfg.wp;
-}
-
 // wave (B, L) f32; window (n_fft,) f32; twiddles (n_tw,) complex float64:
-// each pass's p x (R-1) table in the plan's order (a pass of a prime R > 5
-// followed by its R roots), then, for an even n_fft, exp(-2 pi i k / n_fft)
-// for k = 0..n_fft/4, then for Bluestein the chirp (M values) and the
-// filter's spectrum (F values); bank_idx (3, n_mels) int32 (first bin, bin
-// count, offset into bank_w); radices (n_stages,) on the host, whose
-// product F is M = n_fft / 2 (even n_fft) or n_fft (odd), or, for
-// Bluestein, at least 2M - 1; out (B, T, n_mels) f32.
+// each pass's p x (R-1) table in the plan's order, then, for an even n_fft,
+// exp(-2 pi i k / n_fft) for k = 0..n_fft/4, then for Bluestein the chirp
+// (M values) and the filter's spectrum (F values); bank_idx (3, n_mels)
+// int32 (first bin, bin count, offset into bank_w); radices (n_stages,) on
+// the host, each 2-5, whose product F is M = n_fft / 2 (even n_fft) or
+// n_fft (odd), or, for Bluestein, at least 2M - 1; out (B, T, n_mels) f32.
 int sept_mel_db(const float* wave, const float* window, const double* twiddles,
                 const int* bank_idx, const float* bank_w, float* out, int B, int L, int T,
                 int n_fft, int hop, int n_mels, int n_tw, const int* radices, int n_stages,
@@ -716,9 +654,9 @@ int sept_mel_db(const float* wave, const float* window, const double* twiddles,
   long long prod = 1, n_tables = 0;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
-    if (r < 2 || r > 2 * n_fft) return (int)cudaErrorInvalidValue;
+    if (r < 2 || r > 5) return (int)cudaErrorInvalidValue;
     plan.radix[s] = r;
-    n_tables += prod * (r - 1) + (r > 5 ? r : 0);
+    n_tables += prod * (r - 1);
     prod *= r;
   }
   const long long M = fft_len(n_fft);

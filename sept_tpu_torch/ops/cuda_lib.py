@@ -41,7 +41,6 @@ _SIGNATURES = {
         "sept_mel_db": ([_P] * 6 + [_I] * 7 + [_P, _I, _P], _I),
         "sept_mel_db_max_mels": ([], _I),
         "sept_mel_db_smem_bytes": ([_I] * 3, _LL),
-        "sept_mel_db_block": ([_I] * 3 + [_P], None),
         "sept_mel_bf16_geometry": ([_P], None),
         "sept_mel_bf16_smem_bytes": ([_I] * 2, _LL),
         "sept_mel_db_bf16": ([_P] * 5 + [_I] * 6 + [_P], _I),

@@ -10,16 +10,14 @@ input raises.
 
 The f32 kernel is FFT-structured, one launch a call: a real FFT of n_fft (a
 complex FFT of M = n_fft / 2 for an even n_fft, of M = n_fft for an odd one)
-in radix-4, 2, 5 and 3 Stockham passes and a direct generic pass per other
-prime factor up to 31 -- or, where M has a larger prime factor, Bluestein's
-convolution of a 2-3-5-smooth length -- in float64, then the f32 power and
-the sparse mel bank.  It takes
-any n_fft >= 2 (:func:`fft_radices` refuses smaller ones before a launch);
-only a shape whose buffers do not fit a block of one warp raises, by its
-shared memory.  :func:`fft_plan`
-(radices and float64 twiddles) and :func:`sparse_bank` (each band's first
-bin, bin count and weights) are the kernel's tables, built once per (n_fft,
-device).
+in radix-4, 2, 5 and 3 Stockham passes -- or, where M has a prime factor
+above 5, Bluestein's convolution of a 2-3-5-smooth length in those passes --
+in float64, then the f32 power and the sparse mel bank.  It takes any n_fft
+>= 2 (:func:`fft_radices` refuses smaller ones before a launch); only a
+shape whose buffers do not fit a block of one warp raises, by its shared
+memory.  :func:`fft_plan` (radices and float64 twiddles) and
+:func:`sparse_bank` (each band's first bin, bin count and weights) are the
+kernel's tables, built once per (n_fft, device).
 """
 
 from __future__ import annotations
@@ -34,11 +32,10 @@ from sept_tpu_torch.ops import cuda_lib
 from sept_tpu_torch.ops import frontend as F
 
 __all__ = ["mel_db", "mel_db_bf16", "mel_db_plain", "fft_length", "bluestein_length",
-           "fft_radices", "fft_plan", "sparse_bank", "AMIN", "DIRECT_PRIME_MAX"]
+           "fft_radices", "fft_plan", "sparse_bank", "AMIN"]
 
 AMIN = 1e-10  # the AmplitudeToDB power clamp
 _RADICES = (4, 2, 5, 3)  # the kernel's Stockham passes, in the order they run
-DIRECT_PRIME_MAX = 31  # largest prime factor the kernel's direct generic pass takes
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,55 +81,45 @@ def fft_length(n_fft: int) -> int:
     return n_fft if n_fft % 2 else n_fft // 2
 
 
-def _factors(m: int) -> list[int]:
-    """m's passes: as many radix-4 as divide it, then 2, 5, 3, then each
-    other prime factor in ascending order."""
+def _passes(m: int) -> tuple[list[int], int]:
+    """m's passes -- as many radix-4 as divide it, then 2, 5, 3 -- and the
+    part of m they leave (1 where m is 2-3-5-smooth)."""
     out = []
     for r in _RADICES:
         while m % r == 0:
             out.append(r)
             m //= r
-    p = 7
-    while m > 1:
-        while m % p == 0:
-            out.append(p)
-            m //= p
-        p += 2
-    return out
+    return out, m
 
 
 def bluestein_length(n_fft: int) -> int:
-    """0 where the kernel runs M's own passes; else the length of the
-    cyclic convolution that computes M's DFT (Bluestein): the least
-    2-3-5-smooth length >= 2M - 1.  Taken where M has a prime factor above
-    DIRECT_PRIME_MAX, whose direct pass would cost more than the three FFTs
-    of the convolution."""
+    """0 where M (:func:`fft_length`) is 2-3-5-smooth and the kernel runs its
+    own passes; else the length of the cyclic convolution that computes M's
+    DFT (Bluestein): the least 2-3-5-smooth length >= 2M - 1."""
     m = fft_length(n_fft)
-    if max(_factors(m), default=1) <= DIRECT_PRIME_MAX:
+    if _passes(m)[1] == 1:
         return 0
     n = 2 * m - 1
-    while max(_factors(n)) > 5:
+    while _passes(n)[1] != 1:
         n += 1
     return n
 
 
 def fft_radices(n_fft: int) -> tuple[int, ...]:
-    """The f32 kernel's Stockham passes: of M (:func:`fft_length`) -- radix
-    4, 2, 5 and 3, then a generic pass for each other prime factor, at most
-    DIRECT_PRIME_MAX -- or, where M has a larger prime factor, of the
-    Bluestein length (:func:`bluestein_length`), in radices 4, 2, 5 and 3
-    only.  Raises ``ValueError`` for n_fft < 2."""
+    """The f32 kernel's Stockham passes, radix 4, 2, 5 and 3 in that order:
+    of M (:func:`fft_length`), or, where M has a prime factor above 5, of
+    the Bluestein length (:func:`bluestein_length`).  Raises ``ValueError``
+    for n_fft < 2."""
     if n_fft < 2:
         raise ValueError(f"mel_db: n_fft must be >= 2, got {n_fft}")
-    return tuple(_factors(bluestein_length(n_fft) or fft_length(n_fft)))
+    return tuple(_passes(bluestein_length(n_fft) or fft_length(n_fft))[0])
 
 
 def fft_plan(n_fft: int) -> tuple[tuple[int, ...], np.ndarray]:
     """(radices, tables) of the f32 kernel's FFT, complex128 as the kernel
     takes them: for each pass of radix R over p combined points, exp(-2 pi
-    i r k / (p R)) for k < p, r = 1..R-1 (k major), and for a prime R > 5
-    then its R roots exp(-2 pi i j / R); for an even n_fft the split
-    post-pass's exp(-2 pi i k / n_fft) for k = 0..n_fft/4; for Bluestein
+    i r k / (p R)) for k < p, r = 1..R-1 (k major); for an even n_fft the
+    split post-pass's exp(-2 pi i k / n_fft) for k = 0..n_fft/4; for Bluestein
     (length F) last the chirp w[n] = exp(-pi i n^2 / M) for n < M and the
     spectrum of the wrapped filter conj(w), FFT_F(h) / F."""
     radices = fft_radices(n_fft)
@@ -140,8 +127,6 @@ def fft_plan(n_fft: int) -> tuple[tuple[int, ...], np.ndarray]:
     for r in radices:
         k, rr = np.arange(p)[:, None], np.arange(1, r)[None, :]
         parts.append(np.exp(-2j * np.pi * k * rr / (p * r)).ravel())
-        if r > 5:
-            parts.append(np.exp(-2j * np.pi * np.arange(r) / r))
         p *= r
     if n_fft % 2 == 0:
         parts.append(np.exp(-2j * np.pi * np.arange(n_fft // 4 + 1) / n_fft))

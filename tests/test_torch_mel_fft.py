@@ -6,10 +6,9 @@ The CUDA kernel runs only on the card.  What it computes is restated here in
 torch, step for step: the windowed frame packed as z[n] = x[2n] + i x[2n+1]
 in float64, the plan's Stockham passes (input i + r*M/R of a radix-R pass
 over p combined points, twiddled by the plan's exp(-2 pi i r (i%p) / (p R)),
-goes through a length-R DFT to output (i - i%p)*R + i%p + s*p; for a prime
-R above 5 the DFT reads the plan's table of roots, as the kernel's generic
-pass does; where M has a prime factor above 31, Bluestein's convolution
-over the plan's chirp and filter tables) and the split post-pass for bins
+goes through a length-R DFT to output (i - i%p)*R + i%p + s*p; where M has a
+prime factor above 5, Bluestein's convolution over the plan's chirp and
+filter tables) and the split post-pass for bins
 0..n_fft/2 in float64 (for an odd n_fft: frames 2j and 2j + 1 as the real
 and imaginary parts of one complex FFT of n_fft, split after it),
 then X rounded to f32, the f32 power, and each band's bins summed in
@@ -69,11 +68,17 @@ def assert_within(ours, ref, truth, tol=1e-3):
     assert (e <= r + tol).all(), (e, r)
 
 
+def _smooth(n):
+    """n has no prime factor above 5."""
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
 def _stockham(z, radices, tw):
     """The plan's passes over the last axis of ``z`` (complex), as the
-    kernel runs them: fft_pass for radices 2-5, the generic pass (a direct
-    DFT over the plan's table of roots) for a prime above 5; returns (Z,
-    table entries used)."""
+    kernel's fft_pass runs them; returns (Z, table entries used)."""
     m = z.shape[-1]
     p, off = 1, 0
     for r in radices:
@@ -84,17 +89,13 @@ def _stockham(z, radices, tw):
         t = tw[off:off + p * (r - 1)].reshape(p, r - 1)[k].T
         u = torch.cat([u[:1], u[1:] * t.reshape((r - 1,) + (1,) * (z.dim() - 1) + (nb,))])
         s = torch.arange(r)
-        if r > 5:  # the roots stored after the pass's twiddles, w[(r s) mod R]
-            roots = tw[off + p * (r - 1):off + p * (r - 1) + r]
-            omega = roots[torch.outer(s, s) % r].to(z.dtype)
-        else:
-            omega = torch.exp(-2j * torch.pi * torch.outer(s, s).to(torch.float64) / r).to(z.dtype)
+        omega = torch.exp(-2j * torch.pi * torch.outer(s, s).to(torch.float64) / r).to(z.dtype)
         v = torch.einsum("sr,r...->s...", omega, u)
         out = torch.empty_like(z)
         j = (i - k) * r + k
         for q in range(r):
             out[..., j + q * p] = v[q]
-        z, off, p = out, off + p * (r - 1) + (r if r > 5 else 0), p * r
+        z, off, p = out, off + p * (r - 1), p * r
     return z, off
 
 
@@ -178,25 +179,23 @@ def test_fft_radices_refuse_n_fft_outside_the_rule(n_fft):
         M.fft_radices(n_fft)
 
 
-# n_fft off the 2-3-5 rule: direct generic passes for primes up to 31 (a
-# prime odd n_fft 7, 14, 858 = 2 * 3 * 11 * 13, odd 1001 = 7 * 11 * 13);
-# Bluestein where M has a larger prime factor (prime halves 802 and 2042,
-# 402 = 2 * 3 * 67, 1022 = 2 * 7 * 73, odd 799 = 17 * 47 and 2047 = 23 * 89,
-# the largest buffers); and 2048 (4 warps a block)
+# n_fft off the 2-3-5 rule, each through Bluestein: prime halves 802 and
+# 2042, 402 = 2 * 3 * 67, 1022 = 2 * 7 * 73, 14 and 858 = 2 * 3 * 11 * 13,
+# odd 7, 799 = 17 * 47, 1001 = 7 * 11 * 13 and 2047 = 23 * 89 (the largest
+# buffers); and 2048 (radix 4 only, 4 warps a block)
 @pytest.mark.parametrize("n_fft", [802, 402, 14, 7, 799, 1022, 2042, 2048, 858, 1001, 2047])
 def test_any_n_fft_plans_and_restates(rng, n_fft):
     hop = 160
     radices, tw = M.fft_plan(n_fft)
     m, f = M.fft_length(n_fft), M.bluestein_length(n_fft)
     assert m == (n_fft if n_fft % 2 else n_fft // 2)
-    if f:  # a prime factor above the direct pass's: Bluestein's smooth length
-        assert max(M._factors(m)) > M.DIRECT_PRIME_MAX
-        assert f >= 2 * m - 1 and set(radices) <= {2, 3, 4, 5}
+    assert bool(f) == (n_fft != 2048)  # M off the 2-3-5 rule: Bluestein's smooth length
+    if f:
+        assert 2 * m - 1 <= f < 4 * m
+        assert _smooth(f) and not any(_smooth(n) for n in range(2 * m - 1, f))  # the least
     assert int(np.prod(radices)) == (f or m)
-    small = [r for r in radices if r <= 5]
-    assert small == sorted(small, key=(4, 2, 5, 3).index)
-    assert radices == tuple(small) + tuple(sorted(r for r in radices if r > 5))
-    assert all(r <= M.DIRECT_PRIME_MAX for r in radices)
+    assert set(radices) <= {2, 3, 4, 5}
+    assert list(radices) == sorted(radices, key=(4, 2, 5, 3).index)
     padded = _padded(rng, (3000,), n_fft)
     t = (padded.shape[1] - n_fft) // hop + 1
     frames = (padded.astype(np.float64)[0, np.arange(t)[:, None] * hop + np.arange(n_fft)]
