@@ -92,9 +92,12 @@ and read just after; each kernel the path must use has to have launched
                at hop 160 on 64 rows of 401 frames, each launching, timed
                beside its plain version); the bf16 mel
                (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
-               waves and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
-               of 64 utterances at bucket 64000, then at n_fft 400 / 1600 and
-               ragged row counts; the bf16 modes of K1-K5 on a bf16 baseline
+               waves, beside the f32 kernel on them and with a second bound
+               (bound_mma_ms: its dense products at the bf16 tensor-core
+               rate), and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
+               of 64 utterances at bucket 64000, then the bf16 mel at n_fft
+               400 / 1600, one frame, n_fft 799 and 2048, n_mels 256 and 80
+               (BF16_MEL_EDGES), floor + DCT at ragged row counts; the bf16 modes of K1-K5 on a bf16 baseline
                step's tensors (conv output within one bf16 unit and
                bit-equal in 99.9% of the elements, moments 1e-5 of the sums
                of |terms|, pooled and dy equal, K4 and K5 as in f32), timed
@@ -189,6 +192,13 @@ N_INGEST, INGEST_P99, INGEST_BENCH_P99 = 1024, 0.05, 0.07
 # a band of one frequency bin reaches; 1e-4 dB more for the f32 sums and log
 BF16_MAX, BF16_P99 = 10 * np.log10(1 + 2.0 ** -7) + 1e-4, 1e-3
 FLOOR_DCT_RTOL = 1e-5  # of max |plain|: two f32 sums of 128 terms
+# the bf16 mel kernel's edges (rows, n_fft, hop, frames, n_mels): ragged
+# frame tiles at n_fft 400 / hop 200 and 1600, one frame, an odd n_fft, the
+# largest n_fft (frame tile built slab by slab), two mel passes (256) and a
+# bank narrower than one (80)
+BF16_MEL_EDGES = ((3, 400, 200, 70, 128), (2, 1600, 160, 37, 128), (1, 800, 160, 1, 128),
+                  (2, 799, 160, 90, 128), (2, 2048, 160, 50, 128), (2, 800, 160, 100, 256),
+                  (2, 800, 160, 100, 80))
 
 
 def log(msg):
@@ -1783,9 +1793,14 @@ def featurize_kernel_phase(padded, chunk, launches):
                 "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(lib),
                 "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)})
-        kernels[0].update({"p99_abs_err": mel_p99, "f32_kernel_ms_same_input": cuda_ms(
-                               lambda: M.mel_db(x, t, N_FFT, HOP, N_MELS), iters=5),
-                           "bound_counts": "rFFT 2.5 n log2 n + sparse mel bank",
+        f32_kernel = lambda: M.mel_db(x, t, N_FFT, HOP, N_MELS)  # noqa: E731
+        kernels[0].update({"p99_abs_err": mel_p99,
+                           "f32_kernel_ms_same_input": cuda_ms(f32_kernel, iters=5),
+                           "f32_kernel_device_ms_same_input": device_ms(f32_kernel, iters=5),
+                           "bound_mma_ms": mel_bound_mma(bsz * t, N_FFT),
+                           "bound_counts": "rFFT 2.5 n log2 n + sparse mel bank; "
+                                           "bound_mma_ms: the dense products its bf16 "
+                                           "tables fix, at the bf16 tensor-core peak",
                            "library": "torch.stft + matmul + log10 (f32)",
                            "shape": [bsz, length, t]})
         kernels[1].update({"max_rel_err_of_max_abs": fd_rel, "shape": [rows, n_mels, 40],
@@ -1814,6 +1829,14 @@ def mel_bound(bsz, length, frames, n_fft, n_mels=N_MELS):
     return bound(frames * (2.5 * n_fft * np.log2(n_fft) + n_fft + 3 * (n_fft // 2 + 1)
                            + 2 * fb_nnz + n_mels),
                  4.0 * (bsz * length + n_fft + fb_nnz + frames * n_mels))
+
+
+def mel_bound_mma(frames, n_fft, n_mels=N_MELS):
+    """The least time of the bf16 mel kernel's own work: the dense DFT and
+    mel products its bf16 tables fix (2 n_freq n_fft + n_freq n_mels
+    multiply-adds a frame), at the card's dense bf16 tensor-core rate, ms."""
+    n_freq = n_fft // 2 + 1
+    return frames * 2.0 * (2 * n_freq * n_fft + n_freq * n_mels) / PEAK_BF16_FLOPS * 1e3
 
 
 def mel_featurize_phase(chunk):
@@ -1857,19 +1880,18 @@ def mel_featurize_phase(chunk):
 
 
 def featurize_edge_phase(device):
-    """Both kernels at shapes off the main path: the bf16 mel at n_fft 400 /
-    hop 200 and n_fft 1600 with ragged frame tiles, floor + DCT at a ragged
-    row count and one row."""
+    """Both kernels at shapes off the main path: the bf16 mel at
+    BF16_MEL_EDGES, floor + DCT at a ragged row count and one row."""
     from sept_tpu_torch.ops import mel as M
     from sept_tpu_torch.ops import mfcc as MF
 
     g = torch.Generator(device=device).manual_seed(SEED + 13)
     worst = {"mel_db_bf16": 0.0, "mel_db_bf16_p99": 0.0, "floor_dct_rel": 0.0}
     with torch.inference_mode():
-        for b, n_fft, hop, t in ((3, 400, 200, 70), (2, 1600, 160, 37), (1, 800, 160, 1)):
+        for b, n_fft, hop, t, n_mels in BF16_MEL_EDGES:
             x = 0.3 * torch.randn(b, (t - 1) * hop + n_fft + 33, device=device, generator=g)
-            mx, p99 = bf16_mel_errors(M.mel_db_bf16(x, t, n_fft, hop, N_MELS),
-                                      M.mel_db_plain(x, t, n_fft, hop, N_MELS, bf16=True))
+            mx, p99 = bf16_mel_errors(M.mel_db_bf16(x, t, n_fft, hop, n_mels),
+                                      M.mel_db_plain(x, t, n_fft, hop, n_mels, bf16=True))
             worst["mel_db_bf16"] = max(worst["mel_db_bf16"], mx)
             worst["mel_db_bf16_p99"] = max(worst["mel_db_bf16_p99"], p99)
         dct = MF.dct_basis(40, 128, torch.device(device))
@@ -1967,6 +1989,8 @@ def main():
     for k in kernels:
         if isinstance(k["device_ms"], float):
             k["bound_share_of_device_ms"] = k["bound_ms"] / k["device_ms"]
+            if "bound_mma_ms" in k:
+                k["bound_mma_share_of_device_ms"] = k["bound_mma_ms"] / k["device_ms"]
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s; shapes {shapes}")
     edges = edge_phase(gpu.device)
     kernels[0]["any_n_fft"] = edges.pop("mel_db_any_n_fft")

@@ -74,9 +74,19 @@
 //   plain version bit for bit.  K3 recomputes z with the same rounding, and
 //   K4 and K5 compute dconv in the plain version's order, uncontracted, so
 //   that the bf16 rounding of dconv sees the plain version's f32 value.
-// - K3 is one thread per 2x2 cell; neighbouring threads read neighbouring
-//   pixel pairs.  Cells past the pooled grid (odd H or W, floored as K2
-//   floors them) write dy = 0.
+// - K3 takes runs of 8 adjacent 2x2 cells a thread where W is a multiple
+//   of 16: y's two rows and dp as 16-byte loads, dy as 16-byte stores, the
+//   next run's loads issued before the current one is routed; one block a
+//   band of cell rows of one (item, channel), sized so that the threads'
+//   slots are nearly all used, so one partial-sum slot a band (in bf16 one
+//   a plane at 200 x 128, where the first design, one thread a cell, wrote
+//   25; in f32, with twice the bytes a run, 7 smaller bands a plane ran
+//   faster on the H100).  What
+//   bounded that design in bf16: instructions and latency, not bytes (2-byte
+//   scalar loads, 25,600 blocks at (32, 32, 200, 128), each ending in a
+//   block reduction): it ran no faster than in f32.  Other widths go one
+//   cell a thread, as that design did.  Cells past the pooled grid (odd H
+//   or W, floored as K2 floors them) write dy = 0.
 // - K4 accumulates over a block's whole pixel range before it reduces.  A
 //   block takes one slot and a group of channels, and stages x with its zero
 //   halo in shared memory once.
@@ -577,6 +587,105 @@ norm_pool_kernel(const T* __restrict__ y,          // (B, C, H, W)
 // ---------------------------------------------------------------------------
 // K3
 
+// One block per (item, channel, band of cell rows); a cell is a 2x2 window
+// of y (cells past the pooled grid, odd H or W, route nothing and write dy
+// = 0).  Vector path (W a multiple of 2 * run, 16-byte aligned tensors):
+// a thread takes a run of adjacent cells of one cell row, 8 in bf16 and 4
+// in f32 (16 bytes of dp) -- y's two rows as two 16-byte loads each, dp as
+// one, dy stored the same way -- and loads its next run before it routes
+// the current one.  Per-cell path (any other width): one cell at a time, as
+// K3's first design did.  A thread sums its runs in f32; the block reduces
+// once and writes one slot of partial sums (rows sum dy, then sum dy *
+// xhat, per channel) for reduce_partials_kernel.
+template <typename T> __host__ __device__ constexpr int run_of() { return 16 / (int)sizeof(T); }  // cells a run
+// runs (or cells) a band, at most: a plane a block in bf16 at 200 x 128;
+// the f32 mode, with twice the bytes a run, ran faster in smaller blocks
+// (8 a plane there) on the H100
+template <typename T> constexpr int band_max() { return sizeof(T) == 2 ? 1024 : 256; }
+
+// the block geometry of K3: bands of cell rows as even as the cell rows
+// allow, each at most band_max runs (cells), and the thread count (a
+// multiple of 32, 64-256) that leaves the fewest idle slots for a band
+struct K3Geometry {
+  bool vec;
+  int Hc, Wc, per_row, bands, rows, threads;
+  K3Geometry(int H, int W, bool aligned, int run, int band_max) {
+    vec = aligned && W % (2 * run) == 0;
+    Hc = (H + 1) / 2;
+    Wc = (W + 1) / 2;
+    per_row = vec ? Wc / run : Wc;
+    const long long items = (long long)Hc * per_row;
+    bands = (int)std::max(1LL, std::min((long long)Hc, (items + band_max - 1) / band_max));
+    rows = (Hc + bands - 1) / bands;
+    bands = (Hc + rows - 1) / rows;
+    const int per_band = rows * per_row;
+    threads = 256;
+    long long best = -1;
+    for (int it = std::max(1, (per_band + 255) / 256); it <= std::max(1, (per_band + 63) / 64);
+         ++it) {
+      const int t = std::max(64, ((per_band + it - 1) / it + 31) / 32 * 32);
+      const long long waste = (long long)it * t - per_band;
+      if (best < 0 || waste < best) { best = waste; threads = t; }
+    }
+  }
+};
+
+// raw 16-byte words as stored values (4 f32 or 8 bf16), and back
+__device__ __forceinline__ void unpack16(const uint4& q, float* v) {  // f32
+  v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack16_bf16(const uint4& q, float* v) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const uint4* q, float* v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (sizeof(T) == 4) unpack16(q[i], v + 4 * i);
+    else unpack16_bf16(q[i], v + 8 * i);
+  }
+}
+__device__ __forceinline__ uint4 pack16(const float* v) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack16_bf16(const float* v) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the first maximum of a cell's relu(bn), rounded as K2 stores it, in
+// row-major order (max_pool2d's choice; rounding makes ties common in
+// bf16), takes d where its bn is > 0; v: the cell's four y, g: its dy
+template <typename T>
+__device__ __forceinline__ void route_cell(const float* v, float d, float a, float sh,
+                                           float* g) {
+  float bn[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) bn[k] = bn_affine(v[k], a, sh);
+  int best = 0;
+  float m = rnd<T>(fmaxf(bn[0], 0.f));
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const float z = rnd<T>(fmaxf(bn[k], 0.f));
+    if (z > m) { m = z; best = k; }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) g[k] = k == best && bn[k] > 0.f ? d : 0.f;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 route_kernel(const T* __restrict__ y,           // (B, C, H, W)
@@ -586,57 +695,111 @@ route_kernel(const T* __restrict__ y,           // (B, C, H, W)
              const float* __restrict__ mean,    // (C,)
              const float* __restrict__ inv,     // (C,)
              T* __restrict__ dy,                // (B, C, H, W)
-             float* __restrict__ partials,      // (2, C, B * tiles)
-             int C, int H, int W, int tiles) {
+             float* __restrict__ partials,      // (2, C, B * bands)
+             int C, int H, int W, int bands, int rows, int per_row, bool vec) {
   __shared__ float red[2][WARPS];
-  const long long blk = blockIdx.x;
-  const long long plane = blk / tiles;          // b * C + c
-  const int tile = (int)(blk % tiles);
+  const long long plane = blockIdx.x / bands;   // b * C + c
+  const int band = (int)(blockIdx.x % bands);
   const int c = (int)(plane % C);
   const long long b = plane / C;
   const int Ho = H / 2, Wo = W / 2, Hc = (H + 1) / 2, Wc = (W + 1) / 2;
-  const int cell = tile * THREADS + threadIdx.x;
+  const int i0 = band * rows, i1 = min(Hc, i0 + rows);
+  const int n_items = (i1 - i0) * per_row;
+  const T* yp = y + plane * H * W;
+  const T* dpp = dp + plane * Ho * Wo;
+  T* dyp = dy + plane * H * W;
+  const float a = __ldg(scale + c), sh = __ldg(shift + c);
+  const float mu = __ldg(mean + c), iv = __ldg(inv + c);
   float s1 = 0.f, s2 = 0.f;
-  if (cell < Hc * Wc) {
-    const int i = cell / Wc, j = cell % Wc;
-    const T* yp = y + plane * H * W;
-    T* dyp = dy + plane * H * W;
-    const float a = __ldg(scale + c), sh = __ldg(shift + c);
-    const float mu = __ldg(mean + c), iv = __ldg(inv + c);
-    float v[4], g[4];
-    bool in[4];
+  if (vec) {
+    // 16-byte words a run: y's two rows, dp; W is even here, so only a cell
+    // row past the pooled grid (odd H) is ragged: it routes nothing
+    constexpr int RUN = run_of<T>();
+    constexpr int YW = 2 * RUN * sizeof(T) / 16, DW = RUN * sizeof(T) / 16;
+    uint4 cy[2 * YW], cd[DW], ny[2 * YW], nd[DW];
+    auto fetch = [&](int r, uint4 (&qy)[2 * YW], uint4 (&qd)[DW]) {
+      const int i = i0 + r / per_row, j0 = (r % per_row) * RUN;
+      if (i < Ho) {
+        const uint4* p0 = reinterpret_cast<const uint4*>(yp + (long long)2 * i * W + 2 * j0);
+        const uint4* p1 = reinterpret_cast<const uint4*>(yp + (long long)(2 * i + 1) * W + 2 * j0);
+        const uint4* pd = reinterpret_cast<const uint4*>(dpp + (long long)i * Wo + j0);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int h = 2 * i + k / 2, w = 2 * j + k % 2;
-      in[k] = h < H && w < W;
-      v[k] = in[k] ? to_f(yp[(long long)h * W + w]) : 0.f;
-      g[k] = 0.f;
-    }
-    if (i < Ho && j < Wo) {
-      // first maximum of relu(bn), rounded as K2 stores it, in row-major
-      // order (max_pool2d's choice); rounding makes ties common in bf16
-      float bn[4];
+        for (int k = 0; k < YW; ++k) {
+          qy[k] = __ldg(p0 + k);
+          qy[YW + k] = __ldg(p1 + k);
+        }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) bn[k] = bn_affine(v[k], a, sh);
-      int best = 0;
-      float m = rnd<T>(fmaxf(bn[0], 0.f));
-#pragma unroll
-      for (int k = 1; k < 4; ++k) {
-        const float z = rnd<T>(fmaxf(bn[k], 0.f));
-        if (z > m) { m = z; best = k; }
+        for (int k = 0; k < DW; ++k) qd[k] = __ldg(pd + k);
       }
-      const float d = to_f(dp[(plane * Ho + i) * Wo + j]);
+    };
+    const int step = blockDim.x;
+    int r = threadIdx.x;
+    if (r < n_items) fetch(r, cy, cd);
+    for (; r < n_items; r += step) {
+      // the next run's loads are in flight while this one is routed
+      if (r + step < n_items) fetch(r + step, ny, nd);
+      const int i = i0 + r / per_row, j0 = (r % per_row) * RUN;
+      float out0[2 * RUN], out1[2 * RUN];
+      if (i < Ho) {
+        float y0[2 * RUN], y1[2 * RUN], d[RUN];
+        unpack<T, YW>(cy, y0);
+        unpack<T, YW>(cy + YW, y1);
+        unpack<T, DW>(cd, d);
+        float r1 = 0.f, r2 = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (k == best && bn[k] > 0.f) g[k] = d;
+        for (int j = 0; j < RUN; ++j) {
+          const float v[4] = {y0[2 * j], y0[2 * j + 1], y1[2 * j], y1[2 * j + 1]};
+          float g[4];
+          route_cell<T>(v, d[j], a, sh, g);
+          out0[2 * j] = g[0]; out0[2 * j + 1] = g[1];
+          out1[2 * j] = g[2]; out1[2 * j + 1] = g[3];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            r1 += g[k];
+            r2 += g[k] * ((v[k] - mu) * iv);
+          }
+        }
+        s1 += r1;
+        s2 += r2;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 2 * RUN; ++k) out0[k] = out1[k] = 0.f;
+      }
+      // exact: each value is 0 or a stored dp value
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (2 * i + h >= H) break;
+        uint4* q = reinterpret_cast<uint4*>(dyp + (long long)(2 * i + h) * W + 2 * j0);
+        const float* o = h ? out1 : out0;
+#pragma unroll
+        for (int k = 0; k < YW; ++k)
+          q[k] = sizeof(T) == 4 ? pack16(o + 4 * k) : pack16_bf16(o + 8 * k);
+      }
+#pragma unroll
+      for (int k = 0; k < 2 * YW; ++k) cy[k] = ny[k];
+#pragma unroll
+      for (int k = 0; k < DW; ++k) cd[k] = nd[k];
     }
+  } else {
+    for (int r = threadIdx.x; r < n_items; r += blockDim.x) {
+      const int i = i0 + r / Wc, j = r % Wc;
+      float v[4], g[4] = {0.f, 0.f, 0.f, 0.f};
+      bool in[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (in[k]) {
+      for (int k = 0; k < 4; ++k) {
         const int h = 2 * i + k / 2, w = 2 * j + k % 2;
-        dyp[(long long)h * W + w] = from_f<T>(g[k]);  // exact: g is 0 or a stored value
-        s1 += g[k];
-        s2 += g[k] * ((v[k] - mu) * iv);
+        in[k] = h < H && w < W;
+        v[k] = in[k] ? to_f(yp[(long long)h * W + w]) : 0.f;
+      }
+      if (i < Ho && j < Wo) route_cell<T>(v, to_f(dpp[(long long)i * Wo + j]), a, sh, g);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (in[k]) {
+          const int h = 2 * i + k / 2, w = 2 * j + k % 2;
+          dyp[(long long)h * W + w] = from_f<T>(g[k]);  // exact: g is 0 or a stored value
+          s1 += g[k];
+          s2 += g[k] * ((v[k] - mu) * iv);
+        }
       }
     }
   }
@@ -647,9 +810,9 @@ route_kernel(const T* __restrict__ y,           // (B, C, H, W)
   __syncthreads();
   if (threadIdx.x < 2) {
     float v = 0.f;
-    for (int g = 0; g < WARPS; ++g) v += red[threadIdx.x][g];
-    const long long n_slots = gridDim.x / C;   // B * tiles
-    const long long slot = b * tiles + tile;
+    for (int g = 0; g < (int)(blockDim.x >> 5); ++g) v += red[threadIdx.x][g];
+    const long long n_slots = gridDim.x / C;   // B * bands
+    const long long slot = b * bands + band;
     partials[((long long)threadIdx.x * C + c) * n_slots + slot] = v;
   }
 }
@@ -1294,25 +1457,33 @@ int norm_pool(const T* y, const float* scale, const float* shift, T* out, int B,
   return (int)cudaGetLastError();
 }
 
+// K3's scratch: one slot of partial sums a block, for either path (the
+// vector path needs 16-byte aligned tensors, known only at the launch)
 long long route_scratch_floats(int B, int C, int H, int W) {
-  const long long cells = (long long)((H + 1) / 2) * ((W + 1) / 2);
-  return 2LL * C * B * ((cells + THREADS - 1) / THREADS);
+  int bands = 0;
+  for (bool aligned : {true, false}) {
+    bands = std::max(bands, K3Geometry(H, W, aligned, run_of<float>(), band_max<float>()).bands);
+    bands = std::max(bands, K3Geometry(H, W, aligned, run_of<bf16>(), band_max<bf16>()).bands);
+  }
+  return 2LL * C * B * bands;
 }
 
 template <typename T>
 int route(const T* y, const T* dp, const float* scale, const float* shift, const float* mean,
           const float* inv, T* dy, float* sums, float* scratch, int B, int C, int H, int W,
           void* stream) {
-  const long long cells = (long long)((H + 1) / 2) * ((W + 1) / 2);
-  const int tiles = (int)((cells + THREADS - 1) / THREADS);
-  const long long n_blocks = (long long)B * C * tiles;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(dp) |
+                         reinterpret_cast<uintptr_t>(dy)) & 15) == 0;
+  const K3Geometry geo(H, W, aligned, run_of<T>(), band_max<T>());
+  const long long n_blocks = (long long)B * C * geo.bands;
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  route_kernel<T><<<(unsigned)n_blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      y, dp, scale, shift, mean, inv, dy, scratch, C, H, W, tiles);
+  route_kernel<T><<<(unsigned)n_blocks, geo.threads, 0, (cudaStream_t)stream>>>(
+      y, dp, scale, shift, mean, inv, dy, scratch, C, H, W, geo.bands, geo.rows, geo.per_row,
+      geo.vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_partials_kernel<<<2 * C, THREADS, 0, (cudaStream_t)stream>>>(
-      scratch, sums, (long long)B * tiles);
+      scratch, sums, (long long)B * geo.bands);
   return (int)cudaGetLastError();
 }
 

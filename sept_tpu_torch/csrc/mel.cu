@@ -1,5 +1,5 @@
 // Fused log-mel spectrogram of the frontend, for Hopper (sm_90a), in two
-// modes: f32 (this part) and bf16 (mel_bf16_kernel, further down).
+// modes: f32 (this part) and bf16 (bfk::mel_bf16_kernel, further down).
 //
 // Replaces: sept_tpu/ops/pallas_frontend.py::_mel_kernel (f32 mode), launched
 // there by pallas_mel_spectrogram.  Computes, for each frame t of each
@@ -87,6 +87,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -384,237 +387,704 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
 // f32, then rounded) and the mel filterbank -- and every product accumulated
 // in f32; the output is f32 dB.  A product of two bf16 values is exact in
 // f32, so the tensor cores' bf16 MMA with f32 accumulation computes the same
-// function as f32 FMAs on the rounded operands, up to summation order.
+// function as f32 FMAs on the rounded operands, up to summation order.  The
+// DFT stays a dense product: the bf16-rounded basis is part of the function.
 //
-// What bounds it on the H100: the least work (waves in, dB out, an rFFT) is a
-// few hundredths of a millisecond at the ingest's 257k frames; the dense DFT
-// + mel products this design does are ~1.4 MFLOP a frame at n_fft 800, which
-// the bf16 tensor cores (989 TFLOP/s) could run in ~0.36 ms.  The design
-// spends those operations on the tensor cores instead of the f32 design's
-// CUDA cores (~5 ms at the f32 peak for the same products).
+// What bounds it on the H100: the dense DFT + mel products its bf16 tables
+// fix (~1.4 MFLOP a frame at n_fft 800; ~0.36 ms at the bf16 tensor-core
+// peak for the ingest's 257k frames), and the table traffic from L2: every
+// 64 frames stream the whole cos/sin table (1.4 MB at n_fft 800).  What
+// holds this design above that (PERF.md): one block an SM (the frame tile
+// and the ring fill shared memory), so the tensor cores idle while a tile
+// is built and written and while each chunk's products drain before its
+// power; and a synchronisation a 16 KB ring item.
 //
-// Design (warp-level mma.sync m16n8k16 bf16 -> f32, written by hand):
-// - One block takes TFB = 64 frames of one row.  The raw samples of those
-//   frames are staged once in shared memory, rounded to bf16, beside the
-//   bf16 window; no im2col array exists.
-// - The frequencies go in chunks of FC = 64.  For each chunk the block runs
-//   the DFT product over the taps in KCB = 32-tap steps: the windowed frame
-//   tile (64 x 32, each element one rounded bf16 multiply) and the chunk's
-//   cos and sin rows (128 x 32, from a table laid out [chunk][cos|sin row]
-//   [tap], zero-padded) are staged in shared memory; 8 warps, 4 along the
-//   frames x 2 along the frequencies, each own 16 frames x 32 frequencies
-//   of the real and the imaginary sum (8 MMAs a 16-tap step).
-// - The chunk's power is rounded to bf16 into a 64 x 64 tile; the mel
-//   product over the chunk's 64 frequencies follows at once (fb chunk
-//   128 mels x 64 frequencies, staged), each warp owning 16 frames x 64 mels
-//   of the mel sums in registers across all chunks.  So the power never
-//   leaves shared memory, and one kernel writes 10*log10(max(., 1e-10)).
-// - Row strides of 40 and 72 bf16 (20 and 36 words) make every fragment load
-//   hit 32 distinct banks.  Taps pad with zeros to a multiple of 32 (n_fft
-//   400 -> 416), frequencies to a multiple of 64 and mels to 128.
-// - The k-step tiles are double-buffered: while step s multiplies, cp.async
-//   brings step s + 1's cos/sin rows (and, once a chunk, its filterbank
-//   rows) and the threads build its windowed frame tile; one barrier a step.
-// - Measured (PERF.md): without the double buffers (two barriers a step,
-//   the table rows loaded synchronously) the kernel took 3.84 ms at the
-//   ingest's 257k frames.  Not yet: TMA, wgmma.
+// Design (Hopper: wgmma, bulk asynchronous copies, mbarriers, clusters):
+// - A block takes TF = 64 frames of one row (wgmma's M).  Its 2 consumer
+//   warpgroups build the windowed frame tile -- rounding points 1-3 -- once,
+//   K-major in the 128-byte swizzled layout wgmma reads, where it fits beside
+//   the ring (n_fft <= 1024: 104 KB at n_fft 800), from the block's samples
+//   staged once in shared memory as bf16 (each sample read once, by 16-byte
+//   loads) where they fit; otherwise both build 64-tap slabs of it into a
+//   three-slab buffer as they go.
+// - The wrapper lays the cos/sin table out tile by tile in that same
+//   swizzled order: per chunk of NC = 64 frequencies and slab of 64 taps,
+//   128 rows (cos and sin of a frequency interleaved) of 128 bytes.  So a
+//   1-D bulk copy (cp.async.bulk, completion on an mbarrier) brings a tile;
+//   no tensor map is needed.  A ring of 4-6 such stages (full/empty
+//   mbarrier pairs) is kept full by the four warps of a producer
+//   warpgroup, one lane each, each for its own stages: one thread's chain
+//   of waits and copies fell behind the products it fed.
+// - Two blocks form a cluster: each producer copies half of every tile
+//   with multicast into both blocks, so the table leaves L2 once for 128
+//   frames; a stage is refilled when the consumers of both blocks have
+//   given it back.  The clusters are persistent, one for each pair of SMs,
+//   and walk the tile pairs; the ring streams on from one tile to the
+//   next, so the next tile's first copies overlap this tile's output and
+//   the next frame tile's build.
+// - Both warpgroups take every chunk, each its half of the 128 columns
+//   (split at a multiple of 32): the DFT product is wgmma m64n64k16 (bf16
+//   -> f32) over the slabs, two slabs' products in flight a warpgroup, so
+//   one warpgroup's waits and releases hide behind the other's products.
+// - Cos and sin interleaved put re and im of a frequency in one thread's
+//   accumulator pair: the power is computed (no FMA) and rounded to bf16 in
+//   registers and stored into the chunk's power tile (64 frames x 64
+//   frequencies, K-major, swizzled; two, alternating).  The mel product
+//   reads it from shared memory: warpgroup w takes mel columns 64 w ..
+//   64 w + 63 over all the chunk's frequencies (wgmma m64n32k16), so no
+//   partial sums are added afterwards, and its products run on into the
+//   next chunk's DFT.  (With the power as wgmma's A operand from registers
+//   the compiler waited for every earlier product before each of them.)
+// - The filterbank comes through the same ring, one stage a chunk (128 mels
+//   x 64 frequencies), in 32-mel sub-tiles: a sub-tile that is zero for the
+//   chunk is neither copied nor multiplied (exact: its products are +0).
+// - The last chunk is cut to a multiple of 16 frequencies (wgmma N a
+//   multiple of 32 here): 416 computed for 401 at n_fft 800.  Taps pad to a
+//   multiple of 64 in the table; k-steps past n_fft are skipped.
+// - Mel columns go in passes of 128 (n_mels <= 256 takes at most two);
+//   each warpgroup writes 10*log10(max(., 1e-10)) of its 64.
 
 namespace bfk {
 
-constexpr int TFB = 64;        // frames per block
-constexpr int FC = 64;         // frequencies per chunk
-constexpr int KCB = 32;        // taps per k-step
-constexpr int MELS = 128;      // mel columns (zero-padded)
-constexpr int THREADS_B = 256;  // 8 warps
-constexpr int AS = KCB + 8;    // bf16 row stride of the k-step tiles
-constexpr int PS = FC + 8;     // bf16 row stride of the power tile and fb chunk
+constexpr int TF = 64;                 // frames a block (wgmma M)
+constexpr int NC = 64;                 // frequencies a chunk: 128 cos/sin columns
+constexpr int KS = 64;                 // taps a slab: one 128-byte swizzled row
+constexpr int MEL_TILE = 128;          // mel columns a pass
+constexpr int MEL_SUB = 32;            // mel columns a sub-tile
+constexpr int FREQ_ALIGN = 16;         // the last chunk's frequencies round up to this
+constexpr int TILE_BYTES = 2 * NC * KS * 2;   // one ring stage: 16 KB
+constexpr int SLAB_BYTES = TF * KS * 2;       // one 64-tap slab of the frame tile: 8 KB
+constexpr int SUB_BYTES = MEL_SUB * KS * 2;   // one mel sub-tile of a bank stage: 4 KB
+constexpr int CONSUMERS = 2;           // consumer warpgroups
+constexpr int CLUSTER = 2;             // blocks a cluster: each table tile read once for both
+// and a producer warpgroup, one lane of each warp working: launched at 168
+// registers a thread (384 threads), the producer gives 128 of each of its
+// threads back (setmaxnreg) and the consumers take them, at 232
+constexpr int THREADS_B = 128 * (CONSUMERS + 1);
+constexpr int STAGES_MIN = 4, STAGES_MAX = 6;
+constexpr int PTILE_BYTES = TF * NC * 2;  // a chunk's power tile, bf16: 8 KB
+// the samples and window a frame tile is built from, then two power tiles
+constexpr int SCRATCH_BYTES = 32768;
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+__host__ __device__ inline int k_pad_of(int n_fft) { return (n_fft + KS - 1) / KS * KS; }
 
-// shared memory, in bytes: the bf16 segment and window, two buffers each of
-// the k-step tiles, the power tile and the filterbank chunk
+// shared memory, in bytes from a 1024-byte aligned base: the frame tile
+// (whole, or three slabs), the ring, the scratch, the
+// barriers; 1 KB more is allocated for the alignment
 struct Layout {
-  size_t seg, win, a, b, p, f, total;
-  __host__ __device__ Layout(int n_fft, int hop) {
-    const size_t seg_len = (size_t)(TFB - 1) * hop + n_fft;
-    seg = 0;
-    win = align16(seg + seg_len * 2);
-    a = align16(win + (size_t)n_fft * 2);
-    b = align16(a + (size_t)2 * TFB * AS * 2);
-    p = align16(b + (size_t)2 * 2 * FC * AS * 2);
-    f = align16(p + (size_t)TFB * PS * 2);
-    total = align16(f + (size_t)MELS * PS * 2);
+  bool resident;
+  int stages;
+  size_t a, ring, scratch, bars, total;
+  __host__ __device__ Layout(int n_fft) {
+    const size_t whole = (size_t)TF * k_pad_of(n_fft) * 2;
+    const size_t fixed = SCRATCH_BYTES + 2 * STAGES_MAX * 8 + 1024;
+    resident = whole + STAGES_MIN * (size_t)TILE_BYTES + fixed <= (size_t)SMEM_LIMIT;
+    const size_t a_bytes = resident ? whole : (size_t)3 * SLAB_BYTES;
+    stages = (int)((SMEM_LIMIT - a_bytes - fixed) / TILE_BYTES);
+    if (stages > STAGES_MAX) stages = STAGES_MAX;
+    a = 0;
+    ring = a_bytes;
+    scratch = ring + (size_t)stages * TILE_BYTES;
+    bars = scratch + SCRATCH_BYTES;
+    total = bars + 2 * STAGES_MAX * 8 + 1024;
   }
 };
 
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float* d, unsigned a0, unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// bytes (a multiple of 16) from device memory into shared memory at the
+// same offset in both blocks of the cluster, counted on the barrier at the
+// same offset in each
+__device__ __forceinline__ void bulk_copy_mc(unsigned dst, const void* src, int bytes,
+                                             unsigned bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"((unsigned short)((1u << CLUSTER) - 1))
+      : "memory");
+}
+// one arrival on the barrier at shared address bar of cluster block rank
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar, unsigned rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(bar), "r"(rank)
+      : "memory");
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of both blocks of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// 16-byte copy from device memory to shared memory, asynchronous
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator accesses across a wait
+template <int N> __device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS_B)
+// a K-major operand tile in the 128-byte swizzle: 8-row groups 1024 bytes
+// apart (the stride byte offset), rows of 128 bytes within a group
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+// byte offset of the 16-byte group holding taps 8*c8 .. 8*c8 + 7 of row r
+// in a swizzled tile
+__device__ __forceinline__ unsigned swz(int r, int c8) {
+  return (unsigned)(r * 128 + ((c8 ^ (r & 7)) << 4));
+}
+
+// d (64 x 32, f32) = A (64 x 16, shared memory) * B (16 x 32, shared memory)
+// + (scale ? d : 0)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+// the same, 64 x 64
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+
+// the 8 samples from pos on of a row (f32, zeros past its end), and the
+// window's taps k0 .. k0 + 7 (bf16, zeros past n_fft)
+__device__ __forceinline__ void load8(const float* __restrict__ row, long long avail,
+                                      long long pos, bool vec, float* x) {
+  if (vec && pos + 8 <= avail) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(row + pos));
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row + pos + 4));
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    x[4] = v.x; x[5] = v.y; x[6] = v.z; x[7] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = pos + e < avail ? __ldg(row + pos + e) : 0.f;
+  }
+}
+__device__ __forceinline__ uint4 window8(const __nv_bfloat16* __restrict__ window, int k0,
+                                         int n_fft) {
+  if (k0 + 8 <= n_fft) return __ldg(reinterpret_cast<const uint4*>(window + k0));
+  unsigned w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const unsigned lo = k0 + 2 * e < n_fft ? __bfloat16_as_ushort(window[k0 + 2 * e]) : 0u;
+    const unsigned hi = k0 + 2 * e + 1 < n_fft ? __bfloat16_as_ushort(window[k0 + 2 * e + 1]) : 0u;
+    w[e] = lo | hi << 16;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b2 = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&b2);
+}
+// rounding points 1-3: the samples rounded to bf16, times the bf16 window,
+// the product rounded to bf16; taps past n_fft are 0
+__device__ __forceinline__ uint4 windowed(const float* x, uint4 w, int k0, int n_fft) {
+  const unsigned wv[4] = {w.x, w.y, w.z, w.w};
+  unsigned o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 wf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv[e]));
+    const float a = __fmul_rn(__bfloat162float(__float2bfloat16_rn(x[2 * e])), wf.x);
+    const float b = __fmul_rn(__bfloat162float(__float2bfloat16_rn(x[2 * e + 1])), wf.y);
+    o[e] = pack_bf16(k0 + 2 * e < n_fft ? a : 0.f, k0 + 2 * e + 1 < n_fft ? b : 0.f);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// f32 power of (re, im), uncontracted as the plain version computes it
+__device__ __forceinline__ float power_of(float re, float im) {
+  return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale);
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da, uint64_t db, int scale) {
+  wgmma_ss_n32(d, da, db, scale);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int scale) {
+  wgmma_ss_n64(d, da, db, scale);
+}
+
+// a consumer's place in the ring: the next item's stage and the parity of
+// its full barrier's phase, and the stages of the two items before it,
+// advanced by increments (a division a step cost more than the step)
+struct Pipe {
+  int s, ph, prev1, prev2;
+  int bank;   // the stage of a bank item whose mel products may still run, or -1
+  int pbuf;   // the power tile the next chunk writes
+  __device__ __forceinline__ void advance(int stages) {
+    prev2 = prev1;
+    prev1 = s;
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// i / d and i % d for 0 <= i < 2^16 and 1 <= d <= 2^10 by a float product:
+// (i + 1/2) / d lies at least 1/(2d) from an integer, far above the
+// product's rounding
+__device__ __forceinline__ int div_small(int i, float inv_d) {
+  return (int)(((float)i + 0.5f) * inv_d);
+}
+
+// what a consumer warpgroup needs of the block
+struct Ctx {
+  const float* row;                 // the block's waveform row
+  long long avail;                  // samples of it from the block's first frame on
+  const __nv_bfloat16* window;
+  int n_fft, hop, n_slabs, k16, stages, tid;
+  bool resident, vec;
+  char* smem;                       // the aligned base, generic
+  unsigned smem_addr, power;        // its shared address; the power tiles' offset
+  unsigned a, ring, full, empty;    // shared addresses
+};
+
+// a warpgroup gives stage s back: one arrival from each of its warps on the
+// stage's empty barrier in both blocks of the cluster (both producers write
+// the stage in both blocks)
+__device__ __forceinline__ void release(const Ctx& cx, int s, int wt) {
+  if ((wt & 31) == 0) {
+#pragma unroll
+    for (unsigned r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(cx.empty + 8 * s, r);
+  }
+}
+
+// groups of 8 taps of the windowed frame tile: group i of a (TF x 8*groups)
+// tile, into the swizzled slab (i % groups) / 8 at a_off; BATCH groups'
+// loads in flight a thread
+__device__ __forceinline__ void build_tile(const Ctx& cx, unsigned a_off, int tap0, int groups,
+                                           int first) {
+  constexpr int STRIDE = 128 * CONSUMERS;
+  constexpr int BATCH = 4;
+  const int total = TF * groups;
+  const float inv = 1.f / (float)groups;
+  for (int i0 = first; i0 < total; i0 += STRIDE * BATCH) {
+    float x[BATCH][8];
+    uint4 w[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = i0 + u * STRIDE;
+      if (i < total) {
+        const int t = div_small(i, inv), c = i - t * groups, k0 = tap0 + 8 * c;
+        load8(cx.row, cx.avail, (long long)t * cx.hop + k0, cx.vec, x[u]);
+        w[u] = window8(cx.window, k0, cx.n_fft);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = i0 + u * STRIDE;
+      if (i < total) {
+        const int t = div_small(i, inv), c = i - t * groups;
+        *reinterpret_cast<uint4*>(cx.smem + a_off + (c / 8) * SLAB_BYTES + swz(t, c % 8)) =
+            windowed(x[u], w[u], tap0 + 8 * c, cx.n_fft);
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The whole frame tile from the block's samples staged once in shared
+// memory (seg, rounding point 1: bf16) beside the window (win, zeros past
+// n_fft), where they fit: each sample is read from device memory once, by
+// 16-byte loads, instead of once for each frame it falls in.  Threads: the
+// 256 consumer threads.
+__device__ __forceinline__ void build_tile_staged(const Ctx& cx, __nv_bfloat16* seg, int seg_len,
+                                                  __nv_bfloat16* win, int groups, int tid) {
+  constexpr int STRIDE = 128 * CONSUMERS;
+  for (int c = tid; c < groups; c += STRIDE)
+    *reinterpret_cast<uint4*>(win + 8 * c) = window8(cx.window, 8 * c, cx.n_fft);
+#pragma unroll 8
+  for (int i = 4 * tid; i < seg_len; i += 4 * STRIDE) {
+    float x[4];
+    if (cx.vec && i + 4 <= cx.avail) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(cx.row + i));
+      x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = i + e < cx.avail ? __ldg(cx.row + i + e) : 0.f;
+    }
+    *reinterpret_cast<uint2*>(seg + i) = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  }
+  named_sync(1, STRIDE);
+  const bool aligned = cx.hop % 8 == 0;
+  const float inv = 1.f / (float)groups;
+  for (int i = tid; i < TF * groups; i += STRIDE) {
+    const int t = div_small(i, inv), c = i - t * groups, k0 = 8 * c;
+    const __nv_bfloat16* src = seg + t * cx.hop + k0;
+    float x[8];
+    if (aligned) {
+      const uint4 q = *reinterpret_cast<const uint4*>(src);
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        x[2 * e] = f.x;
+        x[2 * e + 1] = f.y;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(src[e]);
+    }
+    *reinterpret_cast<uint4*>(cx.smem + (c / 8) * SLAB_BYTES + swz(t, c % 8)) =
+        windowed(x, *reinterpret_cast<const uint4*>(win + k0), k0, cx.n_fft);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A consumer warpgroup's share of one chunk: NCOLS of its cos/sin columns
+// (NCOLS / 2 frequencies) from column col0 on.  The DFT product over the
+// slabs (the chunk's first n_slabs ring items), two slabs' products in
+// flight; the power of its frequencies into the chunk's power tile; then,
+// the tile whole, the mel product of all the chunk's frequencies for the
+// warpgroup's 64 mel columns, with the chunk's bank stage (its last item),
+// left running into the next chunk.  Both warpgroups take every item and
+// give every stage back.  NCOLS 0: the warpgroup has no DFT columns in this
+// chunk.  cols: the chunk's columns (both warpgroups').
+template <int NCOLS>
+__device__ __forceinline__ void chunk(const Ctx& cx, Pipe& pp, unsigned mask, int col0, int cols,
+                                      int wt, int wg, float (&mel)[2][16]) {
+  // the first product of the chunk overwrites the accumulators (scale 0):
+  // no other instruction may define them while the last chunk's mel
+  // products still run, or the compiler serializes every wgmma
+  constexpr int NA = NCOLS > 0 ? NCOLS / 2 : 1;
+  float acc[NA];
+  for (int k = 0; k < cx.n_slabs; ++k) {
+    const int s = pp.s;
+    mbar_wait(cx.full + 8 * s, pp.ph);
+    unsigned a_slab = cx.a + k * SLAB_BYTES;
+    if (!cx.resident) {
+      // slab k of the frame tile, into buffer k % 3 (both warpgroups'
+      // products that read slab k - 3 from it finished before the barrier
+      // that ended step k - 1); both warpgroups build it, and it serves both
+      const unsigned off = (k % 3) * SLAB_BYTES;
+      build_tile(cx, off, k * KS, KS / 8, cx.tid);
+      named_sync(2, 128 * CONSUMERS);
+      a_slab = cx.a + off;
+    }
+    if constexpr (NCOLS > 0) {
+      const unsigned b_tile = cx.ring + s * TILE_BYTES + col0 * 128;
+      const int steps = min(KS / 16, cx.k16 - k * (KS / 16));
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < KS / 16; ++u)
+        if (u < steps)
+          wgmma_ss<NA * 2>(acc, desc_sw128(a_slab + 32 * u), desc_sw128(b_tile + 32 * u),
+                           k > 0 || u > 0);
+      wgmma_commit();
+      wgmma_wait<2>();
+      fence_regs<NA>(acc);
+    } else if (k == 0) {
+      wgmma_wait<0>();
+    }
+    // the last chunk's mel products are done by now (older than the slab
+    // products waited for): its bank stage goes back
+    if (k == 1 - (NCOLS == 0) && pp.bank >= 0) {
+      release(cx, pp.bank, wt);
+      pp.bank = -1;
+    }
+    // slab k - 2's products are done: its stage goes back to the producers
+    if (k > 1) release(cx, pp.prev2, wt);
+    if (!cx.resident) named_sync(3, 128 * CONSUMERS);  // both are past slab k - 1's reads
+    pp.advance(cx.stages);
+  }
+  wgmma_wait<0>();
+  fence_regs<NA>(acc);
+  if (pp.bank >= 0) {
+    release(cx, pp.bank, wt);
+    pp.bank = -1;
+  }
+  if (cx.n_slabs > 1) release(cx, pp.prev2, wt);
+  release(cx, pp.prev1, wt);
+
+  // rounding point 5: the power of each of the warpgroup's frequencies (re,
+  // im in one thread's accumulator pair: column group j holds frequency
+  // col0 / 2 + 4 j + q of rows r and r + 8), rounded to bf16, into the
+  // chunk's power tile: K-major, the 128-byte swizzle, as wgmma reads A
+  char* ptile = cx.smem + cx.power + pp.pbuf * PTILE_BYTES;
+  if constexpr (NCOLS > 0) {
+    const int lane = wt % 32, r = 16 * (wt / 32) + lane / 4, q = lane % 4;
+#pragma unroll
+    for (int j = 0; j < NCOLS / 8; ++j) {
+      const int f = col0 / 2 + 4 * j + q;
+      const unsigned off = ((f >> 3) ^ (r & 7)) << 4 | (f & 7) * 2;
+      *reinterpret_cast<__nv_bfloat16*>(ptile + r * 128 + off) =
+          __float2bfloat16_rn(power_of(acc[4 * j], acc[4 * j + 1]));
+      *reinterpret_cast<__nv_bfloat16*>(ptile + (r + 8) * 128 + off) =
+          __float2bfloat16_rn(power_of(acc[4 * j + 2], acc[4 * j + 3]));
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(1, 128 * CONSUMERS);  // the chunk's power tile is whole
+  const int s = pp.s;
+  mbar_wait(cx.full + 8 * s, pp.ph);
+  // the warpgroup's mel sub-tiles 2 wg and 2 wg + 1, over the chunk's
+  // frequencies (cols / 32 k-steps), where the bank is not zero
+  const unsigned fb = cx.ring + s * TILE_BYTES;
+  const unsigned pt = cx.smem_addr + cx.power + pp.pbuf * PTILE_BYTES;
+  const int steps = cols / 32;
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (mask >> (2 * wg + h) & 1) {
+#pragma unroll
+      for (int q16 = 0; q16 < NC / 16; ++q16)
+        if (q16 < steps)
+          wgmma_ss<32>(mel[h], desc_sw128(pt + 32 * q16),
+                       desc_sw128(fb + (2 * wg + h) * SUB_BYTES + 32 * q16), 1);
+    }
+  wgmma_commit();
+  pp.bank = s;
+  pp.pbuf ^= 1;
+  pp.advance(cx.stages);
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS_B, 1)
 mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
                 const __nv_bfloat16* __restrict__ window,   // (n_fft,)
-                const __nv_bfloat16* __restrict__ dft,      // (n_chunks, 2*FC, k_pad)
-                const __nv_bfloat16* __restrict__ fbt,      // (n_chunks, MELS, FC)
+                const __nv_bfloat16* __restrict__ table,    // swizzled cos/sin tiles
+                const __nv_bfloat16* __restrict__ bank,     // swizzled filterbank stages
+                const unsigned char* __restrict__ masks,    // (passes, chunks) sub-tiles
                 float* __restrict__ out,                    // (B, T, n_mels)
-                int L, int T, int n_fft, int hop, int n_mels, int n_chunks, int k_pad,
-                int n_ttiles) {
+                int L, int T, int n_fft, int hop, int n_mels, int n_chunks, int tail_cols,
+                int n_ttiles, int n_blocks, bool vec) {
   extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const Layout lay(n_fft, hop);
-  __nv_bfloat16* seg = reinterpret_cast<__nv_bfloat16*>(smem + lay.seg);
-  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem + lay.win);
-  __nv_bfloat16* a_t = reinterpret_cast<__nv_bfloat16*>(smem + lay.a);
-  __nv_bfloat16* b_t = reinterpret_cast<__nv_bfloat16*>(smem + lay.b);
-  __nv_bfloat16* p_t = reinterpret_cast<__nv_bfloat16*>(smem + lay.p);
-  __nv_bfloat16* f_t = reinterpret_cast<__nv_bfloat16*>(smem + lay.f);
-
+  const Layout lay(n_fft);
+  const unsigned raw = smem_u32(smem4);
+  const unsigned base = (raw + 1023) & ~1023u;
+  const int n_slabs = k_pad_of(n_fft) / KS;
+  const int passes = (n_mels + MEL_TILE - 1) / MEL_TILE;
+  const int per_chunk = n_slabs + 1;  // ring items a chunk: its slabs, then its bank stage
+  const unsigned full = base + (unsigned)lay.bars, empty = full + 8 * STAGES_MAX;
   const int tid = threadIdx.x;
-  const int tt = blockIdx.x % n_ttiles;
-  const int b = blockIdx.x / n_ttiles;
-  const int t0 = tt * TFB;
-  const int seg_len = (TFB - 1) * hop + n_fft;
-  const long long base = (long long)b * L + (long long)t0 * hop;
-  const long long avail = (long long)L - (long long)t0 * hop;
-  // rounding points 1 and 2: the waveform and the window
-  for (int i = tid; i < seg_len; i += THREADS_B)
-    seg[i] = __float2bfloat16_rn(i < avail ? wave[base + i] : 0.f);
-  for (int i = tid; i < n_fft; i += THREADS_B) win[i] = window[i];
-  __syncthreads();
+  // rows start 8-byte aligned: two mels a store
+  const bool pairs = n_mels % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  // persistent clusters: cluster k takes the tile pairs k, k + clusters,
+  // ..., its block of rank r tile 2 * pair + r; a block past the last tile
+  // (an odd tile count) runs the pipeline on zero frames and writes nothing
+  const unsigned rank = cluster_rank();
+  const int n_pairs = (n_blocks + CLUSTER - 1) / CLUSTER;
+  const int cid = blockIdx.x / CLUSTER, clusters = gridDim.x / CLUSTER;
 
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, q = lane & 3;
-  const int arow = 16 * wm + g;
-  const int n_steps = k_pad / KCB;
-
-  float mel[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) mel[j][0] = mel[j][1] = mel[j][2] = mel[j][3] = 0.f;
-
-  for (int c = 0; c < n_chunks; ++c) {
-    float re[4][4], im[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) re[j][e] = im[j][e] = 0.f;
-
-    const __nv_bfloat16* dft_c = dft + (size_t)c * 2 * FC * k_pad;
-    // one k-step's tiles into buffer buf: the chunk's cos (rows 0..FC-1)
-    // and sin (FC..2FC-1) rows by cp.async, and the windowed frames --
-    // rounding point 3, one bf16 multiply -- two taps a thread
-    auto stage = [&](int k0, int buf) {
-      __nv_bfloat16* bb = b_t + buf * 2 * FC * AS;
-      for (int i = tid; i < 2 * FC * (KCB / 8); i += THREADS_B) {
-        const int r = i / (KCB / 8), v = i % (KCB / 8);
-        cp_async16(bb + r * AS + v * 8, dft_c + (size_t)r * k_pad + k0 + v * 8);
-      }
-      cp_async_commit();
-      __nv_bfloat16* a = a_t + buf * TFB * AS;
-      for (int i = tid; i < TFB * KCB / 2; i += THREADS_B) {
-        const int t = i / (KCB / 2), kk = 2 * (i % (KCB / 2)), k = k0 + kk;
-        const float v0 = k < n_fft
-            ? __fmul_rn(__bfloat162float(seg[t * hop + k]), __bfloat162float(win[k])) : 0.f;
-        const float v1 = k + 1 < n_fft
-            ? __fmul_rn(__bfloat162float(seg[t * hop + k + 1]), __bfloat162float(win[k + 1]))
-            : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(a + t * AS + kk) = __floats2bfloat162_rn(v0, v1);
-      }
-    };
-    // software pipeline: step s + 1's tiles load while step s multiplies
-    stage(0, 0);
-    cp_async_wait_all();
-    __syncthreads();
-    // every warp is past the previous chunk's mel stage: its fb chunk goes
-    const __nv_bfloat16* fb_c = fbt + (size_t)c * MELS * FC;
-    for (int i = tid; i < MELS * (FC / 8); i += THREADS_B) {
-      const int m = i / (FC / 8), v = i % (FC / 8);
-      cp_async16(f_t + m * PS + v * 8, fb_c + (size_t)m * FC + v * 8);
+  if (tid == 0) {
+    for (int s = 0; s < lay.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      // one arrival from each consumer warp of each block
+      mbar_init(empty + 8 * s, 4 * CONSUMERS * CLUSTER);
     }
-    cp_async_commit();
-    for (int s = 0; s < n_steps; ++s) {
-      if (s + 1 < n_steps) stage((s + 1) * KCB, (s + 1) & 1);
-      const __nv_bfloat16* a_s = a_t + (s & 1) * TFB * AS;
-      const __nv_bfloat16* b_s = b_t + (s & 1) * 2 * FC * AS;
-#pragma unroll
-      for (int ks = 0; ks < KCB / 16; ++ks) {
-        const __nv_bfloat16* ap = a_s + arow * AS + ks * 16 + 2 * q;
-        const unsigned a0 = ld32(ap), a1 = ld32(ap + 8 * AS), a2 = ld32(ap + 8),
-                       a3 = ld32(ap + 8 * AS + 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat16* bc = b_s + (32 * wn + 8 * j + g) * AS + ks * 16 + 2 * q;
-          const __nv_bfloat16* bs = bc + FC * AS;
-          mma16816(re[j], a0, a1, a2, a3, ld32(bc), ld32(bc + 8));
-          mma16816(im[j], a0, a1, a2, a3, ld32(bs), ld32(bs + 8));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // both blocks' barriers exist before either uses them
+
+  // the roles by warp, broadcast so that the compiler sees them uniform
+  // (wgmma under a branch it cannot prove uniform is serialized)
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  if (warp_id >= 4 * CONSUMERS) {
+    // the producer warpgroup: few registers; lane 0 of warp j streams the
+    // ring items of stages j, j + 4, ... in order (up to four chains of
+    // waits and copies in flight; one chain a stage, so that no wait runs
+    // two phases ahead of its barrier), its block's half of each item into
+    // both blocks of the cluster
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid % 32 == 0) {
+      const int j = warp_id - 4 * CONSUMERS;
+      const int per_tile = passes * n_chunks;
+      const int items = (n_pairs - cid + clusters - 1) / clusters * per_tile * per_chunk;
+      // item g: stage s (round parity ph), item i of chunk c, chunk q of
+      // the tile's passes
+      int s = 0, ph = 0, i = 0, c = 0, q = 0;
+      for (int g = 0; g < items; ++g) {
+        if ((s & 3) == j) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          const unsigned dst = base + (unsigned)lay.ring + s * TILE_BYTES;
+          if (i < n_slabs) {
+            const int rows = c == n_chunks - 1 ? tail_cols : 2 * NC;
+            const int bytes = rows * KS * 2, half = bytes / CLUSTER;
+            const char* src = reinterpret_cast<const char*>(table) +
+                              (size_t)c * n_slabs * TILE_BYTES + (size_t)i * bytes;
+            mbar_expect_tx(full + 8 * s, bytes);
+            bulk_copy_mc(dst + rank * half, src + rank * half, half, full + 8 * s);
+          } else {
+            const unsigned m = masks[q];
+            mbar_expect_tx(full + 8 * s, __popc(m) * SUB_BYTES);
+            const char* src = reinterpret_cast<const char*>(bank) + (size_t)q * TILE_BYTES;
+            for (int ms = (int)rank; ms < 4; ms += CLUSTER)
+              if (m >> ms & 1)
+                bulk_copy_mc(dst + ms * SUB_BYTES, src + ms * SUB_BYTES, SUB_BYTES, full + 8 * s);
+          }
+        }
+        if (++s == lay.stages) {
+          s = 0;
+          ph ^= 1;
+        }
+        if (++i == per_chunk) {
+          i = 0;
+          if (++q == per_tile) q = 0;
+          if (++c == n_chunks) c = 0;
         }
       }
-      cp_async_wait_all();
-      __syncthreads();
     }
-
-    // rounding point 5: the power, in f32 (no FMA), then to bf16
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float p0 = __fadd_rn(__fmul_rn(re[j][2 * h], re[j][2 * h]),
-                                   __fmul_rn(im[j][2 * h], im[j][2 * h]));
-        const float p1 = __fadd_rn(__fmul_rn(re[j][2 * h + 1], re[j][2 * h + 1]),
-                                   __fmul_rn(im[j][2 * h + 1], im[j][2 * h + 1]));
-        *reinterpret_cast<__nv_bfloat162*>(p_t + (arow + 8 * h) * PS + 32 * wn + 8 * j + 2 * q) =
-            __floats2bfloat162_rn(p0, p1);
-      }
-    __syncthreads();  // the power tile is whole (the fb chunk landed in the k loop)
-    // the chunk's share of the mel product: warp (wm, wn) owns 16 frames x 64 mels
-#pragma unroll
-    for (int ks = 0; ks < FC / 16; ++ks) {
-      const __nv_bfloat16* ap = p_t + arow * PS + ks * 16 + 2 * q;
-      const unsigned a0 = ld32(ap), a1 = ld32(ap + 8 * PS), a2 = ld32(ap + 8),
-                     a3 = ld32(ap + 8 * PS + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* bp = f_t + (64 * wn + 8 * j + g) * PS + ks * 16 + 2 * q;
-        mma16816(mel[j], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-      }
-    }
-    // the next chunk writes a_t / b_t buffer 0 first, and f_t and p_t only
-    // after a barrier of its k loop, so no barrier is needed here
+    cluster_sync();  // no block leaves while the other may still write to it
+    return;
   }
 
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = t0 + arow + 8 * h;
-      if (t >= T) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int m = 64 * wn + 8 * j + 2 * q + e;
-        if (m < n_mels)
-          out[((long long)b * T + t) * n_mels + m] = 10.f * log10f(fmaxf(mel[j][2 * h + e], 1e-10f));
-      }
+  // the consumer warpgroups: the accumulators' registers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp_id / 4, wt = tid % 128;
+  Ctx cx;
+  cx.window = window;
+  cx.n_fft = n_fft;
+  cx.hop = hop;
+  cx.n_slabs = n_slabs;
+  cx.k16 = (n_fft + 15) / 16;
+  cx.stages = lay.stages;
+  cx.tid = tid;
+  cx.resident = lay.resident;
+  cx.vec = vec;
+  cx.smem = reinterpret_cast<char*>(smem4) + (base - raw);
+  cx.smem_addr = base;
+  cx.power = (unsigned)lay.scratch;
+  cx.a = base + (unsigned)lay.a;
+  cx.ring = base + (unsigned)lay.ring;
+  cx.full = full;
+  cx.empty = empty;
+  const int warp = wt / 32, lane = wt % 32, gq = lane / 4, q = lane % 4;
+  Pipe pp = {0, 0, 0, 0, -1, 0};
+  for (int pair = cid; pair < n_pairs; pair += clusters) {
+    const int tile = pair * CLUSTER + (int)rank;
+    const bool real = tile < n_blocks;
+    const int b = real ? tile / n_ttiles : 0;
+    const int t0 = real ? tile % n_ttiles * TF : 0;
+    cx.row = wave + (long long)b * L + (long long)t0 * hop;
+    cx.avail = real ? (long long)L - (long long)t0 * hop : 0;
+    if (lay.resident) {
+      // the whole windowed frame tile, once: slab k at k * SLAB_BYTES; its
+      // samples and the window staged in the scratch (its power tiles not
+      // in use yet) where they fit: the samples with the taps past n_fft a
+      // frame reads, the window at the scratch's end
+      const int seg_len = (TF - 1) * hop + n_fft, k_pad = k_pad_of(n_fft);
+      __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(cx.smem + lay.scratch);
+      if (seg_len * 2 + 128 + k_pad * 2 <= SCRATCH_BYTES)
+        build_tile_staged(cx, stage, seg_len, stage + SCRATCH_BYTES / 2 - k_pad, k_pad / 8, tid);
+      else
+        build_tile(cx, (unsigned)lay.a, 0, k_pad_of(n_fft) / 8, tid);
+      named_sync(1, 128 * CONSUMERS);
     }
+
+    for (int p = 0; p < passes; ++p) {
+      float mel[2][16];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) mel[h][i] = 0.f;
+      for (int c = 0; c < n_chunks; ++c) {
+        const unsigned m = __shfl_sync(0xffffffffu, (unsigned)__ldg(masks + p * n_chunks + c), 0);
+        // the chunk's DFT columns split at a multiple of 32: warpgroup 0
+        // the first min(64, ...) of them, warpgroup 1 the rest (0, 32 or 64)
+        const int cols = c == n_chunks - 1 ? tail_cols : 2 * NC;
+        const int cols0 = min(2 * NC / CONSUMERS, (cols / 2 + 31) / 32 * 32);
+        const int mine = wg == 0 ? cols0 : cols - cols0;
+        const int col0 = wg == 0 ? 0 : cols0;
+        switch (mine) {
+          case 32: chunk<32>(cx, pp, m, col0, cols, wt, wg, mel); break;
+          case 64: chunk<64>(cx, pp, m, col0, cols, wt, wg, mel); break;
+          default: chunk<0>(cx, pp, m, col0, cols, wt, wg, mel); break;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fence_regs<16>(mel[h]);
+      if (pp.bank >= 0) {
+        release(cx, pp.bank, wt);
+        pp.bank = -1;
+      }
+      // each warpgroup writes the dB of its 64 mel columns, two adjacent
+      // mels a store
+      if (real) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 16; i += 2) {
+            const int t = t0 + 16 * warp + gq + 8 * ((i >> 1) & 1);
+            const int m = p * MEL_TILE + (2 * wg + h) * MEL_SUB + 8 * (i >> 2) + 2 * q;
+            const float d0 = 10.f * log10f(fmaxf(mel[h][i], 1e-10f));
+            const float d1 = 10.f * log10f(fmaxf(mel[h][i + 1], 1e-10f));
+            float* o = out + ((long long)b * T + t) * n_mels + m;
+            if (t < T) {
+              if (pairs && m + 1 < n_mels) {
+                *reinterpret_cast<float2*>(o) = make_float2(d0, d1);
+              } else {
+                if (m < n_mels) o[0] = d0;
+                if (m + 1 < n_mels) o[1] = d1;
+              }
+            }
+          }
+      }
+      named_sync(1, 128 * CONSUMERS);  // both are done with the power tiles
+    }
+  }
+  cluster_sync();
 }
 
 }  // namespace bfk
@@ -679,38 +1149,59 @@ int sept_mel_db(const float* wave, const float* window, const double* twiddles,
   return (int)cudaGetLastError();
 }
 
-// The bf16 mode's table geometry: {frequencies a chunk, taps a k-step, mel
-// columns}; the wrapper lays the cos/sin and filterbank tables out with it.
-void sept_mel_bf16_geometry(int* out3) {
-  out3[0] = bfk::FC;
-  out3[1] = bfk::KCB;
-  out3[2] = bfk::MELS;
+// The bf16 mode's table geometry: {frequencies a chunk, taps a slab, mel
+// columns a pass, mel columns a sub-tile, the last chunk's frequency
+// multiple}; the wrapper lays the cos/sin table, the filterbank and the
+// sub-tile masks out with it.
+void sept_mel_bf16_geometry(int* out5) {
+  out5[0] = bfk::NC;
+  out5[1] = bfk::KS;
+  out5[2] = bfk::MEL_TILE;
+  out5[3] = bfk::MEL_SUB;
+  out5[4] = bfk::FREQ_ALIGN;
 }
 
-long long sept_mel_bf16_smem_bytes(int n_fft, int hop) {
-  return (long long)bfk::Layout(n_fft, hop).total;
-}
+long long sept_mel_bf16_smem_bytes(int n_fft) { return (long long)bfk::Layout(n_fft).total; }
 
-// wave (B, L) f32; window (n_fft,) bf16; dft (n_chunks, 2*FC, k_pad) bf16;
-// fbt (n_chunks, MELS, FC) bf16; out (B, T, n_mels) f32.
-int sept_mel_db_bf16(const float* wave, const void* window, const void* dft, const void* fbt,
-                     float* out, int B, int L, int T, int n_fft, int hop, int n_mels,
-                     void* stream) {
+// wave (B, L) f32; window (n_fft,) bf16; table: per chunk of NC frequencies
+// (the last cut to a multiple of FREQ_ALIGN) and slab of KS taps, a
+// swizzled tile of 2 x (its frequencies) rows (cos, sin interleaved) x KS
+// taps, bf16; bank: per pass of MEL_TILE mels and chunk, a swizzled tile of
+// MEL_TILE rows x KS frequencies (in the mel product's order), bf16; masks
+// (passes, chunks) uint8: bit s set where mel sub-tile s is nonzero; out
+// (B, T, n_mels) f32.
+int sept_mel_db_bf16(const float* wave, const void* window, const void* table, const void* bank,
+                     const void* masks, float* out, int B, int L, int T, int n_fft, int hop,
+                     int n_mels, void* stream) {
+  if (n_mels > MEL_MAX || n_mels < 1 || hop < 1 || n_fft < 2) return (int)cudaErrorInvalidValue;
   const int n_freq = n_fft / 2 + 1;
-  const int n_chunks = (n_freq + bfk::FC - 1) / bfk::FC;
-  const int k_pad = (n_fft + bfk::KCB - 1) / bfk::KCB * bfk::KCB;
-  if (n_mels > bfk::MELS || n_mels < 1 || hop < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = bfk::Layout(n_fft, hop).total;
+  const int n_chunks = (n_freq + bfk::NC - 1) / bfk::NC;
+  const int tail = n_freq - bfk::NC * (n_chunks - 1);
+  const int tail_cols = 2 * ((tail + bfk::FREQ_ALIGN - 1) / bfk::FREQ_ALIGN * bfk::FREQ_ALIGN);
+  const bfk::Layout lay(n_fft);
+  if (lay.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
-      bfk::mel_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bfk::mel_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const int n_ttiles = (T + bfk::TFB - 1) / bfk::TFB;
+  if ((reinterpret_cast<uintptr_t>(window) | reinterpret_cast<uintptr_t>(table) |
+       reinterpret_cast<uintptr_t>(bank)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int n_ttiles = (T + bfk::TF - 1) / bfk::TF;
   const long long blocks = (long long)n_ttiles * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  bfk::mel_bf16_kernel<<<(unsigned)blocks, bfk::THREADS_B, smem, (cudaStream_t)stream>>>(
-      wave, static_cast<const __nv_bfloat16*>(window), static_cast<const __nv_bfloat16*>(dft),
-      static_cast<const __nv_bfloat16*>(fbt), out, L, T, n_fft, hop, n_mels, n_chunks, k_pad,
-      n_ttiles);
+  // persistent: a cluster an SM pair, at most one a tile pair
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (blocks + bfk::CLUSTER - 1) / bfk::CLUSTER;
+  const long long grid = std::min<long long>(pairs, std::max(1, sms / bfk::CLUSTER)) * bfk::CLUSTER;
+  const bool vec = L % 4 == 0 && hop % 4 == 0 && (reinterpret_cast<uintptr_t>(wave) & 15) == 0;
+  bfk::mel_bf16_kernel<<<(unsigned)grid, bfk::THREADS_B, lay.total, (cudaStream_t)stream>>>(
+      wave, static_cast<const __nv_bfloat16*>(window), static_cast<const __nv_bfloat16*>(table),
+      static_cast<const __nv_bfloat16*>(bank), static_cast<const unsigned char*>(masks), out, L,
+      T, n_fft, hop, n_mels, n_chunks, tail_cols, n_ttiles, (int)blocks, vec);
   return (int)cudaGetLastError();
 }
 

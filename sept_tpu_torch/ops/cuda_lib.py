@@ -42,8 +42,8 @@ _SIGNATURES = {
         "sept_mel_db_max_mels": ([], _I),
         "sept_mel_db_smem_bytes": ([_I] * 3, _LL),
         "sept_mel_bf16_geometry": ([_P], None),
-        "sept_mel_bf16_smem_bytes": ([_I] * 2, _LL),
-        "sept_mel_db_bf16": ([_P] * 5 + [_I] * 6 + [_P], _I),
+        "sept_mel_bf16_smem_bytes": ([_I], _LL),
+        "sept_mel_db_bf16": ([_P] * 6 + [_I] * 6 + [_P], _I),
     },
     "mfcc": {
         "sept_floor_dct": ([_P] * 4 + [_I] * 3 + [_P], _I),

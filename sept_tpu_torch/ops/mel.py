@@ -54,25 +54,64 @@ def _tables_bf16(n_fft: int, n_mels: int, device: torch.device):
     return tuple(t.to(torch.bfloat16) for t in _tables(n_fft, n_mels, device))
 
 
+def swizzle_tile(tile: torch.Tensor) -> torch.Tensor:
+    """A (rows, 64) bf16 tile in the 128-byte swizzle that the bf16 kernel's
+    ``wgmma`` reads: row r's 16-byte group c (taps 8c .. 8c + 7) stored at
+    group c ^ (r % 8).  Its own inverse."""
+    rows = tile.shape[0]
+    r = torch.arange(rows)[:, None]
+    src = tile.reshape(rows, 8, 8)
+    out = torch.empty_like(src)
+    out[r, torch.arange(8)[None, :] ^ (r % 8)] = src
+    return out.reshape(rows, 64)
+
+
+def bf16_chunks(n_fft: int, geometry: tuple) -> list[int]:
+    """The bf16 kernel's frequency chunks: ``nc`` frequencies each, the last
+    cut to a multiple of ``align`` (its tile has twice that many rows)."""
+    nc, align = geometry[0], geometry[4]
+    n_freq = n_fft // 2 + 1
+    chunks = -(-n_freq // nc)
+    tail = n_freq - nc * (chunks - 1)
+    return [nc] * (chunks - 1) + [-(-tail // align) * align]
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_tables_bf16(n_fft: int, n_mels: int, geometry: tuple, device: torch.device):
-    """The bf16 kernel's operands: the window, the cos/sin table as
-    (chunks, 2 * fc, k_pad) -- per chunk of ``fc`` frequencies its cos rows,
-    then its sin rows, each over the taps padded to a multiple of ``kc`` --
-    and the filterbank as (chunks, mels, fc); zeros pad every edge."""
-    fc, kc, mels = geometry
+    """The bf16 kernel's operands: the window; the cos/sin table, per chunk
+    (:func:`bf16_chunks`) and slab of ``ks`` taps one swizzled tile
+    (:func:`swizzle_tile`) of 2 x (the chunk's frequencies) rows, cos and
+    sin of a frequency interleaved, over the slab's taps (zeros past n_fft
+    and past the last frequency); the filterbank, per pass of ``mel_tile``
+    mels and chunk one swizzled tile of ``mel_tile`` rows over the chunk's
+    frequencies; and the masks (passes, chunks) uint8,
+    bit s set where the tile's rows s * mel_sub .. (s + 1) * mel_sub - 1
+    hold a nonzero."""
+    nc, ks, mel_tile, mel_sub, _ = geometry
     window, cos_m, sin_m, fb = _tables_bf16(n_fft, n_mels, torch.device("cpu"))
     n_freq = n_fft // 2 + 1
-    chunks = -(-n_freq // fc)
-    k_pad = -(-n_fft // kc) * kc
-    cs = torch.zeros((2, chunks * fc, k_pad), dtype=torch.bfloat16)
-    cs[0, :n_freq, :n_fft] = cos_m.T
-    cs[1, :n_freq, :n_fft] = sin_m.T
-    dft = cs.view(2, chunks, fc, k_pad).transpose(0, 1).reshape(chunks, 2 * fc, k_pad)
-    fbt = torch.zeros((chunks * fc, mels), dtype=torch.bfloat16)
-    fbt[:n_freq, :n_mels] = fb
-    fbt = fbt.view(chunks, fc, mels).transpose(1, 2)
-    return tuple(t.contiguous().to(device) for t in (window, dft, fbt))
+    widths = bf16_chunks(n_fft, geometry)
+    k_pad = -(-n_fft // ks) * ks
+    cs = torch.zeros((k_pad, len(widths) * nc, 2), dtype=torch.bfloat16)
+    cs[:n_fft, :n_freq, 0] = cos_m
+    cs[:n_fft, :n_freq, 1] = sin_m
+    tiles = []
+    for c, width in enumerate(widths):
+        cols = cs[:, c * nc:c * nc + width].reshape(k_pad, 2 * width).T
+        tiles += [swizzle_tile(cols[:, k:k + ks]).reshape(-1) for k in range(0, k_pad, ks)]
+    passes = -(-n_mels // mel_tile)
+    fbp = torch.zeros((len(widths) * nc, passes * mel_tile), dtype=torch.bfloat16)
+    fbp[:n_freq, :n_mels] = fb
+    banks, masks = [], torch.zeros((passes, len(widths)), dtype=torch.uint8)
+    for p in range(passes):
+        for c in range(len(widths)):
+            blk = fbp[c * nc:(c + 1) * nc, p * mel_tile:(p + 1) * mel_tile].T.contiguous()
+            for sub in range(mel_tile // mel_sub):
+                if blk[sub * mel_sub:(sub + 1) * mel_sub].float().any():
+                    masks[p, c] |= 1 << sub
+            banks.append(swizzle_tile(blk).reshape(-1))
+    return tuple(t.contiguous().to(device) for t in (window, torch.cat(tiles),
+                                                     torch.cat(banks), masks))
 
 
 def fft_length(n_fft: int) -> int:
@@ -267,23 +306,24 @@ def mel_db_bf16(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
     b, length = padded_waves.shape
     cuda_lib.require(padded_waves, "mel_db_bf16 padded_waves", (b, length), dev)
     lib = cuda_lib.load("mel")
-    geometry = (ctypes.c_int * 3)()
-    lib.sept_mel_bf16_geometry(geometry)
-    geometry = tuple(geometry)
-    if n_mels > geometry[2]:
-        raise ValueError(f"mel_db_bf16: the kernel takes at most {geometry[2]} mels, "
-                         f"got {n_mels}")
-    smem = lib.sept_mel_bf16_smem_bytes(n_fft, hop)
+    max_mels = lib.sept_mel_db_max_mels()
+    if n_mels > max_mels:
+        raise ValueError(f"mel_db_bf16: the kernel takes at most {max_mels} mels, got {n_mels}")
+    if n_fft < 2:
+        raise ValueError(f"mel_db_bf16: n_fft must be >= 2, got {n_fft}")
+    smem = lib.sept_mel_bf16_smem_bytes(n_fft)
     if smem > cuda_lib.max_smem_per_block(dev):
-        raise ValueError(f"mel_db_bf16: n_fft {n_fft} / hop {hop} need {smem} bytes "
-                         "of shared memory a block, above the card's limit")
-    window, dft, fbt = _kernel_tables_bf16(n_fft, n_mels, geometry, dev)
+        raise ValueError(f"mel_db_bf16: n_fft {n_fft} needs {smem} bytes of shared "
+                         "memory a block, above the card's limit")
+    geometry = (ctypes.c_int * 5)()
+    lib.sept_mel_bf16_geometry(geometry)
+    window, table, bank, masks = _kernel_tables_bf16(n_fft, n_mels, tuple(geometry), dev)
     out = torch.empty((b, n_frames_max, n_mels), dtype=torch.float32, device=dev)
     if b == 0:
         return out
     err = lib.sept_mel_db_bf16(
-        padded_waves.data_ptr(), window.data_ptr(), dft.data_ptr(), fbt.data_ptr(),
-        out.data_ptr(), b, length, n_frames_max, n_fft, hop, n_mels,
+        padded_waves.data_ptr(), window.data_ptr(), table.data_ptr(), bank.data_ptr(),
+        masks.data_ptr(), out.data_ptr(), b, length, n_frames_max, n_fft, hop, n_mels,
         cuda_lib.stream_of(out))
     cuda_lib.check(lib, err, "mel_db_bf16")
     mel_db_bf16.launches += 1

@@ -50,3 +50,56 @@ def speechlike(rng, n, noise=0.05):
     w = (0.3 * np.sin(2 * np.pi * f1 * t) + 0.1 * np.sin(2 * np.pi * f2 * t)
          + noise * rng.standard_normal(n))
     return w.astype(np.float32)
+
+
+BF16_GEOMETRY = (64, 64, 128, 32, 16)  # the bf16 mel kernel's (nc, ks, mel_tile, mel_sub, align)
+
+
+def bf16_kernel_tables(n_fft, n_mels, geometry=BF16_GEOMETRY):
+    """The bf16 mel kernel's operands (``ops/mel.py::_kernel_tables_bf16``)
+    on the CPU: (window, table, bank, masks)."""
+    import torch
+
+    from sept_tpu_torch.ops import mel as M
+
+    return M._kernel_tables_bf16(n_fft, n_mels, geometry, torch.device("cpu"))
+
+
+def expand_bf16_tables(n_fft, n_mels, geometry=BF16_GEOMETRY):
+    """The bf16 mel kernel's tables read back tile by tile into dense f32
+    (k_pad, chunks * nc) cos and sin and a (chunks * nc, passes * mel_tile)
+    bank, asserting that every table is used whole and that each mask bit
+    says whether its bank sub-tile holds a nonzero.  Returns (window, cos,
+    sin, bank)."""
+    import torch
+
+    from sept_tpu_torch.ops import mel as M
+
+    nc, ks, mel_tile, mel_sub, _ = geometry
+    window, table, bank, masks = bf16_kernel_tables(n_fft, n_mels, geometry)
+    widths = M.bf16_chunks(n_fft, geometry)
+    k_pad = -(-n_fft // ks) * ks
+    cos = torch.zeros((k_pad, len(widths) * nc))
+    sin = torch.zeros_like(cos)
+    off = 0
+    for c, w in enumerate(widths):
+        for k in range(0, k_pad, ks):
+            tile = M.swizzle_tile(table[off:off + 2 * w * ks].view(2 * w, ks)).float()
+            off += 2 * w * ks
+            cos[k:k + ks, c * nc:c * nc + w] = tile[0::2].T
+            sin[k:k + ks, c * nc:c * nc + w] = tile[1::2].T
+    assert off == table.numel()
+    passes = -(-n_mels // mel_tile)
+    assert tuple(masks.shape) == (passes, len(widths))
+    fb = torch.zeros((len(widths) * nc, passes * mel_tile))
+    off = 0
+    for p in range(passes):
+        for c in range(len(widths)):
+            blk = M.swizzle_tile(bank[off:off + mel_tile * ks].view(mel_tile, ks)).float()
+            off += mel_tile * ks
+            for sub in range(mel_tile // mel_sub):
+                nonzero = bool(blk[sub * mel_sub:(sub + 1) * mel_sub].any())
+                assert bool(int(masks[p, c]) >> sub & 1) == nonzero
+            fb[c * nc:(c + 1) * nc, p * mel_tile:(p + 1) * mel_tile] = blk.T
+    assert off == bank.numel()
+    return window, cos, sin, fb

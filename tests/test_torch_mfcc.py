@@ -24,7 +24,7 @@ from sept_tpu_torch.ops import frontend as TF
 from sept_tpu_torch.ops import mel as M
 from sept_tpu_torch.ops.mfcc import floor_dct, floor_dct_plain, fused_mfcc
 
-from _torch_helpers import speechlike
+from _torch_helpers import expand_bf16_tables, speechlike
 
 BF16_MAX, BF16_P99 = 10 * np.log10(1 + 2.0 ** -7) + 1e-4, 1e-3
 
@@ -125,25 +125,19 @@ def test_mel_db_bf16_takes_its_mode_on_the_cpu(rng):
 
 @pytest.mark.parametrize("n_fft,n_mels", [(800, 128), (400, 128), (1600, 40)])
 def test_bf16_kernel_tables_hold_the_plain_tables(n_fft, n_mels):
-    """The kernel's chunked cos/sin and filterbank layouts carry exactly the
-    plain version's bf16 tables, zeros elsewhere."""
-    fc, kc, mels = 64, 32, 128
-    window, dft, fbt = M._kernel_tables_bf16(n_fft, n_mels, (fc, kc, mels),
-                                             torch.device("cpu"))
+    """The kernel's swizzled cos/sin tiles (cos and sin of a frequency
+    interleaved) and filterbank tiles (a mel row over a chunk's frequencies)
+    carry exactly the plain version's bf16 tables, zeros elsewhere."""
+    window, cos_k, sin_k, fb_k = expand_bf16_tables(n_fft, n_mels)
     w_p, cos_p, sin_p, fb_p = M._tables_bf16(n_fft, n_mels, torch.device("cpu"))
     n_freq = n_fft // 2 + 1
-    chunks, k_pad = -(-n_freq // fc), -(-n_fft // kc) * kc
-    assert dft.shape == (chunks, 2 * fc, k_pad) and fbt.shape == (chunks, mels, fc)
     assert torch.equal(window, w_p)
-    cos_k = dft[:, :fc].reshape(chunks * fc, k_pad)
-    sin_k = dft[:, fc:].reshape(chunks * fc, k_pad)
-    assert torch.equal(cos_k[:n_freq, :n_fft], cos_p.T)
-    assert torch.equal(sin_k[:n_freq, :n_fft], sin_p.T)
-    assert not cos_k[n_freq:].float().any() and not cos_k[:, n_fft:].float().any()
-    assert not sin_k[n_freq:].float().any() and not sin_k[:, n_fft:].float().any()
-    fb_k = fbt.transpose(1, 2).reshape(chunks * fc, mels)
-    assert torch.equal(fb_k[:n_freq, :n_mels], fb_p)
-    assert not fb_k[n_freq:].float().any() and not fb_k[:, n_mels:].float().any()
+    assert torch.equal(cos_k[:n_fft, :n_freq], cos_p.float())
+    assert torch.equal(sin_k[:n_fft, :n_freq], sin_p.float())
+    for t in (cos_k, sin_k):
+        assert not t[n_fft:].any() and not t[:, n_freq:].any()
+    assert torch.equal(fb_k[:n_freq, :n_mels], fb_p.float())
+    assert not fb_k[n_freq:].any() and not fb_k[:, n_mels:].any()
 
 
 def test_floor_dct_plain_matches_jax_floor_dot(rng):
