@@ -93,10 +93,11 @@ and read just after; each kernel the path must use has to have launched
                beside its plain version); the bf16 mel
                (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
                waves, beside the f32 kernel on them and with a second bound
-               (bound_mma_ms: its dense products at the bf16 tensor-core
-               rate), and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
+               (bound_mma_ms: its dense DFT products and its bank's
+               nonzeros at the bf16 tensor-core rate), and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
                of 64 utterances at bucket 64000, then the bf16 mel at n_fft
-               400 / 1600, one frame, n_fft 799 and 2048, n_mels 256 and 80
+               400 / 1600, one frame, n_fft 799 and 2048, hop 320 (frame
+               tile built from device memory), n_mels 256 and 80
                (BF16_MEL_EDGES), floor + DCT at ragged row counts; the bf16 modes of K1-K5 on a bf16 baseline
                step's tensors (conv output within one bf16 unit and
                bit-equal in 99.9% of the elements, moments 1e-5 of the sums
@@ -194,11 +195,12 @@ BF16_MAX, BF16_P99 = 10 * np.log10(1 + 2.0 ** -7) + 1e-4, 1e-3
 FLOOR_DCT_RTOL = 1e-5  # of max |plain|: two f32 sums of 128 terms
 # the bf16 mel kernel's edges (rows, n_fft, hop, frames, n_mels): ragged
 # frame tiles at n_fft 400 / hop 200 and 1600, one frame, an odd n_fft, the
-# largest n_fft (frame tile built slab by slab), two mel passes (256) and a
-# bank narrower than one (80)
+# largest n_fft (frame tile built slab by slab), hop 320 (a tile's samples
+# past its staging room: the whole frame tile built from device memory), two
+# mel passes (256) and a bank narrower than one (80)
 BF16_MEL_EDGES = ((3, 400, 200, 70, 128), (2, 1600, 160, 37, 128), (1, 800, 160, 1, 128),
-                  (2, 799, 160, 90, 128), (2, 2048, 160, 50, 128), (2, 800, 160, 100, 256),
-                  (2, 800, 160, 100, 80))
+                  (2, 799, 160, 90, 128), (2, 2048, 160, 50, 128), (2, 800, 320, 40, 128),
+                  (2, 800, 160, 100, 256), (2, 800, 160, 100, 80))
 
 
 def log(msg):
@@ -1799,8 +1801,9 @@ def featurize_kernel_phase(padded, chunk, launches):
                            "f32_kernel_device_ms_same_input": device_ms(f32_kernel, iters=5),
                            "bound_mma_ms": mel_bound_mma(bsz * t, N_FFT),
                            "bound_counts": "rFFT 2.5 n log2 n + sparse mel bank; "
-                                           "bound_mma_ms: the dense products its bf16 "
-                                           "tables fix, at the bf16 tensor-core peak",
+                                           "bound_mma_ms: the dense DFT products its bf16 "
+                                           "tables fix + the bank's nonzeros, at the "
+                                           "bf16 tensor-core peak",
                            "library": "torch.stft + matmul + log10 (f32)",
                            "shape": [bsz, length, t]})
         kernels[1].update({"max_rel_err_of_max_abs": fd_rel, "shape": [rows, n_mels, 40],
@@ -1819,24 +1822,30 @@ def stft_chain(x, n_fft, hop, n_mels=N_MELS):
     return 10.0 * torch.log10(torch.clamp(power.transpose(1, 2) @ fb, min=M.AMIN))
 
 
+def bank_nnz(n_fft, n_mels):
+    """The nonzeros of the frontend's mel filterbank."""
+    from sept_tpu_torch.ops import frontend as F
+
+    return int((F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000) != 0).sum())
+
+
 def mel_bound(bsz, length, frames, n_fft, n_mels=N_MELS):
     """The least work of the mel function: a real FFT (2.5 n log2 n, the
     usual count), window, power, the sparse bank and the log; bytes: waves
     in, window and bank, dB out."""
-    from sept_tpu_torch.ops import frontend as F
-
-    fb_nnz = int((F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000) != 0).sum())
+    fb_nnz = bank_nnz(n_fft, n_mels)
     return bound(frames * (2.5 * n_fft * np.log2(n_fft) + n_fft + 3 * (n_fft // 2 + 1)
                            + 2 * fb_nnz + n_mels),
                  4.0 * (bsz * length + n_fft + fb_nnz + frames * n_mels))
 
 
 def mel_bound_mma(frames, n_fft, n_mels=N_MELS):
-    """The least time of the bf16 mel kernel's own work: the dense DFT and
-    mel products its bf16 tables fix (2 n_freq n_fft + n_freq n_mels
-    multiply-adds a frame), at the card's dense bf16 tensor-core rate, ms."""
+    """The least time of the bf16 mel kernel's own work: the dense DFT
+    products its bf16 tables fix and the bank's nonzero products (2 n_freq
+    n_fft + the bank's nonzeros multiply-adds a frame), at the card's dense
+    bf16 tensor-core rate, ms."""
     n_freq = n_fft // 2 + 1
-    return frames * 2.0 * (2 * n_freq * n_fft + n_freq * n_mels) / PEAK_BF16_FLOPS * 1e3
+    return frames * 2.0 * (2 * n_freq * n_fft + bank_nnz(n_fft, n_mels)) / PEAK_BF16_FLOPS * 1e3
 
 
 def mel_featurize_phase(chunk):

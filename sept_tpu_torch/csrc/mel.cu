@@ -390,16 +390,20 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
 // function as f32 FMAs on the rounded operands, up to summation order.  The
 // DFT stays a dense product: the bf16-rounded basis is part of the function.
 //
-// What bounds it on the H100: the dense DFT + mel products its bf16 tables
-// fix (~1.4 MFLOP a frame at n_fft 800; ~0.36 ms at the bf16 tensor-core
-// peak for the ingest's 257k frames), and the table traffic from L2: every
-// 64 frames stream the whole cos/sin table (1.4 MB at n_fft 800).  What
-// holds this design above that (PERF.md): one block an SM (the frame tile
-// and the ring fill shared memory), so the tensor cores idle while a tile
-// is built and written and while each chunk's products drain before its
-// power; and a synchronisation a 16 KB ring item.
+// What bounds it on the H100: the dense DFT products its bf16 tables fix
+// and the bank's nonzero products (~1.3 MFLOP a frame at n_fft 800; ~0.33
+// ms at the bf16 tensor-core peak for the ingest's 257k frames).  The table
+// traffic from L2 (every 64 frames stream the whole cos/sin table, 1.4 MB
+// at n_fft 800) costs little: the kernel without its copies is 2% faster.
+// What holds this design above the bound (PERF.md, by the cut variants of
+// mel_bf16_variants.py): one block an SM (the frame tile and the ring fill
+// shared memory), so the tensor cores idle while a frame tile is built
+// (cutting the build saves a fifth of the time) and while each chunk's
+// products drain before its power; and the pipeline's own waits and
+// barriers (with the products, copies, build and output cut, a third of the
+// time is left).
 //
-// Design (Hopper: wgmma, bulk asynchronous copies, mbarriers, clusters):
+// Design (Hopper: wgmma, bulk asynchronous copies, mbarriers):
 // - A block takes TF = 64 frames of one row (wgmma's M).  Its 2 consumer
 //   warpgroups build the windowed frame tile -- rounding points 1-3 -- once,
 //   K-major in the 128-byte swizzled layout wgmma reads, where it fits beside
@@ -413,15 +417,13 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
 //   1-D bulk copy (cp.async.bulk, completion on an mbarrier) brings a tile;
 //   no tensor map is needed.  A ring of 4-6 such stages (full/empty
 //   mbarrier pairs) is kept full by the four warps of a producer
-//   warpgroup, one lane each, each for its own stages: one thread's chain
-//   of waits and copies fell behind the products it fed.
-// - Two blocks form a cluster: each producer copies half of every tile
-//   with multicast into both blocks, so the table leaves L2 once for 128
-//   frames; a stage is refilled when the consumers of both blocks have
-//   given it back.  The clusters are persistent, one for each pair of SMs,
-//   and walk the tile pairs; the ring streams on from one tile to the
-//   next, so the next tile's first copies overlap this tile's output and
-//   the next frame tile's build.
+//   warpgroup, one lane each, each for its own stages (one lane for every
+//   stage measures the same at the ingest shape).
+// - The blocks are persistent, one an SM, and walk the frame tiles; the
+//   ring streams on from one tile to the next, so the next tile's first
+//   copies overlap this tile's output and the next frame tile's build.
+//   (Two-block clusters that multicast each table tile into both blocks,
+//   halving the L2 -> shared traffic, were 11% slower: PERF.md.)
 // - Both warpgroups take every chunk, each its half of the 128 columns
 //   (split at a multiple of 32): the DFT product is wgmma m64n64k16 (bf16
 //   -> f32) over the slabs, two slabs' products in flight a warpgroup, so
@@ -456,7 +458,6 @@ constexpr int TILE_BYTES = 2 * NC * KS * 2;   // one ring stage: 16 KB
 constexpr int SLAB_BYTES = TF * KS * 2;       // one 64-tap slab of the frame tile: 8 KB
 constexpr int SUB_BYTES = MEL_SUB * KS * 2;   // one mel sub-tile of a bank stage: 4 KB
 constexpr int CONSUMERS = 2;           // consumer warpgroups
-constexpr int CLUSTER = 2;             // blocks a cluster: each table tile read once for both
 // and a producer warpgroup, one lane of each warp working: launched at 168
 // registers a thread (384 threads), the producer gives 128 of each of its
 // threads back (setmaxnreg) and the consumers take them, at 232
@@ -517,34 +518,13 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
         : "memory");
   } while (!done);
 }
-// bytes (a multiple of 16) from device memory into shared memory at the
-// same offset in both blocks of the cluster, counted on the barrier at the
-// same offset in each
-__device__ __forceinline__ void bulk_copy_mc(unsigned dst, const void* src, int bytes,
-                                             unsigned bar) {
+// bytes (a multiple of 16) from device memory into shared memory, counted
+// on the barrier bar
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, int bytes, unsigned bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1], %2, [%3], %4;\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"((unsigned short)((1u << CLUSTER) - 1))
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-// one arrival on the barrier at shared address bar of cluster block rank
-__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar, unsigned rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
-      ::"r"(bar), "r"(rank)
-      : "memory");
-}
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// every thread of both blocks of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -702,13 +682,9 @@ struct Ctx {
 };
 
 // a warpgroup gives stage s back: one arrival from each of its warps on the
-// stage's empty barrier in both blocks of the cluster (both producers write
-// the stage in both blocks)
+// stage's empty barrier
 __device__ __forceinline__ void release(const Ctx& cx, int s, int wt) {
-  if ((wt & 31) == 0) {
-#pragma unroll
-    for (unsigned r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(cx.empty + 8 * s, r);
-  }
+  if ((wt & 31) == 0) mbar_arrive(cx.empty + 8 * s);
 }
 
 // groups of 8 taps of the windowed frame tile: group i of a (TF x 8*groups)
@@ -900,7 +876,7 @@ __device__ __forceinline__ void chunk(const Ctx& cx, Pipe& pp, unsigned mask, in
   pp.advance(cx.stages);
 }
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS_B, 1)
+__global__ void __launch_bounds__(THREADS_B, 1)
 mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
                 const __nv_bfloat16* __restrict__ window,   // (n_fft,)
                 const __nv_bfloat16* __restrict__ table,    // swizzled cos/sin tiles
@@ -920,22 +896,16 @@ mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
   const int tid = threadIdx.x;
   // rows start 8-byte aligned: two mels a store
   const bool pairs = n_mels % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
-  // persistent clusters: cluster k takes the tile pairs k, k + clusters,
-  // ..., its block of rank r tile 2 * pair + r; a block past the last tile
-  // (an odd tile count) runs the pipeline on zero frames and writes nothing
-  const unsigned rank = cluster_rank();
-  const int n_pairs = (n_blocks + CLUSTER - 1) / CLUSTER;
-  const int cid = blockIdx.x / CLUSTER, clusters = gridDim.x / CLUSTER;
+  // persistent blocks: block k takes the frame tiles k, k + gridDim.x, ...
 
   if (tid == 0) {
     for (int s = 0; s < lay.stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      // one arrival from each consumer warp of each block
-      mbar_init(empty + 8 * s, 4 * CONSUMERS * CLUSTER);
+      mbar_init(empty + 8 * s, 4 * CONSUMERS);  // one arrival from each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // both blocks' barriers exist before either uses them
+  __syncthreads();  // the barriers exist before anyone uses them
 
   // the roles by warp, broadcast so that the compiler sees them uniform
   // (wgmma under a branch it cannot prove uniform is serialized)
@@ -944,13 +914,13 @@ mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
     // the producer warpgroup: few registers; lane 0 of warp j streams the
     // ring items of stages j, j + 4, ... in order (up to four chains of
     // waits and copies in flight; one chain a stage, so that no wait runs
-    // two phases ahead of its barrier), its block's half of each item into
-    // both blocks of the cluster
+    // two phases ahead of its barrier)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid % 32 == 0) {
       const int j = warp_id - 4 * CONSUMERS;
       const int per_tile = passes * n_chunks;
-      const int items = (n_pairs - cid + clusters - 1) / clusters * per_tile * per_chunk;
+      const int items =
+          (n_blocks - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * per_tile * per_chunk;
       // item g: stage s (round parity ph), item i of chunk c, chunk q of
       // the tile's passes
       int s = 0, ph = 0, i = 0, c = 0, q = 0;
@@ -960,18 +930,18 @@ mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
           const unsigned dst = base + (unsigned)lay.ring + s * TILE_BYTES;
           if (i < n_slabs) {
             const int rows = c == n_chunks - 1 ? tail_cols : 2 * NC;
-            const int bytes = rows * KS * 2, half = bytes / CLUSTER;
+            const int bytes = rows * KS * 2;
             const char* src = reinterpret_cast<const char*>(table) +
                               (size_t)c * n_slabs * TILE_BYTES + (size_t)i * bytes;
             mbar_expect_tx(full + 8 * s, bytes);
-            bulk_copy_mc(dst + rank * half, src + rank * half, half, full + 8 * s);
+            bulk_copy(dst, src, bytes, full + 8 * s);
           } else {
             const unsigned m = masks[q];
             mbar_expect_tx(full + 8 * s, __popc(m) * SUB_BYTES);
             const char* src = reinterpret_cast<const char*>(bank) + (size_t)q * TILE_BYTES;
-            for (int ms = (int)rank; ms < 4; ms += CLUSTER)
+            for (int ms = 0; ms < 4; ++ms)
               if (m >> ms & 1)
-                bulk_copy_mc(dst + ms * SUB_BYTES, src + ms * SUB_BYTES, SUB_BYTES, full + 8 * s);
+                bulk_copy(dst + ms * SUB_BYTES, src + ms * SUB_BYTES, SUB_BYTES, full + 8 * s);
           }
         }
         if (++s == lay.stages) {
@@ -985,7 +955,6 @@ mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
         }
       }
     }
-    cluster_sync();  // no block leaves while the other may still write to it
     return;
   }
 
@@ -1011,13 +980,10 @@ mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
   cx.empty = empty;
   const int warp = wt / 32, lane = wt % 32, gq = lane / 4, q = lane % 4;
   Pipe pp = {0, 0, 0, 0, -1, 0};
-  for (int pair = cid; pair < n_pairs; pair += clusters) {
-    const int tile = pair * CLUSTER + (int)rank;
-    const bool real = tile < n_blocks;
-    const int b = real ? tile / n_ttiles : 0;
-    const int t0 = real ? tile % n_ttiles * TF : 0;
+  for (int tile = blockIdx.x; tile < n_blocks; tile += gridDim.x) {
+    const int b = tile / n_ttiles, t0 = tile % n_ttiles * TF;
     cx.row = wave + (long long)b * L + (long long)t0 * hop;
-    cx.avail = real ? (long long)L - (long long)t0 * hop : 0;
+    cx.avail = (long long)L - (long long)t0 * hop;
     if (lay.resident) {
       // the whole windowed frame tile, once: slab k at k * SLAB_BYTES; its
       // samples and the window staged in the scratch (its power tiles not
@@ -1061,30 +1027,27 @@ mel_bf16_kernel(const float* __restrict__ wave,             // (B, L)
       }
       // each warpgroup writes the dB of its 64 mel columns, two adjacent
       // mels a store
-      if (real) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int i = 0; i < 16; i += 2) {
-            const int t = t0 + 16 * warp + gq + 8 * ((i >> 1) & 1);
-            const int m = p * MEL_TILE + (2 * wg + h) * MEL_SUB + 8 * (i >> 2) + 2 * q;
-            const float d0 = 10.f * log10f(fmaxf(mel[h][i], 1e-10f));
-            const float d1 = 10.f * log10f(fmaxf(mel[h][i + 1], 1e-10f));
-            float* o = out + ((long long)b * T + t) * n_mels + m;
-            if (t < T) {
-              if (pairs && m + 1 < n_mels) {
-                *reinterpret_cast<float2*>(o) = make_float2(d0, d1);
-              } else {
-                if (m < n_mels) o[0] = d0;
-                if (m + 1 < n_mels) o[1] = d1;
-              }
+        for (int i = 0; i < 16; i += 2) {
+          const int t = t0 + 16 * warp + gq + 8 * ((i >> 1) & 1);
+          const int m = p * MEL_TILE + (2 * wg + h) * MEL_SUB + 8 * (i >> 2) + 2 * q;
+          const float d0 = 10.f * log10f(fmaxf(mel[h][i], 1e-10f));
+          const float d1 = 10.f * log10f(fmaxf(mel[h][i + 1], 1e-10f));
+          float* o = out + ((long long)b * T + t) * n_mels + m;
+          if (t < T) {
+            if (pairs && m + 1 < n_mels) {
+              *reinterpret_cast<float2*>(o) = make_float2(d0, d1);
+            } else {
+              if (m < n_mels) o[0] = d0;
+              if (m + 1 < n_mels) o[1] = d1;
             }
           }
-      }
+        }
       named_sync(1, 128 * CONSUMERS);  // both are done with the power tiles
     }
   }
-  cluster_sync();
 }
 
 }  // namespace bfk
@@ -1189,14 +1152,13 @@ int sept_mel_db_bf16(const float* wave, const void* window, const void* table, c
   const int n_ttiles = (T + bfk::TF - 1) / bfk::TF;
   const long long blocks = (long long)n_ttiles * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  // persistent: a cluster an SM pair, at most one a tile pair
+  // persistent: a block an SM, at most one a frame tile
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const long long pairs = (blocks + bfk::CLUSTER - 1) / bfk::CLUSTER;
-  const long long grid = std::min<long long>(pairs, std::max(1, sms / bfk::CLUSTER)) * bfk::CLUSTER;
+  const long long grid = std::min<long long>(blocks, std::max(1, sms));
   const bool vec = L % 4 == 0 && hop % 4 == 0 && (reinterpret_cast<uintptr_t>(wave) & 15) == 0;
   bfk::mel_bf16_kernel<<<(unsigned)grid, bfk::THREADS_B, lay.total, (cudaStream_t)stream>>>(
       wave, static_cast<const __nv_bfloat16*>(window), static_cast<const __nv_bfloat16*>(table),

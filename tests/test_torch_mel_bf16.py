@@ -1,5 +1,6 @@
-"""The bf16 mel kernel's tables (``ops/mel.py::_kernel_tables_bf16``) and a
-CPU restatement of what the kernel does with them, vs the plain version and
+"""The bf16 mel kernel's tables (``ops/mel.py::_kernel_tables_bf16``; their
+expansion back to the plain tables is held in ``tests/test_torch_mfcc.py``)
+and a CPU restatement of what the kernel does with them, vs the plain version and
 the JAX package's bf16 Pallas kernel in interpret mode (CPU).
 
 The CUDA kernel (``csrc/mel.cu``, ``bfk::mel_bf16_kernel``) runs only on the
@@ -29,8 +30,7 @@ import torch
 from sept_tpu.ops.pallas_frontend import pallas_mel_spectrogram
 from sept_tpu_torch.ops import mel as M
 
-from _torch_helpers import (BF16_GEOMETRY, bf16_kernel_tables, expand_bf16_tables,
-                            speechlike)
+from _torch_helpers import BF16_GEOMETRY, bf16_kernel_tables, speechlike
 
 BF16_MAX, BF16_P99 = 10 * np.log10(1 + 2.0 ** -7) + 1e-4, 1e-3
 BF = torch.bfloat16
@@ -87,25 +87,6 @@ def _bf16_close(ours, theirs):
     assert np.percentile(d, 99) <= BF16_P99, np.percentile(d, 99)
 
 
-@pytest.mark.parametrize("n_fft,n_mels", [(800, 40), (800, 128), (800, 256), (799, 80),
-                                          (2048, 256), (2, 1)])
-def test_bf16_tables_expand_to_the_plain_tables(n_fft, n_mels):
-    """Every table tile (chunks cut to a multiple of 16 frequencies, mel
-    passes of 128) expands back to the plain version's bf16 tables, zeros
-    elsewhere, and each mask bit marks a nonzero sub-tile."""
-    window, cos_k, sin_k, fb_k = expand_bf16_tables(n_fft, n_mels)
-    w_p, cos_p, sin_p, fb_p = M._tables_bf16(n_fft, n_mels, torch.device("cpu"))
-    n_freq = n_fft // 2 + 1
-    assert torch.equal(window, w_p)
-    for k, plain in ((cos_k, cos_p), (sin_k, sin_p)):
-        assert torch.equal(k[:n_fft, :n_freq], plain.float())
-        assert not k[n_fft:].any() and not k[:, n_freq:].any()
-    assert torch.equal(fb_k[:n_freq, :n_mels], fb_p.float())
-    assert not fb_k[n_freq:].any() and not fb_k[:, n_mels:].any()
-    widths = M.bf16_chunks(n_fft, BF16_GEOMETRY)
-    assert sum(widths) - n_freq < 16 and all(w % 16 == 0 for w in widths)
-
-
 def test_zero_bank_sub_tiles_are_skipped():
     """At the ingest's shape the filterbank is zero in most (chunk, 32-mel)
     sub-tiles: the kernel neither copies nor multiplies those."""
@@ -115,7 +96,7 @@ def test_zero_bank_sub_tiles_are_skipped():
 
 
 @pytest.mark.parametrize("n_fft,hop,n_mels", [(800, 160, 128), (400, 200, 128),
-                                              (799, 160, 80), (1600, 160, 40)])
+                                              (799, 160, 80), (1600, 160, 40), (800, 320, 128)])
 def test_restated_kernel_matches_plain_and_pallas(rng, n_fft, hop, n_mels):
     padded = _padded(rng, (9000, 6000), n_fft)
     t = (padded.shape[1] - n_fft) // hop + 1

@@ -24,7 +24,7 @@ from sept_tpu_torch.ops import frontend as TF
 from sept_tpu_torch.ops import mel as M
 from sept_tpu_torch.ops.mfcc import floor_dct, floor_dct_plain, fused_mfcc
 
-from _torch_helpers import expand_bf16_tables, speechlike
+from _torch_helpers import BF16_GEOMETRY, expand_bf16_tables, speechlike
 
 BF16_MAX, BF16_P99 = 10 * np.log10(1 + 2.0 ** -7) + 1e-4, 1e-3
 
@@ -123,11 +123,15 @@ def test_mel_db_bf16_takes_its_mode_on_the_cpu(rng):
         M.mel_db_bf16(torch.empty((1, 2000), device="meta"), 5)
 
 
-@pytest.mark.parametrize("n_fft,n_mels", [(800, 128), (400, 128), (1600, 40)])
+@pytest.mark.parametrize("n_fft,n_mels", [(800, 128), (400, 128), (1600, 40), (800, 40),
+                                          (800, 256), (799, 80), (2048, 256), (1600, 256),
+                                          (2, 1)])
 def test_bf16_kernel_tables_hold_the_plain_tables(n_fft, n_mels):
     """The kernel's swizzled cos/sin tiles (cos and sin of a frequency
-    interleaved) and filterbank tiles (a mel row over a chunk's frequencies)
-    carry exactly the plain version's bf16 tables, zeros elsewhere."""
+    interleaved; chunks cut to a multiple of 16 frequencies) and filterbank
+    tiles (a mel row over a chunk's frequencies, passes of 128 mels) carry
+    exactly the plain version's bf16 tables, zeros elsewhere, and each mask
+    bit marks a nonzero sub-tile."""
     window, cos_k, sin_k, fb_k = expand_bf16_tables(n_fft, n_mels)
     w_p, cos_p, sin_p, fb_p = M._tables_bf16(n_fft, n_mels, torch.device("cpu"))
     n_freq = n_fft // 2 + 1
@@ -138,6 +142,8 @@ def test_bf16_kernel_tables_hold_the_plain_tables(n_fft, n_mels):
         assert not t[n_fft:].any() and not t[:, n_freq:].any()
     assert torch.equal(fb_k[:n_freq, :n_mels], fb_p.float())
     assert not fb_k[n_freq:].any() and not fb_k[:, n_mels:].any()
+    widths = M.bf16_chunks(n_fft, BF16_GEOMETRY)
+    assert sum(widths) - n_freq < 16 and all(w % 16 == 0 for w in widths)
 
 
 def test_floor_dct_plain_matches_jax_floor_dot(rng):

@@ -150,19 +150,6 @@ def test_k3_runs_match_the_plain_version(shape, cd):
         _sums_close(sums, sums_p, dy_p, y, mean, inv)
 
 
-def test_k3_geometry_fills_its_blocks():
-    """At the training windows' shape: in bf16 one band a plane (one slot
-    of partial sums), runs of 8 cells, 160 threads taking exactly 5 runs
-    each; in f32 runs of 4 and 7 bands of 15 cell rows (240 runs, 256
-    threads).  The wide edge goes cell by cell in bf16, by runs of 4 in
-    f32."""
-    assert k3_geometry(200, 128, True, *k3_run(BF)) == (True, 8, 1, 100, 160)
-    assert k3_geometry(200, 128, True, *k3_run(torch.float32)) == (True, 16, 7, 15, 256)
-    vec, per_row, bands, rows, threads = k3_geometry(27, 264, True, *k3_run(BF))
-    assert not vec and per_row == 132 and bands * rows >= 14
-    assert k3_geometry(27, 264, True, *k3_run(torch.float32))[:2] == (True, 33)
-
-
 @pytest.mark.parametrize("cd", MODES, ids=["f32", "bf16"])
 def test_k3_restated_matches_jax_k3_route(cd):
     """The restated kernel and JAX's interpret-mode _k3_route (the TPU
