@@ -90,20 +90,26 @@ and read just after; each kernel the path must use has to have launched
                n_fft 400 and 1600, each mel against
                float64 too; n_fft 802, 1022, 799, 2042, 2048, 858 and 1001
                at hop 160 on 64 rows of 401 frames, each launching, timed
-               beside its plain version); the bf16 mel
+               beside its plain version; n_mels 320 and 512 at n_fft 1024
+               and 2048, F32_WIDE_MEL_EDGES); the bf16 mel
                (max 10 log10(1 + 2^-7) + 1e-4 dB, p99 1e-3 dB) on the bf16 ingest's
                waves, beside the f32 kernel on them and with a second bound
                (bound_mma_ms: its dense DFT products and its bank's
                nonzeros at the bf16 tensor-core rate), and floor + DCT (1e-5 of max |plain|) on one mfcc chunk
                of 64 utterances at bucket 64000, then the bf16 mel at n_fft
                400 / 1600, one frame, n_fft 799 and 2048, hop 320 (frame
-               tile built from device memory), n_mels 256 and 80
-               (BF16_MEL_EDGES), floor + DCT at ragged row counts; the bf16 modes of K1-K5 on a bf16 baseline
+               tile built from device memory), n_mels 256, 80, 320 and 512
+               (BF16_MEL_EDGES), floor + DCT at FLOOR_DCT_EDGES (n_mfcc 13,
+               64, 65, 128; n_mels 40, 512, 1000, 42; 1, 63, 65, 1001 and
+               70,000 rows; a misaligned mel; each timed beside its plain
+               version); the bf16 modes of K1-K5 on a bf16 baseline
                step's tensors (conv output within one bf16 unit and
                bit-equal in 99.9% of the elements, moments 1e-5 of the sums
                of |terms|, pooled and dy equal, K4 and K5 as in f32), timed
                beside their plain versions, one bf16 PyTorch call and the
-               bound, then at the edge shapes.
+               bound, then at the edge shapes; K2 in both modes bit-equal
+               to its plain version at K2_EDGES (odd H and W, widths off
+               16, three column tiles, a misaligned conv output).
 11. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
 12. profile    device time by kernel over predict calls of 1 and of 8
@@ -197,10 +203,33 @@ FLOOR_DCT_RTOL = 1e-5  # of max |plain|: two f32 sums of 128 terms
 # frame tiles at n_fft 400 / hop 200 and 1600, one frame, an odd n_fft, the
 # largest n_fft (frame tile built slab by slab), hop 320 (a tile's samples
 # past its staging room: the whole frame tile built from device memory), two
-# mel passes (256) and a bank narrower than one (80)
+# mel passes (256), a bank narrower than one (80), and three and four passes
+# (320 at n_fft 800, 512 at n_fft 2048: bands with no frequency bin, -100 dB)
 BF16_MEL_EDGES = ((3, 400, 200, 70, 128), (2, 1600, 160, 37, 128), (1, 800, 160, 1, 128),
                   (2, 799, 160, 90, 128), (2, 2048, 160, 50, 128), (2, 800, 320, 40, 128),
-                  (2, 800, 160, 100, 256), (2, 800, 160, 100, 80))
+                  (2, 800, 160, 100, 256), (2, 800, 160, 100, 80), (2, 800, 160, 100, 320),
+                  (2, 2048, 160, 50, 512))
+# the f32 mel kernel's wide banks (rows, n_fft, hop, frames, n_mels): three
+# and four bf16 passes' widths, with empty bands at n_fft 1024
+F32_WIDE_MEL_EDGES = ((2, 1024, 160, 60, 320), (2, 2048, 160, 60, 512))
+# floor + DCT off the featurize chunk (rows, n_mels, n_mfcc, misaligned):
+# coefficients 13, 64, 65 (a ragged coefficient tile) and 128 (four tiles);
+# 40 and 512 mels, 1000 (two launches, the second continuing the first's
+# sums) and 42 (rows the tensor copy cannot take: loaded by the producer's
+# lanes); a mel tensor one float off 16-byte alignment; 1, 63, 65 and 1001
+# rows, and 70,000 (274 row tiles: more than the persistent grid's blocks,
+# two an SM)
+FLOOR_DCT_EDGES = ((4000, 128, 13, False), (4000, 128, 64, False), (4000, 128, 65, False),
+                   (4000, 128, 128, False), (4000, 40, 40, False), (4000, 512, 40, False),
+                   (4000, 1000, 40, False), (4000, 42, 13, False), (4000, 128, 40, True),
+                   (1, 128, 40, False), (63, 128, 40, False), (65, 128, 40, False),
+                   (1001, 128, 40, False), (70000, 128, 40, False))
+# K2 (norm_pool) off the main path, both modes, (B, H, W, misaligned): odd H
+# and W, widths that are not a multiple of 16 (33, 29, 264: the per-cell path
+# in bf16, 264 the runs in f32), three column tiles, 48 (runs in both), a
+# conv output one element off 16-byte alignment (the per-cell path)
+K2_EDGES = ((1, 37, 29, False), (3, 64, 33, False), (2, 37, 48, False), (1, 27, 264, False),
+            (2, 201, 129, False), (2, 200, 128, True))
 
 
 def log(msg):
@@ -418,7 +447,7 @@ def mel_truth(x, t, n_fft, hop, n_mels=N_MELS):
     return 10.0 * torch.log10(torch.clamp(power @ fb.double(), min=M.AMIN))
 
 
-def check_mel(k, p, x, t, n_fft, hop, what):
+def check_mel(k, p, x, t, n_fft, hop, what, n_mels=N_MELS):
     """The f32 mel kernel against its plain version, cell by cell: within
     TOL["mel_db"] dB, or, where the two part by more, the kernel no farther
     than the plain version from the float64 truth, plus TOL["mel_db"]: on
@@ -426,7 +455,7 @@ def check_mel(k, p, x, t, n_fft, hop, what):
     off the truth by more than the tolerance (PERF.md).  Returns the
     readings."""
     tol = TOL["mel_db"]
-    truth = mel_truth(x, t, n_fft, hop)
+    truth = mel_truth(x, t, n_fft, hop, n_mels)
     dk, dp = (k.double() - truth).abs(), (p.double() - truth).abs()
     depth = truth.amax(-1, keepdim=True) - truth  # dB under the frame's peak band
     d = (k - p).abs()
@@ -602,6 +631,21 @@ def edge_phase(device):
             log(f"mel_db at n_fft {n_fft}: {worst['mel_db_any_n_fft'][-1]}")
             for key in ("kernel_vs_f64", "plain_vs_f64"):
                 worst[f"mel_db_{key}"] = max(worst[f"mel_db_{key}"], c[key])
+        # wide banks (n_mels past 256: the fault closed in this slice), each
+        # launching and held to check_mel's rule
+        worst["mel_db_wide"] = []
+        g_wide = torch.Generator(device=device).manual_seed(SEED + 21)
+        for b, n_fft, hop, t, n_mels in F32_WIDE_MEL_EDGES:
+            x = 0.3 * torch.randn(b, (t - 1) * hop + n_fft + 77, device=device, generator=g_wide)
+            before = M.mel_db.launches
+            k = M.mel_db(x, t, n_fft, hop, n_mels)
+            require(M.mel_db.launches == before + 1, f"mel_db did not launch at n_mels {n_mels}")
+            p = M.mel_db_plain(x, t, n_fft, hop, n_mels)
+            c = check_mel(k, p, x, t, n_fft, hop, f"edge n_mels {n_mels}", n_mels)
+            worst["mel_db_wide"].append({"n_fft": n_fft, "n_mels": n_mels, "shape": [b, t],
+                                         "empty_bands": int((k == -100.0).all(1).all(0).sum()),
+                                         "check_vs_f64": c})
+            worst["mel_db"] = max(worst["mel_db"], c["max_abs_vs_plain"])
         for b, h, w in K4_EDGES + (WIDE_EDGE,):
             x = torch.randn(b, 1, h, w, device=device, generator=g)
             wt = 0.2 * torch.randn(32, 1, 5, 5, device=device, generator=g)
@@ -1890,7 +1934,8 @@ def mel_featurize_phase(chunk):
 
 def featurize_edge_phase(device):
     """Both kernels at shapes off the main path: the bf16 mel at
-    BF16_MEL_EDGES, floor + DCT at a ragged row count and one row."""
+    BF16_MEL_EDGES, floor + DCT at FLOOR_DCT_EDGES, each launching, held to
+    1e-5 of max |plain| and timed beside its plain version."""
     from sept_tpu_torch.ops import mel as M
     from sept_tpu_torch.ops import mfcc as MF
 
@@ -1903,18 +1948,59 @@ def featurize_edge_phase(device):
                                       M.mel_db_plain(x, t, n_fft, hop, n_mels, bf16=True))
             worst["mel_db_bf16"] = max(worst["mel_db_bf16"], mx)
             worst["mel_db_bf16_p99"] = max(worst["mel_db_bf16_p99"], p99)
-        dct = MF.dct_basis(40, 128, torch.device(device))
-        for rows in (1001, 1):
-            mel = 20 * torch.randn(rows, 128, device=device, generator=g) - 40
+        worst["floor_dct_edges"] = []
+        for rows, n_mels, n_mfcc, misaligned in FLOOR_DCT_EDGES:
+            flat = 20 * torch.randn(rows * n_mels + 1, device=device, generator=g) - 40
+            mel = (flat[1:] if misaligned else flat[:-1]).view(rows, n_mels)
             floor = 10 * torch.randn(rows, device=device, generator=g) - 60
+            dct = MF.dct_basis(n_mfcc, n_mels, torch.device(device))
+            before = MF.floor_dct.launches
+            k = MF.floor_dct(mel, floor, dct)
+            require(MF.floor_dct.launches == before + 1,
+                    f"floor_dct did not launch at {(rows, n_mels, n_mfcc, misaligned)}")
             p = MF.floor_dct_plain(mel, floor, dct)
-            rel = float((MF.floor_dct(mel, floor, dct) - p).abs().max() / p.abs().max())
+            rel = float((k - p).abs().max() / p.abs().max())
+            worst["floor_dct_edges"].append({
+                "rows": rows, "n_mels": n_mels, "n_mfcc": n_mfcc, "misaligned": misaligned,
+                "max_rel_err_of_max_abs": rel,
+                "device_ms": device_ms(lambda: MF.floor_dct(mel, floor, dct)),
+                "plain_device_ms": device_ms(lambda: MF.floor_dct_plain(mel, floor, dct))})
             worst["floor_dct_rel"] = max(worst["floor_dct_rel"], rel)
     require(worst["mel_db_bf16"] <= BF16_MAX and worst["mel_db_bf16_p99"] <= BF16_P99,
             f"mel_db_bf16 disagrees with its plain version at edge shapes: {worst}")
     require(worst["floor_dct_rel"] <= FLOOR_DCT_RTOL,
             f"floor_dct disagrees with its plain version at edge shapes: {worst}")
     return worst
+
+
+def norm_pool_edge_phase(device):
+    """K2 in both modes against its plain version at K2_EDGES, bit for bit,
+    each call launching (runs of 16-byte vectors or the per-cell path, as
+    the width and the alignment allow)."""
+    from sept_tpu_torch.ops import conv_block1 as K
+
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    rows = []
+    with torch.inference_mode():
+        for cd in (torch.float32, torch.bfloat16):
+            attr, run = ("launches_bf16", 8) if cd == torch.bfloat16 else ("launches", 4)
+            for b, h, w, misaligned in K2_EDGES:
+                n = b * 32 * h * w
+                flat = torch.randn(n + 1, device=device, generator=g).to(cd)
+                y = (flat[1:] if misaligned else flat[:n]).view(b, 32, h, w)
+                scale = 1 + 0.1 * torch.randn(32, device=device, generator=g)
+                shift = 0.1 * torch.randn(32, device=device, generator=g)
+                before = getattr(K.block1_norm_pool, attr)
+                k = K.block1_norm_pool(y, scale, shift, cd)
+                launched = getattr(K.block1_norm_pool, attr) - before
+                p = K.block1_norm_pool_plain(y, scale, shift, cd)
+                rows.append({"mode": str(cd).split(".")[-1], "shape": [b, 32, h, w],
+                             "misaligned": misaligned,
+                             "runs": not misaligned and w % (2 * run) == 0,
+                             "max_abs_err": float((k.float() - p.float()).abs().max())})
+                require(launched == 1 and k.dtype == cd and rows[-1]["max_abs_err"] == 0.0,
+                        f"block1_norm_pool is not bit-equal to its plain version: {rows[-1]}")
+    return {"block1_norm_pool_edges": rows}
 
 
 def ptxas_summary(reports):
@@ -2006,6 +2092,9 @@ def main():
     edges.update(train_edge_phase(gpu.device))
     edges.update(featurize_edge_phase(gpu.device))
     edges.update(train_bf16_edge_phase(gpu.device))
+    edges.update(norm_pool_edge_phase(gpu.device))
+    kernels[0]["wide_banks"] = edges.pop("mel_db_wide")
+    next(k for k in kernels if k["name"] == "floor_dct")["edges"] = edges.pop("floor_dct_edges")
     log(f"edge-shape checks: {edges}")
     latency = latency_phase(gpu, np.random.default_rng(SEED + 7))
     log(f"latency done at {time.perf_counter() - t0:.1f} s")

@@ -69,9 +69,17 @@
 //   second pass (reduce_partials_kernel) adds each row in double:
 //   deterministic (no float atomics), so two runs give the same moments and
 //   gradients bit for bit.
-// - K2 is elementwise over pooled outputs; it rounds y * a + b as torch's
-//   separate multiply and add do (no FMA contraction), so it agrees with its
-//   plain version bit for bit.  K3 recomputes z with the same rounding, and
+// - K2 rounds y * a + b as torch's separate multiply and add do (no FMA
+//   contraction), so it agrees with its plain version bit for bit.  It
+//   shares K3's geometry: a thread takes a run of adjacent pooled cells (8
+//   in bf16, 4 in f32: 16 bytes of output) where W is a multiple of twice
+//   the run and the tensors are 16-byte aligned, reads y's two rows as
+//   16-byte vectors and loads its next run before it pools the current one;
+//   a block takes a band of pooled rows of one (item, channel), so scale
+//   and shift are read once a block.  What bounded the first design (one
+//   pooled cell a thread, four 2-byte loads, 64-bit divisions for every
+//   element) in bf16: instructions, not bytes (0.46 of its bound at (32,
+//   32, 200, 128) on the H100).  K3 recomputes z with the same rounding, and
 //   K4 and K5 compute dconv in the plain version's order, uncontracted, so
 //   that the bf16 rounding of dconv sees the plain version's f32 value.
 // - K3 takes runs of 8 adjacent 2x2 cells a thread where W is a multiple
@@ -558,32 +566,6 @@ reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ s
   if (threadIdx.x == 0) sums[blockIdx.x] = (float)buf[0];
 }
 
-// the max of the four rounded z equals the rounding of the max of the four
-// f32 z (rounding to nearest is monotone), so one rounding at the store
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-norm_pool_kernel(const T* __restrict__ y,          // (B, C, H, W)
-                 const float* __restrict__ scale,  // (C,)
-                 const float* __restrict__ shift,  // (C,)
-                 T* __restrict__ out,              // (B, C, H/2, W/2)
-                 int C, int H, int W, int Ho, int Wo, long long total) {
-  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * THREADS) {
-    const int j = (int)(idx % Wo);
-    const long long r = idx / Wo;
-    const int i = (int)(r % Ho);
-    const long long bc = r / Ho;
-    const int c = (int)(bc % C);
-    const T* q = y + (bc * H + 2 * i) * W + 2 * j;
-    const float a = __ldg(scale + c), sh = __ldg(shift + c);
-    float m = bn_affine(to_f(q[0]), a, sh);
-    m = fmaxf(m, bn_affine(to_f(q[1]), a, sh));
-    m = fmaxf(m, bn_affine(to_f(q[W]), a, sh));
-    m = fmaxf(m, bn_affine(to_f(q[W + 1]), a, sh));
-    out[idx] = from_f<T>(fmaxf(m, 0.f));
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K3
 
@@ -814,6 +796,87 @@ route_kernel(const T* __restrict__ y,           // (B, C, H, W)
     const long long n_slots = gridDim.x / C;   // B * bands
     const long long slot = b * bands + band;
     partials[((long long)threadIdx.x * C + c) * n_slots + slot] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2
+
+// One block per (item, channel, band of pooled rows), in K3's geometry over
+// the pooled grid (odd H or W floored: the last row or column of y is not
+// read).  Vector path (W a multiple of 2 * run, 16-byte aligned tensors): a
+// thread takes a run of adjacent pooled cells of one row, 8 in bf16 and 4
+// in f32 (16 bytes of output) -- y's two rows as two 16-byte loads each --
+// and loads its next run before it pools the current one.  Per-cell path
+// (any other width or alignment): one cell at a time.  scale[c] and
+// shift[c] are read once a block.  The max of the four rounded z equals the
+// rounding of the max of the four f32 z (rounding to nearest is monotone),
+// so one rounding at the store.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+norm_pool_kernel(const T* __restrict__ y,          // (B, C, H, W)
+                 const float* __restrict__ scale,  // (C,)
+                 const float* __restrict__ shift,  // (C,)
+                 T* __restrict__ out,              // (B, C, H/2, W/2)
+                 int C, int H, int W, int bands, int rows, int per_row, bool vec) {
+  const long long plane = blockIdx.x / bands;   // b * C + c
+  const int band = (int)(blockIdx.x % bands);
+  const int c = (int)(plane % C);
+  const int Ho = H / 2, Wo = W / 2;
+  const int i0 = band * rows, i1 = min(Ho, i0 + rows);
+  const int n_items = (i1 - i0) * per_row;
+  const T* yp = y + plane * H * W;
+  T* op = out + plane * Ho * Wo;
+  const float a = __ldg(scale + c), sh = __ldg(shift + c);
+  if (vec) {
+    constexpr int RUN = run_of<T>();
+    constexpr int YW = 2 * RUN * sizeof(T) / 16;  // 16-byte words a run of one y row
+    uint4 cy[2 * YW], ny[2 * YW];
+    auto fetch = [&](int r, uint4 (&qy)[2 * YW]) {
+      const int i = i0 + r / per_row, j0 = (r % per_row) * RUN;
+      const uint4* p0 = reinterpret_cast<const uint4*>(yp + (long long)2 * i * W + 2 * j0);
+      const uint4* p1 = reinterpret_cast<const uint4*>(yp + (long long)(2 * i + 1) * W + 2 * j0);
+#pragma unroll
+      for (int k = 0; k < YW; ++k) {
+        qy[k] = __ldg(p0 + k);
+        qy[YW + k] = __ldg(p1 + k);
+      }
+    };
+    const int step = blockDim.x;
+    int r = threadIdx.x;
+    if (r < n_items) fetch(r, cy);
+    for (; r < n_items; r += step) {
+      // the next run's loads are in flight while this one is pooled
+      if (r + step < n_items) fetch(r + step, ny);
+      const int i = i0 + r / per_row, j0 = (r % per_row) * RUN;
+      float y0[2 * RUN], y1[2 * RUN], o[RUN];
+      unpack<T, YW>(cy, y0);
+      unpack<T, YW>(cy + YW, y1);
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        float m = bn_affine(y0[2 * j], a, sh);
+        m = fmaxf(m, bn_affine(y0[2 * j + 1], a, sh));
+        m = fmaxf(m, bn_affine(y1[2 * j], a, sh));
+        m = fmaxf(m, bn_affine(y1[2 * j + 1], a, sh));
+        o[j] = fmaxf(m, 0.f);
+      }
+      uint4 v;
+      if constexpr (sizeof(T) == 4) v = pack16(o);
+      else v = pack16_bf16(o);
+      *reinterpret_cast<uint4*>(op + (long long)i * Wo + j0) = v;
+#pragma unroll
+      for (int k = 0; k < 2 * YW; ++k) cy[k] = ny[k];
+    }
+  } else {
+    for (int r = threadIdx.x; r < n_items; r += blockDim.x) {
+      const int i = i0 + r / Wo, j = r % Wo;
+      const T* q = yp + (long long)2 * i * W + 2 * j;
+      float m = bn_affine(to_f(q[0]), a, sh);
+      m = fmaxf(m, bn_affine(to_f(q[1]), a, sh));
+      m = fmaxf(m, bn_affine(to_f(q[W]), a, sh));
+      m = fmaxf(m, bn_affine(to_f(q[W + 1]), a, sh));
+      op[(long long)i * Wo + j] = from_f<T>(fmaxf(m, 0.f));
+    }
   }
 }
 
@@ -1445,15 +1508,17 @@ int conv_stats(const float* x, const float* w, const float* bias, T* y, float* s
   return (int)cudaGetLastError();
 }
 
+// K2 in K3's geometry over the pooled grid: 2 * (H/2) x 2 * (W/2) of y
 template <typename T>
 int norm_pool(const T* y, const float* scale, const float* shift, T* out, int B, int C,
               int H, int W, void* stream) {
-  const int Ho = H / 2, Wo = W / 2;
-  const long long total = (long long)B * C * Ho * Wo;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(blocks < (1LL << 20) ? blocks : (1LL << 20));
-  norm_pool_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(y, scale, shift, out, C, H,
-                                                                 W, Ho, Wo, total);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out)) &
+                        15) == 0 && W % (2 * run_of<T>()) == 0;
+  const K3Geometry geo(H / 2 * 2, W / 2 * 2, aligned, run_of<T>(), band_max<T>());
+  const long long n_blocks = (long long)B * C * geo.bands;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  norm_pool_kernel<T><<<(unsigned)n_blocks, geo.threads, 0, (cudaStream_t)stream>>>(
+      y, scale, shift, out, C, H, W, geo.bands, geo.rows, geo.per_row, geo.vec);
   return (int)cudaGetLastError();
 }
 

@@ -94,7 +94,6 @@
 namespace {
 
 constexpr int WARPS = 8;              // most warps a block, one frame each at a time
-constexpr int MEL_MAX = 256;          // widest mel bank taken
 constexpr int MAX_STAGES = 24;        // radix passes of the plan
 constexpr int SMEM_LIMIT = 232448;    // shared memory a block may opt into on Hopper
 
@@ -443,8 +442,9 @@ mel_fft_kernel(const float* __restrict__ wave,      // (B, L)
 // - The last chunk is cut to a multiple of 16 frequencies (wgmma N a
 //   multiple of 32 here): 416 computed for 401 at n_fft 800.  Taps pad to a
 //   multiple of 64 in the table; k-steps past n_fft are skipped.
-// - Mel columns go in passes of 128 (n_mels <= 256 takes at most two);
-//   each warpgroup writes 10*log10(max(., 1e-10)) of its 64.
+// - Mel columns go in passes of 128, as many as n_mels needs (each pass
+//   runs the chunks' DFT again); each warpgroup writes 10*log10(max(.,
+//   1e-10)) of its 64.
 
 namespace bfk {
 
@@ -1058,9 +1058,6 @@ extern "C" {
 
 const char* sept_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Widest mel bank the kernel takes; the wrapper refuses wider ones.
-int sept_mel_db_max_mels() { return MEL_MAX; }
-
 // Shared memory one block needs for (n_fft, hop) and a plan of length F
 // (the product of its radices); the wrapper refuses shapes above the card's
 // per-block limit before launching.
@@ -1079,7 +1076,7 @@ int sept_mel_db(const float* wave, const float* window, const double* twiddles,
                 const int* bank_idx, const float* bank_w, float* out, int B, int L, int T,
                 int n_fft, int hop, int n_mels, int n_tw, const int* radices, int n_stages,
                 void* stream) {
-  if (n_mels > MEL_MAX || n_mels < 1 || hop < 1 || n_fft < 2 || n_stages < 0 ||
+  if (n_mels < 1 || hop < 1 || n_fft < 2 || n_stages < 0 ||
       n_stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   FftPlan plan;
@@ -1136,7 +1133,7 @@ long long sept_mel_bf16_smem_bytes(int n_fft) { return (long long)bfk::Layout(n_
 int sept_mel_db_bf16(const float* wave, const void* window, const void* table, const void* bank,
                      const void* masks, float* out, int B, int L, int T, int n_fft, int hop,
                      int n_mels, void* stream) {
-  if (n_mels > MEL_MAX || n_mels < 1 || hop < 1 || n_fft < 2) return (int)cudaErrorInvalidValue;
+  if (n_mels < 1 || hop < 1 || n_fft < 2) return (int)cudaErrorInvalidValue;
   const int n_freq = n_fft / 2 + 1;
   const int n_chunks = (n_freq + bfk::NC - 1) / bfk::NC;
   const int tail = n_freq - bfk::NC * (n_chunks - 1);

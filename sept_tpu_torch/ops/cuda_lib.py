@@ -39,7 +39,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "mel": {
         "sept_mel_db": ([_P] * 6 + [_I] * 7 + [_P, _I, _P], _I),
-        "sept_mel_db_max_mels": ([], _I),
         "sept_mel_db_smem_bytes": ([_I] * 3, _LL),
         "sept_mel_bf16_geometry": ([_P], None),
         "sept_mel_bf16_smem_bytes": ([_I], _LL),
@@ -47,8 +46,6 @@ _SIGNATURES = {
     },
     "mfcc": {
         "sept_floor_dct": ([_P] * 4 + [_I] * 3 + [_P], _I),
-        "sept_floor_dct_smem_bytes": ([_I] * 2, _LL),
-        "sept_floor_dct_max_mfcc": ([], _I),
     },
     "conv_block1": {
         "sept_conv_stats": ([_P] * 6 + [_I] * 4 + [_P], _I),

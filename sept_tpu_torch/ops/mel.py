@@ -269,9 +269,6 @@ def mel_db(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
     b, length = padded_waves.shape
     cuda_lib.require(padded_waves, "mel_db padded_waves", (b, length), dev)
     lib = cuda_lib.load("mel")
-    max_mels = lib.sept_mel_db_max_mels()
-    if n_mels > max_mels:
-        raise ValueError(f"mel_db: the kernel takes at most {max_mels} mels, got {n_mels}")
     radices, window, twiddles, index, weights = _fft_tables(n_fft, n_mels, dev)
     n_tw = twiddles.numel() // 2
     smem = lib.sept_mel_db_smem_bytes(n_fft, hop, int(np.prod(radices)))
@@ -306,9 +303,6 @@ def mel_db_bf16(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
     b, length = padded_waves.shape
     cuda_lib.require(padded_waves, "mel_db_bf16 padded_waves", (b, length), dev)
     lib = cuda_lib.load("mel")
-    max_mels = lib.sept_mel_db_max_mels()
-    if n_mels > max_mels:
-        raise ValueError(f"mel_db_bf16: the kernel takes at most {max_mels} mels, got {n_mels}")
     if n_fft < 2:
         raise ValueError(f"mel_db_bf16: n_fft must be >= 2, got {n_fft}")
     smem = lib.sept_mel_bf16_smem_bytes(n_fft)

@@ -38,7 +38,8 @@ def floor_dct(mel_db: torch.Tensor, floor: torch.Tensor, dct: torch.Tensor) -> t
     """Floor each row of un-floored mel dB at its own level, then the DCT.
 
     ``mel_db`` (rows, n_mels) f32, ``floor`` (rows,) f32, ``dct`` (n_mels,
-    n_mfcc) f32; returns (rows, n_mfcc) f32, f32 FMAs (no TF32).
+    n_mfcc) f32, any n_mels >= 1 and n_mfcc; returns (rows, n_mfcc) f32, f32
+    FMAs summed over the mels in ascending order (no TF32).
     """
     dev = mel_db.device
     if dev.type == "cpu":
@@ -51,17 +52,10 @@ def floor_dct(mel_db: torch.Tensor, floor: torch.Tensor, dct: torch.Tensor) -> t
     cuda_lib.require(mel_db, "floor_dct mel_db", (rows, n_mels), dev)
     cuda_lib.require(floor, "floor_dct floor", (rows,), dev)
     cuda_lib.require(dct, "floor_dct dct", (n_mels, n_mfcc), dev)
-    lib = cuda_lib.load("mfcc")
-    if n_mfcc > lib.sept_floor_dct_max_mfcc():
-        raise ValueError(f"floor_dct: the kernel takes at most "
-                         f"{lib.sept_floor_dct_max_mfcc()} coefficients, got {n_mfcc}")
-    smem = lib.sept_floor_dct_smem_bytes(n_mels, n_mfcc)
-    if smem > cuda_lib.max_smem_per_block(dev):
-        raise ValueError(f"floor_dct: {n_mels} mels x {n_mfcc} coefficients need {smem} "
-                         "bytes of shared memory a block, above the card's limit")
     out = torch.empty((rows, n_mfcc), dtype=torch.float32, device=dev)
     if rows == 0:
         return out
+    lib = cuda_lib.load("mfcc")
     err = lib.sept_floor_dct(mel_db.data_ptr(), floor.data_ptr(), dct.data_ptr(),
                              out.data_ptr(), rows, n_mels, n_mfcc, cuda_lib.stream_of(out))
     cuda_lib.check(lib, err, "floor_dct")

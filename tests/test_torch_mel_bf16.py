@@ -121,3 +121,23 @@ def test_restated_kernel_takes_two_mel_passes(rng, n_mels):
     assert ours.shape == (1, t, n_mels)
     _bf16_close(ours, plain)
     assert (ours[..., 128:] > -100).any()  # the second pass carries the bands
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(800, 320), (2048, 512)])
+def test_restated_kernel_takes_three_and_four_mel_passes(rng, n_fft, n_mels):
+    """Past 256 mels (the cap lifted: the kernel refused n_mels > 256) the
+    chunks run once a pass of 128 mels, as many passes as the bank needs;
+    bands with no frequency bin are -100 dB on every side."""
+    padded = _padded(rng, (7000,), n_fft)
+    t = (padded.shape[1] - n_fft) // 160 + 1
+    ours = restated(padded, t, n_fft, 160, n_mels)
+    plain = M.mel_db_plain(torch.from_numpy(padded), t, n_fft, 160, n_mels, bf16=True).numpy()
+    assert ours.shape == (1, t, n_mels)
+    _bf16_close(ours, plain)
+    theirs = np.asarray(pallas_mel_spectrogram(jnp.asarray(padded), n_fft=n_fft, hop=160,
+                                               n_mels=n_mels, tile=32, bf16=True,
+                                               interpret=True))
+    _bf16_close(ours, theirs[:, :t])
+    assert (ours[..., 256:] > -100).any()  # the later passes carry bands
+    masks = bf16_kernel_tables(n_fft, n_mels)[3]
+    assert masks.shape[0] == -(-n_mels // 128)

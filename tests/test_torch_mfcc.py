@@ -125,7 +125,7 @@ def test_mel_db_bf16_takes_its_mode_on_the_cpu(rng):
 
 @pytest.mark.parametrize("n_fft,n_mels", [(800, 128), (400, 128), (1600, 40), (800, 40),
                                           (800, 256), (799, 80), (2048, 256), (1600, 256),
-                                          (2, 1)])
+                                          (2, 1), (800, 320), (2048, 512), (1024, 384)])
 def test_bf16_kernel_tables_hold_the_plain_tables(n_fft, n_mels):
     """The kernel's swizzled cos/sin tiles (cos and sin of a frequency
     interleaved; chunks cut to a multiple of 16 frequencies) and filterbank
