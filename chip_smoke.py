@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (f32 and bf16) and
-featurization paths on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's serving, training (f32 and bf16), featurization
+and fold (training, checkpoints, the suppression sweep) paths on one NVIDIA
+GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -65,7 +66,28 @@ and read just after; each kernel the path must use has to have launched
                parameters within 1e-3 and running statistics within 5e-3 of
                max(|p|, 1) (the bounds the CPU tests hold the port to the
                JAX package with).
-10. kernels    each kernel against its plain version on the tensors the main
+10. fold       one fold of the utility-privacy protocol at full width on a
+               seeded FoldData (training and adversary splits of 512
+               windows, validation of 128, 48 test utterances of 250-800
+               frames, 12 speakers of two corpora, dataset "combine"),
+               through the port's run_folds, f32, 3 epochs each, into a
+               CheckpointManager under build/: the baseline and the
+               adversary (K1-K4, no K5), the GRL cloak at suppression 0, then
+               20, 40, 60 and 80 from it (train_mask, rhos frozen; all five),
+               the plain cloak at 0 (K1-K3 and K5, no K4); no bf16 mode, no
+               mel or floor + DCT kernel.  The GRL cloaks' emotion backbone
+               is the baseline's bit for bit, the suppressed cloaks' rhos the
+               suppression-0 cloak's.  Then the GRL sweep over the five
+               ratios from the checkpoints (eval_mask, evaluate_cloaked_test,
+               sweep_to_rows, rows_to_csv; K1 and K2 only, no backward
+               kernel): 15 rows, every value in [0, 1]; one sweep call
+               profiled; the sweep on the CPU from the same checkpoints with
+               the same epsilon and masks on the first 16 test utterances at
+               ratios 0 and 80: probabilities within 1e-4, predictions equal
+               where the CPU's top two are more than 2e-4 apart.  Last a
+               2-epoch bf16 baseline run_fold (baseline_emotion_bf16; K1-K4
+               in their bf16 mode only).
+11. kernels    each kernel against its plain version on the tensors the main
                path gives it (mel 1e-3 dB cell by cell, and where the FFT
                kernel and the dense plain version part by more, the kernel
                no farther than the plain version from a float64 chain, plus
@@ -110,9 +132,9 @@ and read just after; each kernel the path must use has to have launched
                bound, then at the edge shapes; K2 in both modes bit-equal
                to its plain version at K2_EDGES (odd H and W, widths off
                16, three column tiles, a misaligned conv output).
-11. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
+12. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
-12. profile    device time by kernel over predict calls of 1 and of 8
+13. profile    device time by kernel over predict calls of 1 and of 8
                utterances and over 3 baseline and 3 cloak + GRL steps in each
                dtype, the device's busy share of the wall time
                (torch.profiler), the f32 rate of the blocks 2-3 convolutions
@@ -122,7 +144,7 @@ and read just after; each kernel the path must use has to have launched
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
 ...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
-``{"train_bf16": ...}`` lines, the card's ``name, power.limit`` from
+``{"train_bf16": ...}`` and ``{"fold": ...}`` lines, the card's ``name, power.limit`` from
 nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
 mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
@@ -130,8 +152,10 @@ The result lines (with the card's) are also written whole to
 """
 
 import base64
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -224,6 +248,22 @@ FLOOR_DCT_EDGES = ((4000, 128, 13, False), (4000, 128, 64, False), (4000, 128, 6
                    (4000, 1000, 40, False), (4000, 42, 13, False), (4000, 128, 40, True),
                    (1, 128, 40, False), (63, 128, 40, False), (65, 128, 40, False),
                    (1001, 128, 40, False), (70000, 128, 40, False))
+# one fold of the protocol at full width: training and adversary splits of
+# FOLD_TRAIN windows, validation of FOLD_VAL, FOLD_TEST whole test
+# utterances of FOLD_FRAMES frames (padded to the longest) from FOLD_SPK
+# speakers of two corpora (dataset "combine"); FOLD_EPOCHS f32 epochs a
+# stage (min_select_epoch caps at 1), the GRL sweep over FOLD_RATIOS, 2 bf16
+# baseline epochs; the card's sweep against the CPU's on FOLD_CPU_UTTS test
+# utterances at FOLD_CPU_RATIOS
+FOLD_TRAIN, FOLD_VAL, FOLD_TEST, FOLD_FRAMES, FOLD_SPK = 512, 128, 48, (250, 800), 12
+FOLD_EPOCHS, FOLD_RATIOS, FOLD_CPU_UTTS, FOLD_CPU_RATIOS = 3, (0, 20, 40, 60, 80), 16, (0, 80)
+# the GRL cloaks' learning rate: at the preset's 1e-3 a step moves rho by
+# ~1e-8 (its gradient is 4e-6 to 1e-5 at full width), under f32's spacing at
+# rho = -2 (2.4e-7), so the scales would stay uniform and every percentile
+# mask would keep every cell
+FOLD_GRL_LR = 1e-2
+CORPORA = ("iemocap", "crema-d")
+NO_FRONTEND = ("mel_db", "mel_db_bf16", "floor_dct")  # featurization's kernels
 # K2 (norm_pool) off the main path, both modes, (B, H, W, misaligned): odd H
 # and W, widths that are not a multiple of 16 (33, 29, 264: the per-cell path
 # in bf16, 264 the runs in f32), three column tiles, 48 (runs in both), a
@@ -1572,6 +1612,226 @@ def path_profile(fn, top=10):
 
 
 # ---------------------------------------------------------------------------
+# one fold of the utility-privacy protocol
+
+
+def fold_data(rng):
+    """A seeded full-width FoldData: windows of noise with an emotion band
+    and a gender band (so the models have something to learn), speakers of
+    uneven size (so combine mode's speaker weights differ from 1), half of
+    them in each corpus."""
+    from sept_tpu_torch.data.pipeline import FoldData, SplitArrays
+
+    p_spk = 0.7 ** np.arange(FOLD_SPK)
+    p_spk /= p_spk.sum()
+
+    def split(n, test=False):
+        spk = rng.choice(FOLD_SPK, n, p=p_spk)
+        le, lg = rng.integers(0, 4, n), spk % 2
+        lengths = (rng.integers(FOLD_FRAMES[0], FOLD_FRAMES[1] + 1, n) if test
+                   else np.full(n, WIN))
+        t = int(lengths.max())
+        w = rng.standard_normal((n, t, N_MELS)).astype(np.float32)
+        for i in range(n):
+            w[i, :, 8 * le[i]:8 * le[i] + 8] += 0.5
+            w[i, :, 64 + 8 * lg[i]:72 + 8 * lg[i]] += 0.5
+            w[i, lengths[i]:] = 0.0
+        return SplitArrays(
+            windows=w, labels_emo=le.astype(np.int32), labels_gen=lg.astype(np.int32),
+            lengths=lengths.astype(np.int32), global_data=np.zeros((n, 88), np.float32),
+            speaker_ids=np.array([f"spk{k}" for k in spk], object),
+            datasets=np.array([CORPORA[k % 2] for k in spk], object),
+            utt_ids=np.array([f"utt{i}" for i in range(n)], object))
+
+    return FoldData(1, split(FOLD_TRAIN), split(FOLD_VAL), split(FOLD_TRAIN), split(FOLD_VAL),
+                    split(FOLD_TEST, test=True))
+
+
+def sweep_model(device):
+    from sept_tpu_torch.eval.sweep import SweepModel
+    from sept_tpu_torch.models import Conv2dBiRNN
+
+    return SweepModel(Conv2dBiRNN(HIDDEN, N_MELS, "emotion"), Conv2dBiRNN(HIDDEN, N_MELS, "gender"),
+                      WIN, N_MELS).to(device)
+
+
+def sweep_cell(model, ckpt, cfg, ratio, device):
+    """Load one ratio's artifacts into ``model``; returns its eval mask."""
+    from sept_tpu_torch.cli.train_baseline import artifact_name
+    from sept_tpu_torch.cli.train_cloak import cloak_artifact
+    from sept_tpu_torch.eval.sweep import eval_mask
+
+    model.load_cell(
+        ckpt.restore(cloak_artifact(dataclasses.replace(cfg, suppression_ratio=ratio)), 1, device),
+        ckpt.restore(artifact_name(dataclasses.replace(cfg, adv=False, pred="emotion")), 1, device),
+        ckpt.restore(artifact_name(dataclasses.replace(cfg, adv=True, pred="gender")), 1, device))
+    return eval_mask(model.noise.scales().detach()[0].cpu().numpy(), ratio)
+
+
+def stage_info(result, launches, ms):
+    hist = result.history
+    losses = [h["train"]["loss"] for h in hist] + [h["validate"]["loss"] for h in hist]
+    require(np.isfinite(losses).all(), f"non-finite fold losses {losses}")
+    return {"epochs": len(hist), "wall_ms": ms, "wall_ms_per_epoch": ms / len(hist),
+            "best_epoch": result.best_epoch, "best_val_acc": result.best_val_acc,
+            "test_acc": result.final_test_acc, "test_uar": result.final_test_uar,
+            "train_loss": [h["train"]["loss"] for h in hist],
+            "val_loss": [h["validate"]["loss"] for h in hist],
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def fold_phase(rng):
+    """One fold at full width through the port's run_folds (f32, FOLD_EPOCHS
+    epochs each): the baseline, the adversary, the GRL cloak at suppression
+    0 then 20-80 from it, the plain cloak at 0; the GRL sweep over
+    FOLD_RATIOS from the checkpoints, one sweep call profiled; the sweep on
+    the CPU from the same checkpoints with the same epsilon and masks; a
+    2-epoch bf16 baseline.  Returns (info, launches by path, CSV rows)."""
+    from sept_tpu_torch.cli import train_baseline as TB
+    from sept_tpu_torch.cli import train_cloak as TC
+    from sept_tpu_torch.eval.sweep import (evaluate_cloaked_test, rows_to_csv, sweep_to_rows,
+                                           train_mask)
+    from sept_tpu_torch.models import CloakNoise
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+    from sept_tpu_torch.train.config import preset
+
+    fold = fold_data(rng)
+    out = Path(__file__).resolve().parent / "build" / "fold_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    kw = dict(win_len=WIN, feature_len=N_MELS, hidden_size=HIDDEN, num_epochs=FOLD_EPOCHS,
+              dataset="combine", output_dir=str(out), seed=SEED)
+    grl_cfg = preset("cloak_grl", learning_rate=FOLD_GRL_LR, **kw)
+    ckpt = CheckpointManager(grl_cfg.output_dir)
+    k1k4 = ("block1_conv_stats", "block1_norm_pool", "block1_route", "block1_weight_grads")
+    f32_only = BLOCK1_BF16 + NO_FRONTEND
+    stages = [("baseline", TB, preset("baseline", **kw), k1k4, ("block1_input_grad",)),
+              ("adversary", TB, preset("adversary", **kw), k1k4, ("block1_input_grad",))]
+    stages += [(f"cloak_grl_{r}", TC, dataclasses.replace(grl_cfg, suppression_ratio=r), BLOCK1,
+                ()) for r in FOLD_RATIOS]
+    stages += [("cloak_0", TC, preset("cloak", **kw), k1k4[:3] + ("block1_input_grad",),
+                ("block1_weight_grads",))]
+    info, launches = {"stages": {}}, {}
+    try:
+        for name, mod, cfg, must, absent in stages:
+            result, launches[f"fold_{name}"], ms = drive(
+                lambda: mod.run_fold(cfg, fold, ckpt, verbose=False, device=DEV),
+                must=must, must_not=absent + f32_only)
+            info["stages"][name] = stage_info(result, launches[f"fold_{name}"], ms)
+            log(f"fold {name}: {info['stages'][name]}")
+
+        base = ckpt.restore(TB.artifact_name(preset("baseline", **kw)), 1, DEV)
+        supp0 = ckpt.restore(TC.cloak_artifact(grl_cfg), 1, DEV)
+        require(all(torch.equal(supp0[f"emotion_backbone.{k}"], v) for k, v in base.items()),
+                "fold: the GRL cloak's emotion backbone is not the baseline's")
+        # the masks the suppressed runs trained under, from the suppression-0
+        # cloak's scales at the training noise's bounds
+        noise = CloakNoise(WIN, N_MELS, grl_cfg.noise_min_scale, grl_cfg.noise_max_scale)
+        noise.load_state_dict({k: supp0[f"noise.{k}"].cpu() for k in ("locs", "rhos")})
+        scales = noise.scales().detach()[0].numpy()
+        info["supp0_scales"] = {"min": float(scales.min()), "max": float(scales.max()),
+                                "distinct": int(np.unique(scales).size)}
+        info["train_mask_zero_share"] = {}
+        for r in FOLD_RATIOS[1:]:
+            cell = ckpt.restore(TC.cloak_artifact(dataclasses.replace(grl_cfg,
+                                                                      suppression_ratio=r)), 1, DEV)
+            require(torch.equal(cell["noise.rhos"], supp0["noise.rhos"]),
+                    f"fold: the supp{r} cloak's rhos moved")
+            info["train_mask_zero_share"][str(r)] = float(1 - train_mask(scales, r).mean())
+        require(all(v > 0 for v in info["train_mask_zero_share"].values()),
+                f"fold: a training mask keeps every cell {info['train_mask_zero_share']}")
+
+        model = sweep_model(DEV)
+        eps = model.noise.draw_eps(torch.Generator(device=DEV).manual_seed(grl_cfg.seed))
+
+        def sweep():
+            """Per ratio: restore the three checkpoints (restore_ms), then
+            the sweep forward over the test split (eval_ms)."""
+            per_ratio, probs, masks, restore_ms, eval_ms = {}, {}, {}, {}, {}
+            for r in FOLD_RATIOS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                masks[r] = sweep_cell(model, ckpt, grl_cfg, r, DEV)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                b, a = evaluate_cloaked_test(model, fold.test, masks[r], WIN, SHIFT, eps=eps)
+                torch.cuda.synchronize()
+                restore_ms[r] = (t1 - t0) * 1e3
+                eval_ms[r] = (time.perf_counter() - t1) * 1e3
+                per_ratio[r] = [(b, a)]
+                probs[r] = np.concatenate([b["probs"], a["probs"]], -1)
+            return per_ratio, probs, masks, (restore_ms, eval_ms)
+
+        (per_ratio, probs, masks, (restore_ms, eval_ms)), launches["fold_sweep"], ms = drive(
+            sweep, must=("block1_conv_stats", "block1_norm_pool"),
+            must_not=BACKWARD + f32_only)
+        rows = sweep_to_rows(per_ratio, grl_cfg.dataset)
+        rows_to_csv(rows, str(out / "grl-sweep.csv"))
+        csv_rows = (out / "grl-sweep.csv").read_text().splitlines()
+        require(len(rows) == len(FOLD_RATIOS) * (1 + len(CORPORA)) == len(csv_rows) - 1,
+                f"fold: {len(rows)} sweep rows")
+        values = [v for r in rows for v in (r.baseline_acc, r.baseline_rec, r.adv_acc, r.adv_rec)]
+        require(all(0.0 <= v <= 1.0 for v in values), f"fold: sweep values {values}")
+        prof = path_profile(lambda: evaluate_cloaked_test(model, fold.test, masks[0], WIN, SHIFT,
+                                                          eps=eps))
+        info["sweep"] = {"wall_ms": ms,
+                         "restore_ms_per_ratio": {str(r): v for r, v in restore_ms.items()},
+                         "eval_ms_per_ratio": {str(r): v for r, v in eval_ms.items()},
+                         "eval_mask_zero_share": {str(r): float(1 - m.mean())
+                                                  for r, m in masks.items() if m is not None},
+                         "profile_ratio_0": {k: prof[k] for k in (
+                             "wall_ms", "device_busy_ms", "device_idle_share", "top")},
+                         "launches": {k: v for k, v in launches["fold_sweep"].items() if v}}
+        info["sweep_cpu"] = fold_sweep_cpu(fold, ckpt, grl_cfg, eps, masks, probs)
+
+        cfg = preset("baseline", **{**kw, "num_epochs": 2, "compute_dtype": "bfloat16"})
+        require(TB.artifact_name(cfg) == "baseline_emotion_bf16", TB.artifact_name(cfg))
+        result, launches["fold_baseline_bf16"], ms = drive(
+            lambda: TB.run_fold(cfg, fold, ckpt, verbose=False, device=DEV),
+            must=tuple(f"{k}_bf16" for k in k1k4),
+            must_not=BLOCK1 + ("block1_input_grad_bf16",) + NO_FRONTEND)
+        require(ckpt.exists("baseline_emotion_bf16", 1), "fold: no bf16 baseline artifact")
+        info["stages"]["baseline_bf16"] = stage_info(result, launches["fold_baseline_bf16"], ms)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    info.update(train_windows=FOLD_TRAIN, val_windows=FOLD_VAL, test_utterances=FOLD_TEST,
+                test_frames=list(FOLD_FRAMES), speakers=FOLD_SPK, corpora=list(CORPORA),
+                dataset="combine", epochs=FOLD_EPOCHS, ratios=list(FOLD_RATIOS))
+    return info, launches, csv_rows
+
+
+def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs):
+    """The sweep on the CPU (plain versions) from the same checkpoints, with
+    the card's epsilon and masks, on the first FOLD_CPU_UTTS test utterances
+    (the card's first batch) at FOLD_CPU_RATIOS: probabilities within
+    PROBS_ATOL, predictions equal wherever the CPU's top two are more than
+    2 * PROBS_ATOL apart."""
+    from sept_tpu_torch.data.pipeline import SplitArrays
+    from sept_tpu_torch.eval.sweep import evaluate_cloaked_test
+
+    test = SplitArrays(**{f.name: getattr(fold.test, f.name)[:FOLD_CPU_UTTS]
+                          for f in dataclasses.fields(SplitArrays)})
+    model = sweep_model("cpu")
+    out = {"utterances": FOLD_CPU_UTTS, "ratios": list(FOLD_CPU_RATIOS)}
+    for r in FOLD_CPU_RATIOS:
+        sweep_cell(model, ckpt, cfg, r, "cpu")
+        b, a = evaluate_cloaked_test(model, test, masks[r], WIN, SHIFT, eps=eps.cpu())
+        want = np.concatenate([b["probs"], a["probs"]], -1)
+        got = probs[r][:FOLD_CPU_UTTS]
+        diff = float(np.abs(got - want).max())
+        decided = []
+        for lo, hi in ((0, 4), (4, 6)):
+            top2 = np.sort(want[:, lo:hi], -1)[:, -2:]
+            sure = top2[:, 1] - top2[:, 0] > 2 * PROBS_ATOL
+            decided.append(np.array_equal(got[sure, lo:hi].argmax(-1),
+                                          want[sure, lo:hi].argmax(-1)))
+        log(f"fold sweep ratio {r}: max |gpu - cpu| probs {diff:.3g}")
+        require(diff <= PROBS_ATOL and all(decided),
+                f"fold sweep ratio {r}: the card and the CPU disagree ({diff}, {decided})")
+        out[f"max_abs_probs_diff_ratio_{r}"] = diff
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the featurization slice
 
 
@@ -2072,6 +2332,9 @@ def main():
     train_cpu_bf16 = train_cpu_phase(ds_bf16, order_bf16, sds, "bfloat16", SALIENCY_ALIGN,
                                      TRAIN_BF16_TOL)
     log(f"train-cpu bf16 done at {time.perf_counter() - t0:.1f} s")
+    fold, fold_launches, fold_csv = fold_phase(np.random.default_rng(SEED + 19))
+    paths.update(fold_launches)
+    log(f"fold done at {time.perf_counter() - t0:.1f} s")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
     kernels[0]["featurize_shapes"] = mel_featurize_phase(mfcc_chunk)
@@ -2120,6 +2383,7 @@ def main():
                         for k, v in train_prof.items()},
         "block1_fwd_bwd": block1_bf16, "gru": gru,
         "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}},
+             {"fold": {**fold, "csv": fold_csv, "launches_by_path": fold_launches}},
              {"card": smi}, {"kernels": kernels}]
     # every result line also goes to a file, whole, where a caller that
     # keeps only the end of the output still finds them

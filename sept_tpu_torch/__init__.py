@@ -3,9 +3,13 @@
 A package of its own beside the JAX reference ``sept_tpu``: it imports torch
 and numpy and nothing of JAX or of ``sept_tpu``.  Ported so far: the serving
 path (mel frontend, Conv2dBiRNN eval forward, the cloak noise layer, the HTTP
-server), the training path (ingest, baseline, cloak and cloak + GRL epochs)
-and corpus featurization (mel_spec and MFCC stores, the bf16 ingest), with
-the mel chain (f32 and bf16), the MFCC's floor + DCT and the first conv
-block as hand-written CUDA kernels (``sept_tpu_torch/csrc``).  What is still
-to be ported is listed in ROADMAP.md.
+server), the training path (ingest, baseline, cloak and cloak + GRL epochs),
+corpus featurization (mel_spec and MFCC stores, the bf16 ingest), and one
+fold of the utility-privacy protocol: the fold drivers (best by validation,
+early stopping, plateau, mid-fold resume, the sliding-window test vote), the
+checkpoints that link the stages, the baseline's and the cloak's
+``run_fold`` and the suppression sweep.  The mel chain (f32 and bf16), the
+MFCC's floor + DCT and the first conv block are hand-written CUDA kernels
+(``sept_tpu_torch/csrc``).  What is still to be ported is listed in
+ROADMAP.md.
 """

@@ -1,0 +1,124 @@
+"""Cloak noise-injection training of one fold (the reference's
+training_cloak.py and, with ``cfg.grl``, training_cloak_with_grl.py).
+
+Counterpart of ``sept_tpu/cli/train_cloak.py``'s ``cloak_artifact`` and
+``run_fold``: load the fold's pretrained emotion baseline, wrap it with the
+noise layer (and, for GRL, a fresh trainable gender adversary behind the
+gradient-reversal layer), and train only the cloak's trainable part.
+Suppression runs (``suppression_ratio > 0``) start from the suppression-0
+cloak's noise, freeze ``rhos`` and train under the training-direction
+percentile mask (``mask_direction="eval"``: under the sweep's mask).
+Artifacts: ``cloak[_grl]_lamda<scale_lambda>_supp<r>[_anti][_sal<w>]
+[_mdeval][_bf16]/fold<k>``.  The argument parser (``main``) comes with the
+CLIs (ROADMAP.md §1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sept_tpu_torch.cli.train_baseline import artifact_name as baseline_artifact
+from sept_tpu_torch.cli.train_baseline import seeded_backbone
+from sept_tpu_torch.device import resolve_device
+from sept_tpu_torch.eval.sweep import eval_mask, train_mask
+from sept_tpu_torch.models import CloakedModel, CloakedModelGRL, pooling_for
+from sept_tpu_torch.train.device_loop import fit_device_cloak
+from sept_tpu_torch.train.loop import speaker_weights
+from sept_tpu_torch.train.optim import make_cloak_optimizer
+from sept_tpu_torch.train.steps import cloak_scales, init_state, make_eval_logits_fn
+
+__all__ = ["cloak_artifact", "run_fold"]
+
+# validation and test votes of a cloak run all see the epsilon drawn from
+# this seed (the JAX package's PRNGKey(0))
+EVAL_NOISE_SEED = 0
+
+
+def cloak_artifact(cfg) -> str:
+    """Checkpoint directory name of a cloak training configuration: every
+    knob that changes WHAT the trained cloak is, the framework's training
+    extensions included, so that cloaks trained under different regimes
+    never share an artifact."""
+    tag = "cloak_grl" if cfg.grl else "cloak"
+    name = f"{tag}_lamda{cfg.scale_lambda}_supp{cfg.suppression_ratio}"
+    if cfg.antithetic_noise:
+        name += "_anti"
+    if cfg.saliency_align:
+        name += f"_sal{cfg.saliency_align:g}"
+    # the mask direction only shapes suppressed training; suppression-0
+    # cloaks are shared between directions
+    if cfg.suppression_ratio and cfg.mask_direction == "eval":
+        name += "_mdeval"
+    if cfg.compute_dtype != "float32":
+        name += "_bf16"
+    return name
+
+
+def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
+    """Train one fold's cloak on ``device`` from the checkpoints in ``ckpt``
+    (the baseline, and for a suppression run the suppression-0 cloak);
+    returns the FitResult and saves the best state_dict under
+    :func:`cloak_artifact`."""
+    dev = resolve_device(device)
+    backbone = seeded_backbone(cfg, "emotion")
+    base_cfg = dataclasses.replace(cfg, adv=False, pred="emotion")
+    # graft the pretrained frozen backbone in
+    backbone.load_state_dict(ckpt.restore(baseline_artifact(base_cfg), fold.fold, dev))
+    noise_kw = dict(win_len=cfg.win_len, n_feats=cfg.feature_len,
+                    min_scale=cfg.noise_min_scale, max_scale=cfg.noise_max_scale)
+    if cfg.grl:
+        model = CloakedModelGRL(backbone, seeded_backbone(cfg, "gender"),
+                                grl_lambda=cfg.grl_lambda, **noise_kw)
+        trainable = ("noise", "gender_backbone")
+    else:
+        model = CloakedModel(backbone, **noise_kw)
+        trainable = ("noise",)
+
+    mask = None
+    if cfg.suppression_ratio:
+        supp0 = ckpt.restore(cloak_artifact(dataclasses.replace(cfg, suppression_ratio=0)),
+                             fold.fold, dev)
+        model.noise.load_state_dict({k: supp0[f"noise.{k}"] for k in ("locs", "rhos")})
+        scales = cloak_scales(model).detach()[0].cpu().numpy()
+        mask_fn = eval_mask if cfg.mask_direction == "eval" else train_mask
+        mask = mask_fn(scales, cfg.suppression_ratio)
+
+    steps_per_epoch = max(1, -(-len(fold.training) // cfg.batch_size))
+    opt = make_cloak_optimizer(cfg, steps_per_epoch, model, trainable,
+                               freeze_rhos=bool(cfg.suppression_ratio))
+    state = init_state(model, opt, cfg.seed, dev)
+    # validation and test: the cloak forward with one fixed noise draw
+    eps0 = model.noise.draw_eps(torch.Generator(device=dev).manual_seed(EVAL_NOISE_SEED))
+    mask_t = None if mask is None else torch.as_tensor(mask, device=dev)
+    eval_logits = make_eval_logits_fn(model, eps=eps0, mask=mask_t,
+                                      pooling=pooling_for(cfg.model_type))
+    spk_w = speaker_weights(fold.training) if "combine" in cfg.dataset else None
+
+    def sigma_stats(st):
+        # the reference prints these every epoch; kept in the history
+        s = cloak_scales(st.model).detach().cpu().numpy()
+        return {"sigma_log_mean": float(np.log(s.mean())),
+                "sigma_mean": float(s.mean()), "sigma_max": float(s.max())}
+
+    result = fit_device_cloak(state, fold.training, fold.validation, fold.test, cfg,
+                              eval_logits, mask=mask, spk_weights=spk_w, verbose=verbose,
+                              resume_path=resume_path, epoch_callback=sigma_stats)
+    model.load_state_dict(result.best_state["model"])
+    scales = cloak_scales(model).detach().cpu().numpy()
+    ckpt.save(cloak_artifact(cfg), fold.fold, result.best_state["model"], manifest={
+        "config": cfg,
+        "best_epoch": result.best_epoch,
+        "test_acc": result.final_test_acc,
+        "test_uar": result.final_test_uar,
+        "scales_mean": float(scales.mean()),
+        "scales_max": float(scales.max()),
+        "scales_min": float(scales.min()),
+        "sigma_log_mean_trajectory": [h.get("sigma_log_mean") for h in result.history],
+    })
+    if verbose:
+        print("scales mean/max/min %.3f/%.3f/%.3f"
+              % (scales.mean(), scales.max(), scales.min()))
+    return result

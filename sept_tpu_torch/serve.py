@@ -17,8 +17,8 @@ a predictor switches TF32 off for cuBLAS and cuDNN
 = False), the counterpart of the JAX package's ``PARITY_PRECISION =
 HIGHEST``: blocks 2-3 (cuDNN) and the GRU would otherwise run in TF32.
 
-``load_predictor`` and the serve CLI need the checkpoint module (orbax ->
-torch state_dict), which is not ported yet.
+``load_predictor`` and the serve CLI are not ported yet (ROADMAP.md §1 item
+4); the checkpoints they read are (:mod:`sept_tpu_torch.train.checkpoint`).
 """
 
 from __future__ import annotations

@@ -1,21 +1,56 @@
-"""Device-resident splits for the epoch runners.
+"""Device-resident fold training: whole epochs on the device, the fold's
+control flow on the host.
 
-Counterpart of ``sept_tpu/train/device_loop.py::DeviceSplit`` and
-``_spk_weight_vec``.  The fold drivers of that module (``fit_device``,
-``fit_device_cloak``: early stopping, plateau, resume, the test vote) are
-not ported yet.
+Counterpart of ``sept_tpu/train/device_loop.py``.  A fold's splits go to
+the device once (:class:`DeviceSplit`); each training epoch runs through the
+port's epoch runner (:mod:`sept_tpu_torch.train.steps`), each validation
+pass through :func:`make_val_pass`, each test vote through
+:func:`sept_tpu_torch.train.loop.run_test`, and only per-epoch scalars come
+back to the host, where :func:`_run_epoch_loop` takes the reference's
+decisions: best by validation accuracy (strictly higher, after
+``min(min_select_epoch, num_epochs - 2)``), early stopping on validation
+loss (patience accrues only once selection opens; under SGD only with
+``early_stop_with_sgd``), plateau scaling (Adam only), mid-fold
+checkpoints with the shuffle stream replayed on resume.
+
+The state is updated in place, so the best state is a snapshot
+(:meth:`sept_tpu_torch.train.steps.TrainState.snapshot`), never the live
+state.  Shuffles come from ``np.random.default_rng(cfg.seed)``, one
+permutation of the real rows an epoch with the pad rows last, as in the JAX
+package.  Data parallelism (the JAX drivers' ``mesh``) is ROADMAP.md §1 item
+8; the global feature raises (item 3).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from sept_tpu_torch.data.pipeline import SplitArrays
 from sept_tpu_torch.device import resolve_device
+from sept_tpu_torch.eval import metrics as M
+from sept_tpu_torch.models import pooling_for
+from sept_tpu_torch.train.config import ExperimentConfig
+from sept_tpu_torch.train.loop import (
+    EarlyStopping,
+    FitResult,
+    first_head,
+    refuse_global_feature,
+    run_test,
+)
+from sept_tpu_torch.train.midfold import MidFoldCheckpoint
+from sept_tpu_torch.train.optim import PlateauScheduler, set_lr_scale
+from sept_tpu_torch.train.steps import (
+    TrainState,
+    make_cloak_epoch_runner,
+    make_epoch_runner,
+    weighted_ce,
+)
+from sept_tpu_torch.utils.logging import _jsonable
 
-__all__ = ["DeviceSplit"]
+__all__ = ["DeviceSplit", "make_val_pass", "fit_device", "fit_device_cloak"]
 
 
 class DeviceSplit:
@@ -23,7 +58,7 @@ class DeviceSplit:
     multiple of the batch size with copies of row 0 at weight 0.
 
     ``split`` is any object with ``windows`` (N, T, D), ``labels_emo`` and
-    ``labels_gen`` arrays (the JAX package's ``SplitArrays`` qualifies).  The
+    ``labels_gen`` arrays (a :class:`SplitArrays`, or the JAX package's).  The
     pad copies are excluded from loss and metrics by their weight but still
     enter train-mode BatchNorm statistics, as in the JAX package: all-zero
     rows would bias them with out-of-distribution data.
@@ -62,3 +97,240 @@ def _spk_weight_vec(split, spk_weights: Optional[dict]) -> Optional[np.ndarray]:
         return None
     return np.array([spk_weights.get(f"{s}_{d}", 1.0)
                      for s, d in zip(split.speaker_ids, split.datasets)], dtype=np.float32)
+
+
+def _masked_uar(truth: np.ndarray, preds: np.ndarray, valid: np.ndarray):
+    t, p = truth[valid], preds[valid]
+    return M.accuracy(t, p), M.uar(t, p)
+
+
+def _loop_snapshot(epoch, best_val_acc, best_epoch, early, plateau, final, history):
+    """Host bookkeeping -> a JSON-able dict (see train.midfold)."""
+    return _jsonable({
+        "epoch": epoch, "best_val_acc": best_val_acc, "best_epoch": best_epoch,
+        "early_best": early.best, "early_counter": early.counter,
+        "early_stop": early.should_stop,
+        "plateau_best": plateau.best, "plateau_bad": plateau.bad_epochs,
+        "plateau_scale": plateau.scale,
+        "final": {"acc": final["acc"], "uar": final["uar"],
+                  "conf": np.asarray(final["conf"]).tolist()},
+        "history": history,
+    })
+
+
+def _loop_restore(loop, early, plateau):
+    """Inverse of _loop_snapshot; returns (start_epoch, best_val_acc,
+    best_epoch, final, history)."""
+    early.best = loop["early_best"]
+    early.counter = loop["early_counter"]
+    early.should_stop = loop["early_stop"]
+    plateau.best = loop["plateau_best"]
+    plateau.bad_epochs = loop["plateau_bad"]
+    plateau.scale = loop["plateau_scale"]
+    final = {"acc": loop["final"]["acc"], "uar": loop["final"]["uar"],
+             "conf": np.asarray(loop["final"]["conf"])}
+    return (loop["epoch"] + 1, loop["best_val_acc"], loop["best_epoch"], final,
+            loop["history"])
+
+
+def make_val_pass(apply_logits: Callable):
+    """Whole-split validation pass, batch by batch, so peak activation memory
+    stays bounded by the batch size.  ``apply_logits(windows (B, 1, T, D))``
+    is an eval forward (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`;
+    a tuple's first element is taken).  Returns ``val(windows (M, T, D),
+    labels (M,), weights (M,), n_batches, batch_size) -> (loss, preds
+    (M,))``, where the loss is the MEAN OF PER-BATCH MEANS (each batch's
+    weighted CE over its real rows), the statistic the reference feeds to the
+    plateau scheduler and early stopping; one weighted mean over the split
+    would differ whenever it is not a multiple of the batch size."""
+
+    def val(windows, labels, weights, *, n_batches: int, batch_size: int):
+        losses, preds = [], []
+        with torch.inference_mode():
+            for i in range(n_batches):
+                sl = slice(i * batch_size, (i + 1) * batch_size)
+                logits = first_head(apply_logits(windows[sl][:, None]))
+                losses.append(weighted_ce(logits, labels[sl], weights[sl]))
+                preds.append(logits.argmax(-1))
+        return torch.stack(losses).mean(), torch.cat(preds)
+
+    return val
+
+
+def _run_epoch_loop(state: TrainState, cfg: ExperimentConfig, *, train_epoch, val_epoch,
+                    test_epoch, m_total: int, n_real: Optional[int] = None,
+                    resume_path: Optional[str] = None, verbose: bool = False,
+                    epoch_callback=None) -> FitResult:
+    """The epoch loop of both fold drivers.  ``train_epoch(state, epoch,
+    order) -> (state, {'loss', 'acc'})``, ``val_epoch(state) -> {'loss',
+    'acc', 'uar'}`` and ``test_epoch(state) -> run_test's dict`` close over
+    the workload's splits; the best-state tracking, plateau scaling, early
+    stopping, mid-fold save / restore with the shuffle replayed, and the
+    FitResult live here once.  ``epoch_callback(state) -> dict`` adds
+    per-epoch observables to the history (the cloak's sigma statistics)."""
+    rng = np.random.default_rng(cfg.seed)
+    early = EarlyStopping(patience=cfg.early_stop_patience)
+    plateau = PlateauScheduler(cfg.plateau_patience, cfg.plateau_factor)
+    min_sel = min(cfg.min_select_epoch, cfg.num_epochs - 2)
+
+    best_val_acc, best_epoch = 0.0, 0
+    # a copy: the live state goes on training in place
+    best_state = state.snapshot()
+    # the in-memory best is not on disk yet; once written, an unchanged best
+    # is not written again every epoch
+    best_dirty = True
+    final = {"acc": 0.0, "uar": 0.0, "conf": np.zeros((0, 0))}
+    history = []
+
+    mid = MidFoldCheckpoint(resume_path) if resume_path else None
+    start_epoch = 0
+    if mid is not None and mid.exists():
+        snap, best_loaded, loop = mid.restore(state.generator.device)
+        state.load(snap)
+        start_epoch, best_val_acc, best_epoch, final, history = _loop_restore(
+            loop, early, plateau)
+        if best_loaded is not None:
+            best_state = best_loaded
+            best_dirty = False  # the best on disk is current
+        for _ in range(start_epoch):  # replay the shuffle stream
+            rng.permutation(n_real if n_real is not None else m_total)
+        if verbose:
+            print(f"mid-fold resume: continuing at epoch {start_epoch}")
+
+    def next_order():
+        # shuffle the real rows only; the pad rows stay in the last batch, so
+        # they never enter train-mode BatchNorm statistics mid-epoch
+        if n_real is None or n_real == m_total:
+            return rng.permutation(m_total)
+        return np.concatenate([rng.permutation(n_real), np.arange(n_real, m_total)])
+
+    for epoch in range(start_epoch, cfg.num_epochs):
+        state, train_m = train_epoch(state, epoch, next_order())
+        val_m = val_epoch(state)
+        test_m = test_epoch(state)
+        entry = {"train": train_m, "validate": val_m, "test": test_m}
+        if epoch_callback is not None:
+            entry.update(epoch_callback(state))
+        history.append(entry)
+
+        if cfg.optimizer == "adam":
+            set_lr_scale(state.optimizer, plateau.step(val_m["loss"]))
+        # STRICT >: ties keep the FIRST best epoch, like the reference
+        if val_m["acc"] > best_val_acc and epoch > min_sel:
+            best_val_acc, best_epoch, best_state, final = (
+                val_m["acc"], epoch, state.snapshot(), test_m)
+            best_dirty = True
+        if verbose:
+            print(f"epoch {epoch}: train loss {train_m['loss']:.4f} "
+                  f"acc {train_m['acc']:.3f} | val acc {val_m['acc']:.3f} | "
+                  f"test acc {test_m['acc']:.3f} uar {test_m['uar']:.3f}")
+        if epoch > min_sel:  # patience accrues only once selection opens
+            early(val_m["loss"])
+        should_stop = early.should_stop and (
+            cfg.optimizer != "sgd" or cfg.early_stop_with_sgd)
+        if mid is not None and not should_stop:
+            mid.save(state.snapshot(), best_state if best_dirty else None, _loop_snapshot(
+                epoch, best_val_acc, best_epoch, early, plateau, final, history))
+            best_dirty = False
+        if should_stop:
+            if verbose:
+                print("early stopping")
+            break
+
+    if mid is not None:
+        mid.delete()  # fold complete: the final artifact supersedes it
+    return FitResult(best_state=best_state, best_epoch=best_epoch,
+                     best_val_acc=best_val_acc, final_test_acc=final["acc"],
+                     final_test_uar=final["uar"], final_confusion=final["conf"],
+                     history=history)
+
+
+def _epoch_metrics(losses, correct, counts) -> dict:
+    return {"loss": float(losses.mean()),
+            "acc": float(correct.sum() / torch.clamp(counts.sum(), min=1e-8))}
+
+
+def _val_epoch(val_pass, ds: DeviceSplit):
+    def val_epoch(state):
+        loss, preds = val_pass(ds.windows, ds.labels, ds.weights, n_batches=ds.n_batches,
+                               batch_size=ds.batch_size)
+        valid = ds.weights.cpu().numpy() > 0
+        acc, uar = _masked_uar(ds.labels.cpu().numpy(), preds.cpu().numpy(), valid)
+        return {"loss": float(loss), "acc": acc, "uar": uar}
+
+    return val_epoch
+
+
+def fit_device(state: TrainState, train_split: SplitArrays, val_split: SplitArrays,
+               test_split: SplitArrays, cfg: ExperimentConfig, logits_fn: Callable,
+               spk_weights: Optional[dict] = None, verbose: bool = True,
+               resume_path: Optional[str] = None) -> FitResult:
+    """One fold of baseline / adversary / multitask training on the state's
+    device.  ``logits_fn`` is the model's eval forward
+    (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`).
+    ``resume_path``: mid-fold checkpoint directory (train.midfold): the whole
+    state and the loop's bookkeeping persist after every epoch, an
+    interrupted fold resumes at the next epoch with the same shuffle, and
+    the directory goes once the fold completes."""
+    refuse_global_feature(cfg)
+    dev = state.generator.device
+    label_key = "labels_gen" if cfg.pred == "gender" else "labels_emo"
+    train_ds = DeviceSplit(train_split, label_key, cfg.batch_size,
+                           _spk_weight_vec(train_split, spk_weights), dev)
+    val_ds = DeviceSplit(val_split, label_key, cfg.batch_size,
+                         _spk_weight_vec(val_split, spk_weights), dev)
+    run_epoch = make_epoch_runner(pooling=pooling_for(cfg.model_type))
+    gkw = {"labels_gen": train_ds.labels_gen} if cfg.pred == "multitask" else {}
+
+    def train_epoch(st, epoch, order):
+        st, losses, correct, counts = run_epoch(
+            st, train_ds.windows, train_ds.labels, train_ds.weights, order,
+            n_batches=train_ds.n_batches, batch_size=train_ds.batch_size, **gkw)
+        return st, _epoch_metrics(losses, correct, counts)
+
+    return _run_epoch_loop(
+        state, cfg, train_epoch=train_epoch,
+        val_epoch=_val_epoch(make_val_pass(logits_fn), val_ds),
+        test_epoch=lambda st: run_test(logits_fn, test_split, cfg, device=dev),
+        m_total=train_ds.n_batches * train_ds.batch_size, n_real=train_ds.n_real,
+        resume_path=resume_path, verbose=verbose)
+
+
+def fit_device_cloak(state: TrainState, train_split: SplitArrays, val_split: SplitArrays,
+                     test_split: SplitArrays, cfg: ExperimentConfig,
+                     eval_logits_fn: Callable, mask=None,
+                     spk_weights: Optional[dict] = None, verbose: bool = True,
+                     resume_path: Optional[str] = None, epoch_callback=None,
+                     eps: Optional[Sequence[torch.Tensor]] = None) -> FitResult:
+    """One fold of cloak / cloak + GRL training (``cfg.grl``) on the state's
+    device.  ``eval_logits_fn`` runs the cloaked model's eval forward with
+    one fixed epsilon draw (as the cloak's ``run_fold`` builds it).
+    ``mask``: the suppression mask (win_len, n_feats), or None.  ``eps``:
+    the training draws to inject, ``eps[epoch]`` of shape (n_batches, 1,
+    win_len, n_feats) (the tests feed the JAX draws); else each step draws
+    from the state's generator.  ``resume_path``: see :func:`fit_device`."""
+    refuse_global_feature(cfg)
+    dev = state.generator.device
+    train_ds = DeviceSplit(train_split, "labels_emo", cfg.batch_size,
+                           _spk_weight_vec(train_split, spk_weights), dev)
+    val_ds = DeviceSplit(val_split, "labels_emo", cfg.batch_size,
+                         _spk_weight_vec(val_split, spk_weights), dev)
+    mask_t = None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
+    run_epoch = make_cloak_epoch_runner(
+        scale_lambda=cfg.scale_lambda, gender_lambda=cfg.gender_lambda, grl=cfg.grl,
+        apply_scale_reg=cfg.suppression_ratio == 0, pooling=pooling_for(cfg.model_type),
+        antithetic=cfg.antithetic_noise, saliency_align=cfg.saliency_align)
+
+    def train_epoch(st, epoch, order):
+        st, losses, correct, counts = run_epoch(
+            st, train_ds.windows, train_ds.labels_emo, train_ds.labels_gen,
+            train_ds.weights, order, mask_t, n_batches=train_ds.n_batches,
+            batch_size=train_ds.batch_size, eps=None if eps is None else eps[epoch])
+        return st, _epoch_metrics(losses, correct, counts)
+
+    return _run_epoch_loop(
+        state, cfg, train_epoch=train_epoch,
+        val_epoch=_val_epoch(make_val_pass(eval_logits_fn), val_ds),
+        test_epoch=lambda st: run_test(eval_logits_fn, test_split, cfg, device=dev),
+        m_total=train_ds.n_batches * train_ds.batch_size, n_real=train_ds.n_real,
+        resume_path=resume_path, verbose=verbose, epoch_callback=epoch_callback)

@@ -17,6 +17,7 @@ Counterpart of ``sept_tpu/train/optim.py``:
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Iterable, Optional
 
 import torch
@@ -65,6 +66,19 @@ class Optimizer:
 
     def zero_grad(self):
         self.torch_opt.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """A copy of the torch optimizer's state, the plateau scale and the
+        update count (the schedule is a function of the count)."""
+        return {"torch": copy.deepcopy(self.torch_opt.state_dict()),
+                "lr_scale": self.lr_scale, "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        # a copy: torch's load keeps the given tensors where it can, and the
+        # steps after would write into them
+        self.torch_opt.load_state_dict(copy.deepcopy(state["torch"]))
+        self.lr_scale = float(state["lr_scale"])
+        self.count = int(state["count"])
 
     def step(self):
         lr = self.schedule(self.count) * self.lr_scale

@@ -19,6 +19,11 @@ injected ``eps`` (the tests feed the JAX draw that way).  Metrics stay on the
 device: an epoch runner stacks its per-batch loss, correct and count tensors,
 and the caller reads them once an epoch, as the JAX scan returns them.
 
+The fold drivers (:mod:`sept_tpu_torch.train.device_loop`) keep the best
+state as a :meth:`TrainState.snapshot`, a copy: the live state goes on
+changing.  :func:`make_eval_logits_fn` is the eval forward of validation,
+the test vote and the sweep.
+
 The models carry their own ``compute_dtype`` (``Conv2dBiRNN``): a bf16
 model trains through the same steps, with logits, losses and metrics in f32.
 Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).  The
@@ -27,6 +32,7 @@ Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).  The
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -48,6 +54,7 @@ __all__ = [
     "make_cloak_step",
     "make_cloak_grl_step",
     "make_cloak_epoch_runner",
+    "make_eval_logits_fn",
     "cloak_scales",
     "saliency_alignment_loss",
 ]
@@ -59,6 +66,22 @@ class TrainState:
     optimizer: Optimizer
     generator: torch.Generator
     step: int = 0
+
+    def snapshot(self) -> dict:
+        """A copy of everything the state carries: the model's state_dict,
+        the optimizer's (its update count and plateau scale too), the
+        generator's state and the step."""
+        return {"model": copy.deepcopy(self.model.state_dict()),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(), "step": self.step}
+
+    def load(self, snapshot: dict) -> "TrainState":
+        """Put the state back where :meth:`snapshot` took it."""
+        self.model.load_state_dict(snapshot["model"])
+        self.optimizer.load_state_dict(snapshot["optimizer"])
+        self.generator.set_state(snapshot["generator"].cpu())
+        self.step = int(snapshot["step"])
+        return self
 
 
 def init_state(model: nn.Module, optimizer: Optimizer, seed: int = 0,
@@ -211,6 +234,28 @@ def make_epoch_runner(pooling: Optional[str] = "mean"):
         return (state, *_stack(metrics))
 
     return run
+
+
+def make_eval_logits_fn(model: nn.Module, **forward_kwargs):
+    """Eval forward: ``fn(spec (B, 1, T, D)) -> model(spec,
+    **forward_kwargs)`` in eval mode under ``torch.inference_mode`` with TF32
+    off; the tuple of both heads for pred="multitask", a cloaked model's
+    tuple whole (its first element is the emotion logits).  The model's mode
+    is put back after each call, so a validation pass between two train
+    epochs leaves it training; no graph is built, so no backward kernel
+    runs and nothing is saved for one."""
+    f32_precision()
+
+    def fn(spec):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                return model(spec, **forward_kwargs)
+        finally:
+            model.train(was_training)
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,13 @@ def test_port_imports_with_jax_blocked():
         "import sept_tpu_torch.train.steps, sept_tpu_torch.train.device_loop\n"
         "import sept_tpu_torch.data.device_pipeline, sept_tpu_torch.data.featurize\n"
         "import sept_tpu_torch.ops.mfcc, sept_tpu_torch.ops.functionals\n"
+        "import sept_tpu_torch.eval.metrics, sept_tpu_torch.eval.sliding\n"
+        "import sept_tpu_torch.eval.sweep, sept_tpu_torch.train.loop\n"
+        "import sept_tpu_torch.train.checkpoint, sept_tpu_torch.train.midfold\n"
+        "import sept_tpu_torch.cli.train_baseline, sept_tpu_torch.cli.train_cloak\n"
+        "import sept_tpu_torch.utils.logging, sept_tpu_torch.data.pipeline\n"
         "import chip_smoke\n"
-        "assert not any(m.startswith(('jax', 'flax')) for m in sys.modules\n"
+        "assert not any(m.startswith(('jax', 'flax', 'orbax')) for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
