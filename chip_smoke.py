@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (f32 and bf16), featurization
-and fold (training, checkpoints, the suppression sweep) paths on one NVIDIA
-GPU and check its kernels.
+"""Drive the PyTorch port's serving, training (f32 and bf16), featurization,
+fold (training, checkpoints, the suppression sweep) and command-line paths
+on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -11,7 +11,8 @@ and read just after; each kernel the path must use has to have launched
 (and block 1's backward kernels must not launch where they are not needed).
 
 1. build       compile every CUDA kernel from sept_tpu_torch/csrc (one nvcc
-               per source, all at once).
+               per source, all at once) and the WAV decoder from
+               csrc/septio.cpp (c++, into build/torch_septio).
 2. serve       a full-width Conv2dBiRNN (hidden 64, 128 mels, win 200, shift
                50, n_fft 800, emotion head) from seeded random weights, served
                through a CloakedPredictor (seeded noise, 40-percentile mask)
@@ -87,7 +88,28 @@ and read just after; each kernel the path must use has to have launched
                where the CPU's top two are more than 2e-4 apart.  Last a
                2-epoch bf16 baseline run_fold (baseline_emotion_bf16; K1-K4
                in their bf16 mode only).
-11. kernels    each kernel against its plain version on the tensors the main
+11. cli        the protocol through the port's command lines, in process on
+               the card under build/cli_smoke: run_all on a synthetic corpus
+               of 40 speakers x 16 utterances (640 of 1.2-3.5 s) at the CLI
+               defaults (128 mels, windows 200 x 128, hidden 64), fold 1, 3
+               epochs a stage, the GRL cloak at scale lambda 0.1 and
+               suppression 0 and 20: the f32 mel kernel in featurize, K1-K4
+               in the baseline and the adversary (no K5), all five in the
+               cloaks, K1 and K2 only in evaluate, no bf16 mode anywhere; each
+               artifact's state_dict and manifest, the baselines' run.json,
+               the CSV (one row a ratio in sweep_to_rows' layout, values in
+               [0, 1]); the sweep again on the CPU from the card's
+               checkpoints with the card's epsilon and masks on the first 16
+               test utterances: probabilities within 1e-4.  Then a
+               CREMA-D-shaped WAV tree (actors 1001-1091, 2 files each, every
+               fourth 44.1 kHz stereo, 1076_MTI_SAD_XX skipped) through
+               featurize --functionals 0 for mel_spec and mfcc (floor + DCT
+               launched), each store checked as in 7 and 8 of its utterances
+               (resampled ones among them) held to the CPU path with 7's
+               rules; preprocess --folds 1, fold 1's speakers equal to
+               plan_folds("crema-d"); and a 1-epoch train_baseline with
+               --compute_dtype bfloat16 (K1-K4 in their bf16 mode only).
+12. kernels    each kernel against its plain version on the tensors the main
                path gives it (mel 1e-3 dB cell by cell, and where the FFT
                kernel and the dense plain version part by more, the kernel
                no farther than the plain version from a float64 chain, plus
@@ -132,9 +154,9 @@ and read just after; each kernel the path must use has to have launched
                bound, then at the edge shapes; K2 in both modes bit-equal
                to its plain version at K2_EDGES (odd H and W, widths off
                16, three column tiles, a misaligned conv output).
-12. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
+13. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
-13. profile    device time by kernel over predict calls of 1 and of 8
+14. profile    device time by kernel over predict calls of 1 and of 8
                utterances and over 3 baseline and 3 cloak + GRL steps in each
                dtype, the device's busy share of the wall time
                (torch.profiler), the f32 rate of the blocks 2-3 convolutions
@@ -144,7 +166,7 @@ and read just after; each kernel the path must use has to have launched
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
 ...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
-``{"train_bf16": ...}`` and ``{"fold": ...}`` lines, the card's ``name, power.limit`` from
+``{"train_bf16": ...}``, ``{"fold": ...}`` and ``{"cli": ...}`` lines, the card's ``name, power.limit`` from
 nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
 mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
@@ -262,6 +284,15 @@ FOLD_EPOCHS, FOLD_RATIOS, FOLD_CPU_UTTS, FOLD_CPU_RATIOS = 3, (0, 20, 40, 60, 80
 # rho = -2 (2.4e-7), so the scales would stay uniform and every percentile
 # mask would keep every cell
 FOLD_GRL_LR = 1e-2
+# the protocol through its command lines (the cli phase): run_all on a
+# synthetic corpus of CLI_SPEAKERS x CLI_UTTS utterances of 1.2-3.5 s at the
+# CLI defaults (128 mels, windows 200 x 128 at shift 50, hidden 64), fold 1,
+# CLI_EPOCHS epochs a stage, the GRL cloak at scale lambda CLI_SCALE and
+# suppression CLI_RATIOS, under build/cli_smoke; then a CREMA-D-shaped tree
+# (actors 1001-1091, one utterance a sentence of CREMA_SENTENCES, every
+# fourth file 44.1 kHz stereo) featurized from WAV files
+CLI_SPEAKERS, CLI_UTTS, CLI_EPOCHS, CLI_SCALE, CLI_RATIOS = 40, 16, 3, 0.1, (0, 20)
+CREMA_SENTENCES, CREMA_STEREO_SR = ("DFA", "IEO"), 44100
 CORPORA = ("iemocap", "crema-d")
 NO_FRONTEND = ("mel_db", "mel_db_bf16", "floor_dct")  # featurization's kernels
 # K2 (norm_pool) off the main path, both modes, (B, H, W, misaligned): odd H
@@ -1799,10 +1830,10 @@ def fold_phase(rng):
     return info, launches, csv_rows
 
 
-def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs):
+def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs, ratios=FOLD_CPU_RATIOS, what="fold"):
     """The sweep on the CPU (plain versions) from the same checkpoints, with
     the card's epsilon and masks, on the first FOLD_CPU_UTTS test utterances
-    (the card's first batch) at FOLD_CPU_RATIOS: probabilities within
+    (the card's first batch) at ``ratios``: probabilities within
     PROBS_ATOL, predictions equal wherever the CPU's top two are more than
     2 * PROBS_ATOL apart."""
     from sept_tpu_torch.data.pipeline import SplitArrays
@@ -1811,8 +1842,8 @@ def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs):
     test = SplitArrays(**{f.name: getattr(fold.test, f.name)[:FOLD_CPU_UTTS]
                           for f in dataclasses.fields(SplitArrays)})
     model = sweep_model("cpu")
-    out = {"utterances": FOLD_CPU_UTTS, "ratios": list(FOLD_CPU_RATIOS)}
-    for r in FOLD_CPU_RATIOS:
+    out = {"utterances": FOLD_CPU_UTTS, "ratios": list(ratios)}
+    for r in ratios:
         sweep_cell(model, ckpt, cfg, r, "cpu")
         b, a = evaluate_cloaked_test(model, test, masks[r], WIN, SHIFT, eps=eps.cpu())
         want = np.concatenate([b["probs"], a["probs"]], -1)
@@ -1824,11 +1855,260 @@ def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs):
             sure = top2[:, 1] - top2[:, 0] > 2 * PROBS_ATOL
             decided.append(np.array_equal(got[sure, lo:hi].argmax(-1),
                                           want[sure, lo:hi].argmax(-1)))
-        log(f"fold sweep ratio {r}: max |gpu - cpu| probs {diff:.3g}")
+        log(f"{what} sweep ratio {r}: max |gpu - cpu| probs {diff:.3g}")
         require(diff <= PROBS_ATOL and all(decided),
-                f"fold sweep ratio {r}: the card and the CPU disagree ({diff}, {decided})")
+                f"{what} sweep ratio {r}: the card and the CPU disagree ({diff}, {decided})")
         out[f"max_abs_probs_diff_ratio_{r}"] = diff
     return out
+
+
+# ---------------------------------------------------------------------------
+# the protocol through its command lines
+
+
+def argval(argv, flag):
+    """The value ``flag`` takes last in ``argv`` (argparse's rule), or None."""
+    vals = [argv[i + 1] for i, a in enumerate(argv[:-1]) if a == flag]
+    return vals[-1] if vals else None
+
+
+class StageMeter:
+    """Wraps the port's CLI entry points (``<module>.main``, as run_all
+    calls them) for a ``with`` block: each call's kernel launches (the
+    counts read before and after it), wall and return value, in call
+    order."""
+
+    def __init__(self, modules):
+        self.modules, self.stages, self.saved = modules, [], {}
+
+    def __enter__(self):
+        self.saved = {m: m.main for m in self.modules}
+        for m in self.modules:
+            m.main = self._metered(m.__name__.rsplit(".", 1)[1], m.main)
+        return self
+
+    def __exit__(self, *exc):
+        for m, main in self.saved.items():
+            m.main = main
+
+    def _metered(self, module, main):
+        def call(argv):
+            counters = kernel_counters()
+            before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = main(argv)
+            torch.cuda.synchronize()
+            name = module
+            if module == "train_baseline":
+                name = "adversary" if argval(argv, "--adv") == "1" else "baseline"
+            elif module == "train_cloak":
+                name = f"cloak_{argval(argv, '--suppression_ratio')}"
+            self.stages.append({
+                "stage": name, "wall_ms": (time.perf_counter() - t0) * 1e3, "out": out,
+                "launches": {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}})
+            return out
+        return call
+
+
+def cli_stage_kernels(stage):
+    """(must launch, must not launch) of one run_all stage: the f32 mel
+    kernel in featurize, K1-K4 in the baselines, all five in the GRL
+    cloaks, K1 and K2 in the sweep; never a bf16 mode."""
+    if stage == "featurize":
+        return ("mel_db",), BLOCK1 + BLOCK1_BF16 + ("mel_db_bf16", "floor_dct")
+    absent = BLOCK1_BF16 + NO_FRONTEND
+    if stage in ("baseline", "adversary"):
+        return BLOCK1[:4], absent + ("block1_input_grad",)
+    if stage.startswith("cloak_"):
+        return BLOCK1, absent
+    if stage == "evaluate":
+        return BLOCK1[:2], absent + BACKWARD
+    return (), absent + BLOCK1  # preprocess: host numpy
+
+
+def split_sizes(fold):
+    """Utterances, rows (windows, or whole test utterances) and speakers of
+    each split of ``fold``."""
+    from sept_tpu_torch.data.pipeline import SplitArrays
+
+    return {name: {"utterances": len(set(s.utt_ids.tolist())), "rows": len(s),
+                   "speakers": len(set(s.speaker_ids.tolist()))}
+            for name, s in vars(fold).items() if isinstance(s, SplitArrays)}
+
+
+def crema_tree(root, rng):
+    """CREMA-D's layout: ``<actor>_<sentence>_<EMO>_XX.wav`` for actors
+    1001-1091 and CREMA_SENTENCES, the emotions in turn; every fourth file
+    44.1 kHz stereo PCM16 (the decoder resamples and mixes it down), the
+    rest 16 kHz mono through the port's write_wav; VideoDemographics.csv;
+    and 1076_MTI_SAD_XX.wav, which the walker skips."""
+    import wave
+
+    from sept_tpu_torch.runtime.wavio import write_wav
+
+    root.mkdir(parents=True)
+    rows, i = ["ActorID,Age,Sex,Race,Ethnicity"], 0
+    for actor in range(1001, 1092):
+        rows.append(f"{actor},30,{'Male' if actor % 2 else 'Female'},Caucasian,Not Hispanic")
+        for sentence in CREMA_SENTENCES:
+            path = root / f"{actor}_{sentence}_{('ANG', 'NEU', 'SAD', 'HAP')[i % 4]}_XX.wav"
+            seconds = rng.uniform(*CORPUS_S)
+            if i % 4 == 3:
+                n = int(seconds * CREMA_STEREO_SR)
+                pcm = np.stack([speechlike(rng, n), speechlike(rng, n)], 1) * 20000
+                with wave.open(str(path), "wb") as w:
+                    w.setnchannels(2)
+                    w.setsampwidth(2)
+                    w.setframerate(CREMA_STEREO_SR)
+                    w.writeframes(np.clip(np.rint(pcm), -32768, 32767).astype("<i2").tobytes())
+            else:
+                write_wav(str(path), 0.6 * speechlike(rng, int(seconds * 16000)))
+            i += 1
+    write_wav(str(root / "1076_MTI_SAD_XX.wav"), 0.6 * speechlike(rng, 16000))
+    (root / "VideoDemographics.csv").write_text("\n".join(rows) + "\n")
+    return i
+
+
+def cli_phase(rng):
+    """The protocol through the port's CLIs on the card, under
+    build/cli_smoke: run_all on the synthetic corpus (launches per stage,
+    the artifacts, the CSV), the sweep's first FOLD_CPU_UTTS test
+    utterances again on the CPU from the card's checkpoints; featurize of a
+    CREMA-D-shaped WAV tree for mel_spec and mfcc, 8 utterances of each
+    store held to the CPU path, preprocess's fold 1 held to plan_folds; a
+    bf16 baseline through --compute_dtype.  Returns (info, launches by
+    path)."""
+    import csv
+
+    from sept_tpu_torch.cli import evaluate, featurize, preprocess, run_all
+    from sept_tpu_torch.cli import train_baseline as TB
+    from sept_tpu_torch.cli import train_cloak as TC
+    from sept_tpu_torch.data.splits import plan_folds
+    from sept_tpu_torch.data.store import load_feature_store, load_fold, load_manifest
+    from sept_tpu_torch.runtime.wavio import decode_batch, narrow_pcm16
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+    from sept_tpu_torch.train.config import preset
+
+    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    work, results = root / "work", root / "results"
+    common = ["--work_dir", str(work), "--output_dir", str(results), "--folds", "1",
+              "--device", DEV]
+    argv = ["--dataset", "synthetic", "--n_speakers", str(CLI_SPEAKERS), "--utts_per_speaker",
+            str(CLI_UTTS), "--num_epochs", str(CLI_EPOCHS), "--grl", "1", "--scale_lamda",
+            str(CLI_SCALE), "--ratios", *map(str, CLI_RATIOS), *common]
+    info, launches = {"run_all_argv": argv[:-len(common)]}, {}
+    try:
+        with StageMeter((featurize, preprocess, TB, TC, evaluate)) as meter:
+            _, launches["cli_run_all"], ms = drive(
+                lambda: run_all.main(argv), must=("mel_db",) + BLOCK1,
+                must_not=BLOCK1_BF16 + ("mel_db_bf16", "floor_dct"))
+        info["run_all_wall_ms"] = ms
+        info["stages"] = {}
+        for st in meter.stages:
+            must, absent = cli_stage_kernels(st["stage"])
+            for k in must:
+                require(st["launches"][k] > 0, f"cli {st['stage']}: {k} never launched")
+            for k in absent:
+                require(st["launches"][k] == 0, f"cli {st['stage']}: {k} launched")
+            info["stages"][st["stage"]] = {"wall_ms": st["wall_ms"], "launches": {
+                k: v for k, v in st["launches"].items() if v}}
+        names = [st["stage"] for st in meter.stages]
+        require(names == ["featurize", "preprocess", "baseline", "adversary"]
+                + [f"cloak_{r}" for r in CLI_RATIOS] + ["evaluate"], f"cli stages {names}")
+        log(f"cli run_all: {info['stages']}")
+
+        cfg = preset("cloak_grl", scale_lambda=CLI_SCALE, dataset="synthetic")
+        baselines = [TB.artifact_name(dataclasses.replace(cfg, adv=a, pred=p))
+                     for a, p in ((False, "emotion"), (True, "gender"))]
+        for art in baselines + [TC.cloak_artifact(dataclasses.replace(cfg, suppression_ratio=r))
+                                for r in CLI_RATIOS]:
+            require((results / art / "fold1" / "state_dict.pt").is_file()
+                    and (results / art / "manifest_fold1.json").is_file(),
+                    f"cli: artifact {art} incomplete")
+        for art in baselines:
+            run = json.loads((results / art / "run.json").read_text())
+            require(set(run["results"]) == {"mean_test_acc", "mean_test_uar", "folds"},
+                    f"cli: {art}/run.json results {sorted(run['results'])}")
+        with open(results / f"grl-{CLI_SCALE}.csv", newline="") as f:
+            table = list(csv.reader(f))
+        require(table[0] == ["", "baseline_acc", "baseline_rec", "adv_acc", "adv_rec"]
+                and [r[0] for r in table[1:]] == [f"suppression_ratio_{r}_synthetic"
+                                                  for r in CLI_RATIOS],
+                f"cli: CSV layout {table}")
+        values = [float(v) for r in table[1:] for v in r[1:]]
+        require(all(0.0 <= v <= 1.0 for v in values), f"cli: CSV values {values}")
+        info["csv"] = table
+        fold = load_fold(str(work / "folds" / "synthetic" / "fold1.npz"))
+        info["splits"] = split_sizes(fold)
+
+        per_ratio = meter.stages[-1]["out"]
+        probs = {r: np.concatenate([per_ratio[r][0][0]["probs"], per_ratio[r][0][1]["probs"]],
+                                   -1) for r in CLI_RATIOS}
+        model = sweep_model(DEV)
+        ckpt = CheckpointManager(str(results))
+        # the CLI's epsilon (evaluate_cloaked_test draws it from noise_seed
+        # = the config's seed on the model's device) and its masks
+        eps = model.noise.draw_eps(torch.Generator(device=DEV).manual_seed(cfg.seed))
+        masks = {r: sweep_cell(model, ckpt, cfg, r, DEV) for r in CLI_RATIOS}
+        info["sweep_cpu"] = fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs, CLI_RATIOS, "cli")
+        del model
+
+        tree, cwork = root / "crema-d", root / "crema_work"
+        n_files = crema_tree(tree, rng)
+        info["crema_d"] = {"files": n_files + 1, "stereo_44k_files": n_files // 4}
+        for ft in ("mel_spec", "mfcc"):
+            must = ("mel_db", "floor_dct") if ft == "mfcc" else ("mel_db",)
+            absent = BLOCK1 + BLOCK1_BF16 + ("mel_db_bf16",) + (() if ft == "mfcc"
+                                                                 else ("floor_dct",))
+            _, launches[f"cli_crema_{ft}"], ms = drive(
+                lambda: featurize.main(["--dataset", "crema-d", "--corpus_root", str(tree),
+                                        "--functionals", "0", "--feature_type", ft,
+                                        "--work_dir", str(cwork), "--device", DEV]),
+                must=must, must_not=absent)
+            fdir = cwork / "feature" / ft / "crema-d"
+            store = load_feature_store(str(fdir / f"data_{N_MELS}.npz"))
+            manifest = load_manifest(str(fdir / "manifest.json"))
+            require(len(manifest) == n_files, f"cli crema-d: {len(manifest)} utterances")
+            mat, lens = decode_batch([u.path for u in manifest])
+            waves = {u.utt_id: narrow_pcm16(mat[i, :lens[i]]) for i, u in enumerate(manifest)}
+            del mat
+            check_store(store, waves, ft)
+            sub = dict(list(waves.items())[:N_FEAT_CPU])
+            mixed = sum(w.dtype != np.int16 for w in sub.values())
+            require(0 < mixed < len(sub), f"cli crema-d: {mixed} resampled of {len(sub)}")
+            gpu = {u: store[u] for u in sub}
+            held = (hold_mel_store(gpu, sub, "cli crema-d") if ft == "mel_spec"
+                    else hold_store(gpu, sub, ft, "cli crema-d"))
+            info["crema_d"][ft] = {"wall_ms": ms, "cpu_check_resampled": mixed, **held}
+        _, launches["cli_crema_preprocess"], ms = drive(
+            lambda: preprocess.main(["--dataset", "crema-d", "--work_dir", str(cwork),
+                                     "--folds", "1"]),
+            must=(), must_not=BLOCK1 + BLOCK1_BF16 + NO_FRONTEND)
+        crema_fold = load_fold(str(cwork / "folds" / "crema-d" / "fold1.npz"))
+        plan = plan_folds("crema-d")[0]
+        for split, attr in (("training", "train"), ("validation", "validation"),
+                            ("adv_training", "adv_train"),
+                            ("adv_validation", "adv_validation"), ("test", "test")):
+            got = set(getattr(crema_fold, split).speaker_ids.tolist())
+            require(got == {str(s) for s in getattr(plan, attr)},
+                    f"cli crema-d: fold 1 {split} speakers {sorted(got)}")
+        info["crema_d"].update(preprocess_wall_ms=ms, splits=split_sizes(crema_fold))
+
+        k1k4 = BLOCK1[:4]
+        _, launches["cli_baseline_bf16"], ms = drive(
+            lambda: TB.main(["--dataset", "synthetic", "--compute_dtype", "bfloat16",
+                             "--num_epochs", "1", *common]),
+            must=tuple(f"{k}_bf16" for k in k1k4),
+            must_not=BLOCK1 + ("block1_input_grad_bf16",) + NO_FRONTEND)
+        require((results / "baseline_emotion_bf16" / "fold1" / "state_dict.pt").is_file(),
+                "cli: no bf16 baseline artifact")
+        info["baseline_bf16_wall_ms"] = ms
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info["launches_by_path"] = {p: {k: v for k, v in c.items() if v} for p, c in launches.items()}
+    return info, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1864,6 +2144,62 @@ def check_store(store, corpus, feature_type):
             require(bool(np.isfinite(a).all()), f"{feature_type} {u} {k}: non-finite")
 
 
+def hold_store(gpu, waves, feature_type, what):
+    """The card's store entries of ``waves`` against featurize_corpus on the
+    CPU (plain versions): mel within FEAT_TOL dB on cells within 60 dB of
+    the peak and FEAT_LOW_TOL below, MFCC within FEAT_TOL."""
+    from sept_tpu_torch.data.featurize import featurize_corpus
+
+    keys = ("mel1", "mel2") if feature_type == "mel_spec" else ("mfcc",)
+    cpu = featurize_corpus(waves, feature_type, include_gemaps=False, device="cpu")
+    out = {}
+    if feature_type == "mel_spec":
+        # cells more than 60 dB under the utterance's peak sit at the f32
+        # rounding floor of the DFT (ROADMAP §4): held on their own
+        live = {(u, k): cpu[u][k] > cpu[u][k].max() - 60.0 for u in waves for k in keys}
+        diff = max(float(np.abs(gpu[u][k] - cpu[u][k])[live[u, k]].max())
+                   for u in waves for k in keys)
+        low = max(float(np.abs(gpu[u][k] - cpu[u][k])[~live[u, k]].max(initial=0.0))
+                  for u in waves for k in keys)
+        log(f"{what} mel_spec: max |gpu - cpu| {low:.3g} dB on cells > 60 dB under "
+            f"the peak (tolerance {FEAT_LOW_TOL:g})")
+        require(low <= FEAT_LOW_TOL, f"{what} mel_spec: low cells differ by {low}")
+        out["max_abs_diff_vs_cpu_below_60db"] = low
+    else:
+        diff = max(float(np.abs(gpu[u][k] - cpu[u][k]).max()) for u in waves for k in keys)
+    log(f"{what} {feature_type}: max |gpu - cpu| = {diff:.3g} (tolerance "
+        f"{FEAT_TOL[feature_type]:g})")
+    require(diff <= FEAT_TOL[feature_type],
+            f"{what} {feature_type}: GPU and CPU stores differ by {diff}")
+    out["max_abs_diff_vs_cpu"] = diff
+    return out
+
+
+def hold_mel_store(gpu, waves, what):
+    """The card's mel_spec store entries of ``waves`` against featurize_corpus
+    on the CPU with the f32 mel kernel's own rule (check_mel): within 1e-3
+    dB cell by cell, or, where the two part by more, the card no farther
+    from the float64 chain than the CPU, plus 1e-3 (the CPU's dense f32 DFT
+    is off by up to ~0.07 dB on cells ~100 dB under an utterance's peak)."""
+    from sept_tpu_torch.data.featurize import featurize_corpus
+
+    cpu = featurize_corpus(waves, "mel_spec", include_gemaps=False, device="cpu")
+    readings = []
+    for u, w in waves.items():
+        x = w.astype(np.float32) / np.float32(32768.0 if w.dtype == np.int16 else 1.0)
+        for key, n_fft in (("mel1", 800), ("mel2", 1600)):
+            padded = torch.from_numpy(np.pad(x, n_fft // 2, mode="reflect")).to(DEV)[None]
+            k, p = (torch.from_numpy(np.ascontiguousarray(a[key].T)).to(DEV)[None]
+                    for a in (gpu[u], cpu[u]))
+            readings.append(check_mel(k, p, padded, k.shape[1], n_fft, HOP, f"{what} {u} {key}"))
+    out = {"max_abs_diff_vs_cpu": max(r["max_abs_vs_plain"] for r in readings),
+           "cells_parted": sum(r["cells_parted"] for r in readings),
+           "card_vs_f64": max(r["kernel_vs_f64"] for r in readings),
+           "cpu_vs_f64": max(r["plain_vs_f64"] for r in readings)}
+    log(f"{what} mel_spec: {out}")
+    return out
+
+
 def featurize_phase(rng):
     """featurize_corpus of a CREMA-D-sized int16 corpus for mel_spec and for
     mfcc through the kernels (f32 mel; floor + DCT on mfcc; never the bf16
@@ -1896,26 +2232,9 @@ def featurize_phase(rng):
 
     small = {f"s{i}": (speechlike(rng, int(rng.uniform(*CORPUS_S) * 16000)) * 20000
                        ).astype(np.int16) for i in range(N_FEAT_CPU)}
-    for ft, keys in (("mel_spec", ("mel1", "mel2")), ("mfcc", ("mfcc",))):
+    for ft in ("mel_spec", "mfcc"):
         gpu = featurize_corpus(small, ft, include_gemaps=False, device=DEV)
-        cpu = featurize_corpus(small, ft, include_gemaps=False, device="cpu")
-        if ft == "mel_spec":
-            # cells more than 60 dB under the utterance's peak sit at the
-            # f32 rounding floor of the DFT (ROADMAP §4): held on their own
-            live = {(u, k): cpu[u][k] > cpu[u][k].max() - 60.0 for u in small for k in keys}
-            diff = max(float(np.abs(gpu[u][k] - cpu[u][k])[live[u, k]].max())
-                       for u in small for k in keys)
-            low = max(float(np.abs(gpu[u][k] - cpu[u][k])[~live[u, k]].max(initial=0.0))
-                      for u in small for k in keys)
-            log(f"featurize mel_spec: max |gpu - cpu| {low:.3g} dB on cells > 60 dB under "
-                f"the peak (tolerance {FEAT_LOW_TOL:g})")
-            require(low <= FEAT_LOW_TOL, f"featurize mel_spec: low cells differ by {low}")
-            info[ft]["max_abs_diff_vs_cpu_below_60db"] = low
-        else:
-            diff = max(float(np.abs(gpu[u][k] - cpu[u][k]).max()) for u in small for k in keys)
-        log(f"featurize {ft}: max |gpu - cpu| = {diff:.3g} (tolerance {FEAT_TOL[ft]:g})")
-        require(diff <= FEAT_TOL[ft], f"featurize {ft}: GPU and CPU stores differ by {diff}")
-        info[ft]["max_abs_diff_vs_cpu"] = diff
+        info[ft].update(hold_store(gpu, small, ft, "featurize"))
     info["cpu_check_utterances"] = N_FEAT_CPU
 
     chunk = next((W, ns) for ids, W, _, ns in
@@ -2283,6 +2602,7 @@ def main():
               "CUDA GPU", file=sys.stderr)
         return 1
     from sept_tpu_torch.ops import cuda_lib
+    from sept_tpu_torch.runtime import wavio
 
     t0 = time.perf_counter()
     log(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
@@ -2290,6 +2610,7 @@ def main():
     reports = cuda_lib.build()
     for line in ptxas_summary(reports):
         log(f"ptxas {line}")
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s; WAV decoder {wavio.build()}")
     log(f"build done in {time.perf_counter() - t0:.1f} s")
 
     weights = build_weights()
@@ -2335,6 +2656,9 @@ def main():
     fold, fold_launches, fold_csv = fold_phase(np.random.default_rng(SEED + 19))
     paths.update(fold_launches)
     log(f"fold done at {time.perf_counter() - t0:.1f} s")
+    cli, cli_launches = cli_phase(np.random.default_rng(SEED + 23))
+    paths.update(cli_launches)
+    log(f"cli done at {time.perf_counter() - t0:.1f} s")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
     kernels[0]["featurize_shapes"] = mel_featurize_phase(mfcc_chunk)
@@ -2384,6 +2708,7 @@ def main():
         "block1_fwd_bwd": block1_bf16, "gru": gru,
         "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}},
              {"fold": {**fold, "csv": fold_csv, "launches_by_path": fold_launches}},
+             {"cli": {**cli, "card": smi}},
              {"card": smi}, {"kernels": kernels}]
     # every result line also goes to a file, whole, where a caller that
     # keeps only the end of the output still finds them

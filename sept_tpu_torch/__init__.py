@@ -8,8 +8,12 @@ corpus featurization (mel_spec and MFCC stores, the bf16 ingest), and one
 fold of the utility-privacy protocol: the fold drivers (best by validation,
 early stopping, plateau, mid-fold resume, the sliding-window test vote), the
 checkpoints that link the stages, the baseline's and the cloak's
-``run_fold`` and the suppression sweep.  The mel chain (f32 and bf16), the
-MFCC's floor + DCT and the first conv block are hand-written CUDA kernels
-(``sept_tpu_torch/csrc``).  What is still to be ported is listed in
+``run_fold`` and the suppression sweep; and the protocol through its
+command lines: the host data (corpora, walkers, speaker-disjoint folds,
+windowing, normalization, augmentation, stores), the native WAV decoder and
+the featurize, preprocess, train_baseline, train_cloak, evaluate and
+run_all CLIs (``python -m sept_tpu_torch.cli.<name>``).  The mel chain (f32
+and bf16), the MFCC's floor + DCT and the first conv block are hand-written
+CUDA kernels (``sept_tpu_torch/csrc``).  What is still to be ported is listed in
 ROADMAP.md.
 """

@@ -1,2 +1,2 @@
-"""Fold entry points of the port (the argument parsers come with the CLIs,
-ROADMAP.md §1 item 9)."""
+"""Command lines of the port: featurize, preprocess, train_baseline,
+train_cloak, evaluate and run_all (``python -m sept_tpu_torch.cli.<name>``)."""

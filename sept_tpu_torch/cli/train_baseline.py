@@ -1,29 +1,41 @@
-"""Baseline SER and gender-adversary training of one fold (the reference's
+"""CLI: baseline SER and gender-adversary training (the reference's
 training_adversary_baselines.py).
 
-Counterpart of ``sept_tpu/cli/train_baseline.py``'s ``artifact_name`` and
-``run_fold``: train the configured backbone on the fold's (adversary)
-splits with best-by-validation-accuracy selection, vote on the test split,
-and checkpoint the best state_dict under
-``<output_dir>/{baseline|adv_baseline}_<pred>[_bf16]/fold<k>``.  The
-argument parser (``main``), ``cli/common.py`` and the fold store
-(``data/store.py``) come with the CLIs and host data (ROADMAP.md §1 item
-9).
+    python -m sept_tpu_torch.cli.train_baseline --dataset synthetic --pred emotion
+    python -m sept_tpu_torch.cli.train_baseline --dataset synthetic --pred gender --adv 1
+
+Counterpart of ``sept_tpu/cli/train_baseline.py``: per fold, load the
+assembled splits (``<work_dir>/folds/<dataset>/fold<k>.npz``), train the
+configured backbone on the fold's (adversary) splits with
+best-by-validation-accuracy selection, vote on the test split, and
+checkpoint the best state_dict under
+``<output_dir>/{baseline|adv_baseline}_<pred>[_bf16]/fold<k>``, with the
+per-epoch metrics (``metrics.jsonl``) and the run's ``run.json`` beside it.
+Under SGD the lr defaults to 1e-4 and the epochs to 100 (an explicit
+``--num_epochs`` is honoured), under Adam the lr to 5e-5; Adam's plateau is
+Plateau(3, 0.2).  ``--resume`` skips folds whose checkpoint exists and
+continues an interrupted fold from its last epoch (``mid_fold<k>``).
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+
+import numpy as np
 import torch
 
+from sept_tpu_torch.cli.common import (add_common_args, config_from_args, require_one_device,
+                                       setup_seed)
 from sept_tpu_torch.device import resolve_device
 from sept_tpu_torch.models import build_backbone, compute_dtype, pooling_for
 from sept_tpu_torch.train.device_loop import fit_device
 from sept_tpu_torch.train.loop import speaker_weights
 from sept_tpu_torch.train.optim import make_optimizer
 from sept_tpu_torch.train.steps import init_state, make_eval_logits_fn
-from sept_tpu_torch.utils.logging import MetricsLogger
+from sept_tpu_torch.utils.logging import MetricsLogger, RunManifest
 
-__all__ = ["artifact_name", "run_fold", "seeded_backbone"]
+__all__ = ["artifact_name", "main", "run_fold", "seeded_backbone"]
 
 
 def artifact_name(cfg) -> str:
@@ -82,3 +94,70 @@ def run_fold(cfg, fold, ckpt, verbose=True, metrics_path=None, resume_path=None,
         "test_uar": result.final_test_uar,
     })
     return result
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--resume", action="store_true",
+                   help="skip folds whose checkpoint already exists")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    require_one_device(args)
+    setup_seed(args.seed)
+    cfg = config_from_args(args)
+    if args.learning_rate is None:
+        cfg.learning_rate = 1e-4 if cfg.optimizer == "sgd" else 5e-5
+    if args.num_epochs is None and cfg.optimizer == "sgd":
+        # the reference runs 100 epochs under SGD whatever --num_epochs says
+        # (training_adversary_baselines.py:440); an explicit flag is honoured
+        cfg.num_epochs = 100
+    # Plateau(patience=3, factor=0.2) for adam baselines (:429)
+    cfg.plateau_patience, cfg.plateau_factor = 3, 0.2
+
+    from sept_tpu_torch.data.store import load_fold
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+
+    fold_dir = os.path.join(args.work_dir, "folds", cfg.dataset)
+    ckpt = CheckpointManager(cfg.output_dir)
+    metrics_path = os.path.join(cfg.output_dir, artifact_name(cfg), "metrics.jsonl")
+    accs, uars = [], []
+    for k in args.folds or range(1, cfg.n_folds + 1):
+        if args.resume and ckpt.exists(artifact_name(cfg), k):
+            print(f"fold{k}: checkpoint exists, skipping (--resume)")
+            continue
+        fold = load_fold(os.path.join(fold_dir, f"fold{k}.npz"))
+        # --resume also checkpoints every epoch: an interrupted fold
+        # continues from its last completed epoch
+        resume_path = (os.path.join(cfg.output_dir, artifact_name(cfg), f"mid_fold{k}")
+                       if args.resume else None)
+        result = run_fold(cfg, fold, ckpt, metrics_path=metrics_path,
+                          resume_path=resume_path, device=device)
+        accs.append(result.final_test_acc)
+        uars.append(result.final_test_uar)
+        print(f"fold{k}: best epoch {result.best_epoch} "
+              f"test acc {result.final_test_acc:.3f} uar {result.final_test_uar:.3f}")
+    _print_summary(cfg, accs, uars)
+    _write_run_manifest(cfg, accs, uars, args, device)
+
+
+def _print_summary(cfg, accs, uars):
+    if accs:
+        print(f"{artifact_name(cfg)}: mean test acc {np.mean(accs):.3f} "
+              f"uar {np.mean(uars):.3f} over {len(accs)} folds")
+    else:
+        print(f"{artifact_name(cfg)}: all folds resumed from existing "
+              f"checkpoints, nothing trained")
+
+
+def _write_run_manifest(cfg, accs, uars, args, device):
+    manifest = RunManifest(os.path.join(cfg.output_dir, artifact_name(cfg), "run.json"),
+                           cfg, device)
+    manifest.record(mean_test_acc=float(np.mean(accs)) if accs else None,
+                    mean_test_uar=float(np.mean(uars)) if uars else None,
+                    folds=list(args.folds or range(1, cfg.n_folds + 1)))
+    manifest.write()
+
+
+if __name__ == "__main__":
+    main()

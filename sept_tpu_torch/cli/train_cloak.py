@@ -1,25 +1,34 @@
-"""Cloak noise-injection training of one fold (the reference's
-training_cloak.py and, with ``cfg.grl``, training_cloak_with_grl.py).
+"""CLI: cloak noise-injection training (the reference's training_cloak.py
+and, with ``--grl 1``, training_cloak_with_grl.py).
 
-Counterpart of ``sept_tpu/cli/train_cloak.py``'s ``cloak_artifact`` and
-``run_fold``: load the fold's pretrained emotion baseline, wrap it with the
+    python -m sept_tpu_torch.cli.train_cloak --dataset synthetic --scale_lamda 0.1
+    python -m sept_tpu_torch.cli.train_cloak --dataset synthetic --grl 1
+
+Counterpart of ``sept_tpu/cli/train_cloak.py``: per fold, load the fold's
+pretrained emotion baseline (``cli.train_baseline``), wrap it with the
 noise layer (and, for GRL, a fresh trainable gender adversary behind the
 gradient-reversal layer), and train only the cloak's trainable part.
-Suppression runs (``suppression_ratio > 0``) start from the suppression-0
-cloak's noise, freeze ``rhos`` and train under the training-direction
-percentile mask (``mask_direction="eval"``: under the sweep's mask).
-Artifacts: ``cloak[_grl]_lamda<scale_lambda>_supp<r>[_anti][_sal<w>]
-[_mdeval][_bf16]/fold<k>``.  The argument parser (``main``) comes with the
-CLIs (ROADMAP.md §1 item 9).
+Suppression runs (``--suppression_ratio`` > 0) start from the
+suppression-0 cloak's noise, freeze ``rhos`` and train under the
+training-direction percentile mask (``--mask_direction eval``: under the
+sweep's mask).  Under SGD the lr defaults to 1e-3, under Adam to 5e-4;
+StepLR steps every 10 epochs; ``--grl 1`` steps the schedule once an epoch
+and takes Plateau(3, 0.5).  Artifacts:
+``cloak[_grl]_lamda<scale_lambda>_supp<r>[_anti][_sal<w>][_mdeval][_bf16]/
+fold<k>``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
+from sept_tpu_torch.cli.common import (add_common_args, config_from_args, require_one_device,
+                                       setup_seed)
 from sept_tpu_torch.cli.train_baseline import artifact_name as baseline_artifact
 from sept_tpu_torch.cli.train_baseline import seeded_backbone
 from sept_tpu_torch.device import resolve_device
@@ -30,7 +39,7 @@ from sept_tpu_torch.train.loop import speaker_weights
 from sept_tpu_torch.train.optim import make_cloak_optimizer
 from sept_tpu_torch.train.steps import cloak_scales, init_state, make_eval_logits_fn
 
-__all__ = ["cloak_artifact", "run_fold"]
+__all__ = ["cloak_artifact", "main", "run_fold"]
 
 # validation and test votes of a cloak run all see the epsilon drawn from
 # this seed (the JAX package's PRNGKey(0))
@@ -122,3 +131,54 @@ def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
         print("scales mean/max/min %.3f/%.3f/%.3f"
               % (scales.mean(), scales.max(), scales.min()))
     return result
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--grl", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="skip folds whose checkpoint already exists")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    require_one_device(args)
+    setup_seed(args.seed)
+    cfg = config_from_args(args, grl=bool(args.grl))
+    if args.learning_rate is None:
+        cfg.learning_rate = 1e-3 if cfg.optimizer == "sgd" else 5e-4
+    cfg.lr_step_epochs = 10  # cloak StepLR(10, 0.5) (training_cloak.py:379)
+    if cfg.grl:
+        # the GRL trainer steps StepLR once per epoch (only on the validate
+        # pass, training_cloak_with_grl.py:186-191) and uses
+        # Plateau(patience=3, factor=0.5) (:421)
+        cfg.lr_sched_steps_per_epoch = 1
+        cfg.plateau_patience, cfg.plateau_factor = 3, 0.5
+
+    from sept_tpu_torch.data.store import load_fold
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+
+    fold_dir = os.path.join(args.work_dir, "folds", cfg.dataset)
+    ckpt = CheckpointManager(cfg.output_dir)
+    accs, uars = [], []
+    for k in args.folds or range(1, cfg.n_folds + 1):
+        if args.resume and ckpt.exists(cloak_artifact(cfg), k):
+            print(f"fold{k}: checkpoint exists, skipping (--resume)")
+            continue
+        fold = load_fold(os.path.join(fold_dir, f"fold{k}.npz"))
+        resume_path = (os.path.join(cfg.output_dir, cloak_artifact(cfg), f"mid_fold{k}")
+                       if args.resume else None)
+        result = run_fold(cfg, fold, ckpt, resume_path=resume_path, device=device)
+        accs.append(result.final_test_acc)
+        uars.append(result.final_test_uar)
+        print(f"fold{k}: test acc {result.final_test_acc:.3f} "
+              f"uar {result.final_test_uar:.3f}")
+    if accs:
+        print(f"{cloak_artifact(cfg)}: mean test acc {np.mean(accs):.3f} "
+              f"uar {np.mean(uars):.3f}")
+    else:
+        print(f"{cloak_artifact(cfg)}: all folds resumed from existing "
+              f"checkpoints, nothing trained")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,3 @@
-"""Data staging, on-device ingest and corpus featurization of the port."""
+"""Host data of the port (corpora, walkers, folds, windowing, normalization,
+augmentation, stores, the synthetic corpus), data staging, on-device ingest
+and corpus featurization."""

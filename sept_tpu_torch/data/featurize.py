@@ -18,7 +18,7 @@ copy, not a view of the chunk):
 On a card the mel goes through the f32 mel kernel and the MFCC's top_db
 floor + DCT through the floor + DCT kernel (``ops/mfcc.py``); the JAX
 package computes the same functions with XLA ops.  The 88-dim ``gemaps`` and
-988-dim ``emobase`` functionals are not ported yet (ROADMAP §2 item 7).
+988-dim ``emobase`` functionals are not ported yet (ROADMAP §1 item 9).
 """
 
 from __future__ import annotations
@@ -129,7 +129,7 @@ def featurize_corpus(waveforms: dict[str, np.ndarray], feature_type: str = "mel_
 
     ``include_gemaps`` / ``include_emobase`` (the latter tracks the former
     when None) raise ``NotImplementedError``: the functionals are not ported
-    (ROADMAP §2 item 7); pass ``include_gemaps=False``.  Each chunk's
+    (ROADMAP §1 item 9); pass ``include_gemaps=False``.  Each chunk's
     outputs are copied to the host before the next chunk is staged, so the
     device holds one chunk at a time, not the corpus.
     """
@@ -138,7 +138,7 @@ def featurize_corpus(waveforms: dict[str, np.ndarray], feature_type: str = "mel_
     if include_gemaps or include_emobase:
         raise NotImplementedError(
             "featurize_corpus: the gemaps/emobase functionals are not ported yet "
-            "(ROADMAP.md §2 item 7); pass include_gemaps=False")
+            "(ROADMAP.md §1 item 9); pass include_gemaps=False")
     if feature_type not in ("mel_spec", "mfcc"):
         raise ValueError(f"unknown feature_type: {feature_type!r}")
     dev = resolve_device(device)

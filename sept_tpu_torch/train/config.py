@@ -6,13 +6,12 @@ plateau and early stopping, the optimizer and its schedule in
 :mod:`sept_tpu_torch.train.optim`, the cloak's weights, noise bounds,
 suppression and mask direction, the compute dtype that the caller turns
 into the models' ``compute_dtype`` with
-:func:`sept_tpu_torch.models.compute_dtype`, the seed and the output
-directory), and ``preset`` with the four presets of the JAX package, cut to
-those fields (each mirrors one reference entry point's defaults, including
-the per-script learning rates, epoch counts and plateau settings).
-``n_folds`` and the feature-type, shift, norm and augmentation fields come
-with the CLIs and host data that read them (ROADMAP.md §1 item 9).  Left
-out for good: ``conv_backend`` (the port has one block-1 path, its kernels
+:func:`sept_tpu_torch.models.compute_dtype`, the feature type, shift, norm
+and augmentation that the preprocess CLI assembles folds with, the seed, the
+fold count and the output directory), and ``preset`` with the four presets
+of the JAX package, cut to those fields (each mirrors one reference entry
+point's defaults, including the per-script learning rates, epoch counts and
+plateau settings).  Left out for good: ``conv_backend`` (the port has one block-1 path, its kernels
 in both dtypes), ``remat``, ``prng_impl`` and ``filter_size`` (no model
 reads it).
 """
@@ -29,8 +28,12 @@ __all__ = ["ExperimentConfig", "preset"]
 class ExperimentConfig:
     # data
     dataset: str = "iemocap"
+    feature_type: str = "mel_spec"  # "mel_spec" or "mfcc"
     feature_len: int = 128  # --input_spec_size
     win_len: int = 200
+    shift: bool = True  # slide windows over training utterances (else one)
+    norm: str = "znorm"  # per-speaker "znorm" or "min_max"
+    aug: Optional[str] = "emotion"  # balance the training split on "emotion" / "gender"
     adv: bool = False  # train on the adversary splits
 
     # model
@@ -86,6 +89,7 @@ class ExperimentConfig:
 
     # run
     seed: int = 8
+    n_folds: int = 5
     output_dir: str = "results"
 
     @property

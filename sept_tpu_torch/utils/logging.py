@@ -1,9 +1,11 @@
-"""Structured run logging: JSONL metrics.
+"""Structured run logging: run manifests and JSONL metrics.
 
 Counterpart of ``sept_tpu/utils/logging.py``: :func:`_jsonable` (shared by
-the checkpoint manifests and the mid-fold loop state) and
+the checkpoint manifests and the mid-fold loop state), :class:`RunManifest`,
+one JSON file a run with its config, its environment and its final metrics
+(where the JAX package records the jax version and ``jax.devices()``, the
+port records torch's and CUDA's versions and the devices' names), and
 :class:`MetricsLogger`, an append-only JSONL of per-epoch metric dicts.
-``RunManifest`` comes with the CLIs (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ import dataclasses
 import json
 import os
 import time
+from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["MetricsLogger"]
+__all__ = ["RunManifest", "MetricsLogger"]
 
 
 def _jsonable(obj):
@@ -35,6 +38,32 @@ def _jsonable(obj):
     if isinstance(obj, (np.floating, np.integer)):
         return obj.item()
     return obj
+
+
+class RunManifest:
+    def __init__(self, path: str, config: Any = None, device="cpu"):
+        """``device``: the run's device; the manifest names every visible
+        card for a CUDA device, else ``["cpu"]``."""
+        self.path = path
+        cuda = torch.device(device).type == "cuda"
+        self.data: dict = {
+            "created": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "devices": ([torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+                        if cuda else ["cpu"]),
+            "config": _jsonable(config) if config is not None else None,
+            "results": {},
+        }
+
+    def record(self, **kv) -> None:
+        self.data["results"].update(_jsonable(kv))
+
+    def write(self) -> str:
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
+        with open(self.path, "w") as f:
+            json.dump(self.data, f, indent=2)
+        return self.path
 
 
 class MetricsLogger:

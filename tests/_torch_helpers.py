@@ -103,3 +103,16 @@ def expand_bf16_tables(n_fft, n_mels, geometry=BF16_GEOMETRY):
             fb[c * nc:(c + 1) * nc, p * mel_tile:(p + 1) * mel_tile] = blk.T
     assert off == bank.numel()
     return window, cos, sin, fb
+
+
+def assert_folds_equal(a, b):
+    """Two FoldData (of either package) equal array for array: dtype, shape
+    and values of every field of every split."""
+    assert a.fold == b.fold
+    for split in ("training", "validation", "adv_training", "adv_validation", "test"):
+        sa, sb = getattr(a, split), getattr(b, split)
+        for name in ("windows", "labels_emo", "labels_gen", "lengths", "global_data",
+                     "speaker_ids", "datasets", "utt_ids"):
+            x, y = getattr(sa, name), getattr(sb, name)
+            assert x.dtype == y.dtype and x.shape == y.shape, (split, name)
+            assert np.array_equal(x, y), (split, name)

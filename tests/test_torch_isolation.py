@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no sept_tpu, no silent CPU fallback."""
+"""The PyTorch port stands alone: no JAX, no scikit-learn, no sept_tpu, no
+silent CPU fallback."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "sept_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sept_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "sept_tpu")
 
 
 def _imported_roots(path):
@@ -32,7 +33,7 @@ def test_no_jax_or_reference_package_imports(path):
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'sept_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'sklearn', 'sept_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import sept_tpu_torch.serve, sept_tpu_torch.compat.from_jax\n"
         "import sept_tpu_torch.ops.conv_block1, sept_tpu_torch.ops.cuda_lib\n"
@@ -46,8 +47,16 @@ def test_port_imports_with_jax_blocked():
         "import sept_tpu_torch.train.checkpoint, sept_tpu_torch.train.midfold\n"
         "import sept_tpu_torch.cli.train_baseline, sept_tpu_torch.cli.train_cloak\n"
         "import sept_tpu_torch.utils.logging, sept_tpu_torch.data.pipeline\n"
+        "import sept_tpu_torch.data.corpora, sept_tpu_torch.data.windowing\n"
+        "import sept_tpu_torch.data.normalize, sept_tpu_torch.data.augment\n"
+        "import sept_tpu_torch.data.splits, sept_tpu_torch.data.combine\n"
+        "import sept_tpu_torch.data.store, sept_tpu_torch.data.synthetic\n"
+        "import sept_tpu_torch.data.walkers, sept_tpu_torch.runtime.wavio\n"
+        "import sept_tpu_torch.cli.common, sept_tpu_torch.cli.featurize\n"
+        "import sept_tpu_torch.cli.preprocess, sept_tpu_torch.cli.evaluate\n"
+        "import sept_tpu_torch.cli.run_all\n"
         "import chip_smoke\n"
-        "assert not any(m.startswith(('jax', 'flax', 'orbax')) for m in sys.modules\n"
+        "assert not any(m.startswith(('jax', 'flax', 'orbax', 'sklearn')) for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -107,3 +116,20 @@ def test_featurization_entry_points_need_cuda_by_default(monkeypatch, entry):
                                                  np.zeros(1, int), frontend="pallas_bf16")}
     with pytest.raises(RuntimeError, match="cuda"):
         call[entry]()
+
+
+@pytest.mark.parametrize("cli", ["featurize", "train_baseline", "train_cloak", "evaluate",
+                                 "run_all"])
+def test_clis_need_cuda_by_default(monkeypatch, tmp_path, cli):
+    """Each CLI that touches a device runs on ``--device cuda`` unless asked
+    for the CPU, and raises without a card before it does any work."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--dataset", "synthetic", "--work_dir", str(tmp_path), "--output_dir",
+            str(tmp_path / "r")]
+    args += {"featurize": ["--functionals", "0", "--n_speakers", "2"],
+             "run_all": ["--n_speakers", "2"]}.get(cli, [])
+    with pytest.raises(RuntimeError, match="cuda"):
+        importlib.import_module(f"sept_tpu_torch.cli.{cli}").main(args)
+    assert list(tmp_path.iterdir()) == []
