@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (f32 and bf16), featurization,
-fold (training, checkpoints, the suppression sweep) and command-line paths
-on one NVIDIA GPU and check its kernels.
+fold (training, checkpoints, the suppression sweep), command-line and
+artifact (load_predictor, serve / predict / export / import, every model
+type) paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -109,7 +110,25 @@ and read just after; each kernel the path must use has to have launched
                rules; preprocess --folds 1, fold 1's speakers equal to
                plan_folds("crema-d"); and a 1-epoch train_baseline with
                --compute_dtype bfloat16 (K1-K4 in their bf16 mode only).
-12. kernels    each kernel against its plain version on the tensors the main
+12. artifacts  on the cli phase's artifacts, before they are removed, 8
+               pcm16 utterances of 4 s: load_predictor of baseline_emotion on
+               the card and the CPU (probabilities within 1e-4; mel, K1 and K2,
+               no backward kernel); the GRL cloak at suppression 20 (its mask
+               eval_mask of the restored scales, card vs CPU within 1e-4 at one
+               noise seed); cli.serve's make_server (the manifest, --warmup 4,
+               --batch_window_ms 5) on the card: /healthz, one /predict, then 8
+               concurrent ones, each within 1e-5 of a direct predict (first
+               and median latency); cli.predict over the CREMA-D tree on the
+               card, and with --device cpu over 32 of its files (the card's
+               rows for them, probabilities within 1e-4); export_torch -> import_torch of the baseline and
+               the GRL cloak (live tensors bit-equal, the synthesized keys
+               present, the imported artifacts served within 1e-6); a 1-epoch
+               train_baseline --model_type deep-2d-cnn-lstm (K1-K4, no K5),
+               served on the card and the CPU within 1e-4; and 3 baseline
+               steps each of the deep LSTM in f32 (K1-K4) and bf16 (K1-K4 in
+               their bf16 mode), OneDConvNet and PlainConv2d (no kernel of
+               the port) on the card and the CPU at 6's and 9's tolerances.
+13. kernels    each kernel against its plain version on the tensors the main
                path gives it (mel 1e-3 dB cell by cell, and where the FFT
                kernel and the dense plain version part by more, the kernel
                no farther than the plain version from a float64 chain, plus
@@ -154,9 +173,9 @@ and read just after; each kernel the path must use has to have launched
                bound, then at the edge shapes; K2 in both modes bit-equal
                to its plain version at K2_EDGES (odd H and W, widths off
                16, three column tiles, a misaligned conv output).
-13. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
+14. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
-14. profile    device time by kernel over predict calls of 1 and of 8
+15. profile    device time by kernel over predict calls of 1 and of 8
                utterances and over 3 baseline and 3 cloak + GRL steps in each
                dtype, the device's busy share of the wall time
                (torch.profiler), the f32 rate of the blocks 2-3 convolutions
@@ -166,7 +185,7 @@ and read just after; each kernel the path must use has to have launched
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
 ...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
-``{"train_bf16": ...}``, ``{"fold": ...}`` and ``{"cli": ...}`` lines, the card's ``name, power.limit`` from
+``{"train_bf16": ...}``, ``{"fold": ...}``, ``{"cli": ...}`` and ``{"artifacts": ...}`` lines, the card's ``name, power.limit`` from
 nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
 mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
@@ -292,6 +311,12 @@ FOLD_GRL_LR = 1e-2
 # (actors 1001-1091, one utterance a sentence of CREMA_SENTENCES, every
 # fourth file 44.1 kHz stereo) featurized from WAV files
 CLI_SPEAKERS, CLI_UTTS, CLI_EPOCHS, CLI_SCALE, CLI_RATIOS = 40, 16, 3, 0.1, (0, 20)
+# the artifacts phase, on the cli phase's artifacts: ART_UTTS pcm16
+# utterances of ART_SECONDS, the GRL cloak at suppression ART_SUPP (one of
+# CLI_RATIOS) with noise seed ART_SEED
+ART_UTTS, ART_SECONDS, ART_SUPP, ART_SEED = 8, 4.0, 20, 3
+# cli.predict with --device cpu reads this many of the CREMA-D tree's files
+ART_PREDICT_CPU = 32
 CREMA_SENTENCES, CREMA_STEREO_SR = ("DFA", "IEO"), 44100
 CORPORA = ("iemocap", "crema-d")
 NO_FRONTEND = ("mel_db", "mel_db_bf16", "floor_dct")  # featurization's kernels
@@ -1048,24 +1073,30 @@ def train_cpu_phase(ds, order, sds, dtype="float32", saliency=0.0, tol=TRAIN_F32
                 runs.setdefault(name, {})[dev] = (np.asarray(losses), snapshot(state.model))
     finally:
         cudnn.deterministic, cudnn.benchmark = pinned
-    out = {}
-    for name, r in runs.items():
-        (lg, sg), (lc, sc) = r[DEV], r["cpu"]
-        loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
-        diffs = {part: max([float((sg[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1.0)
-                            for k, v in sc.items()
-                            if v.is_floating_point() and ("running" in k) == (part == "stats")],
-                           default=0.0)
-                 for part in ("param", "stats")}
-        log(f"train-cpu {dtype} {name}: losses {lc.tolist()}, max rel loss diff "
-            f"{loss_rel:.3g}, max diff of max(|p|, 1): {diffs}")
-        require(loss_rel <= tol["loss"] and all(d <= tol[k] for k, d in diffs.items()),
-                f"{name}: GPU and CPU {dtype} training disagree ({loss_rel}, {diffs})")
-        out[name] = {"losses_cpu": lc.tolist(), "max_rel_loss_diff": loss_rel,
-                     "max_param_diff_of_max_abs": diffs["param"],
-                     "max_running_stat_diff_of_max_abs": diffs["stats"]}
+    out = {name: hold_steps(f"train-cpu {dtype} {name}", r, tol) for name, r in runs.items()}
     out.update(batch=CPU_BATCH, steps=3, learning_rate=1e-2, tolerance=tol)
     return out
+
+
+def hold_steps(what, run, tol):
+    """Hold the card's steps to the CPU's: ``run[device] = (losses,
+    state_dict after the steps)``; losses within tol["loss"] relative, every
+    parameter within tol["param"] and every running statistic within
+    tol["stats"] of max(|p|, 1)."""
+    (lg, sg), (lc, sc) = run[DEV], run["cpu"]
+    loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    diffs = {part: max([float((sg[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1.0)
+                        for k, v in sc.items()
+                        if v.is_floating_point() and ("running" in k) == (part == "stats")],
+                       default=0.0)
+             for part in ("param", "stats")}
+    log(f"{what}: losses {lc.tolist()}, max rel loss diff {loss_rel:.3g}, max diff of "
+        f"max(|p|, 1): {diffs}")
+    require(loss_rel <= tol["loss"] and all(d <= tol[k] for k, d in diffs.items()),
+            f"{what}: the card and the CPU disagree ({loss_rel}, {diffs})")
+    return {"losses_cpu": lc.tolist(), "max_rel_loss_diff": loss_rel,
+            "max_param_diff_of_max_abs": diffs["param"],
+            "max_running_stat_diff_of_max_abs": diffs["stats"]}
 
 
 def capture_block1(ds, order, sds, dtype="float32"):
@@ -1977,8 +2008,9 @@ def cli_phase(rng):
     utterances again on the CPU from the card's checkpoints; featurize of a
     CREMA-D-shaped WAV tree for mel_spec and mfcc, 8 utterances of each
     store held to the CPU path, preprocess's fold 1 held to plan_folds; a
-    bf16 baseline through --compute_dtype.  Returns (info, launches by
-    path)."""
+    bf16 baseline through --compute_dtype; then, before the tree is
+    removed, the artifacts phase on its artifacts.  Returns (info, launches
+    by path, the artifacts phase's info and launches by path)."""
     import csv
 
     from sept_tpu_torch.cli import evaluate, featurize, preprocess, run_all
@@ -2105,9 +2137,302 @@ def cli_phase(rng):
         require((results / "baseline_emotion_bf16" / "fold1" / "state_dict.pt").is_file(),
                 "cli: no bf16 baseline artifact")
         info["baseline_bf16_wall_ms"] = ms
+        t0 = time.perf_counter()
+        artifacts, art_launches = artifacts_phase(rng, root, results, tree, common, cfg, fold)
+        artifacts["wall_ms"] = (time.perf_counter() - t0) * 1e3
     finally:
         shutil.rmtree(root, ignore_errors=True)
     info["launches_by_path"] = {p: {k: v for k, v in c.items() if v} for p, c in launches.items()}
+    return info, launches, artifacts, art_launches
+
+
+# ---------------------------------------------------------------------------
+# artifacts in and out: load_predictor, the serve / predict / export / import
+# command lines, and the model zoo
+
+
+def latency_post(url, body):
+    t0 = time.perf_counter()
+    out = post(url, body)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def pcm16_body(w):
+    return {"waveforms_pcm16": [base64.b64encode(w.astype("<i2").tobytes()).decode()]}
+
+
+def card_vs_cpu(load, waves, what, seed=0, atol=PROBS_ATOL):
+    """``load(device)`` -> a predictor; its probabilities on ``waves`` on
+    the card (a main path: mel, K1 and K2, no backward kernel) and on the
+    CPU.  Returns (card predictor, card probs, launches, max |diff|, wall ms
+    of the card's restore and build)."""
+    t0 = time.perf_counter()
+    gpu = load(DEV)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    probs, launches, _ = drive(lambda: gpu.predict(waves, seed=seed),
+                               must=("mel_db", "block1_conv_stats", "block1_norm_pool"),
+                               must_not=BACKWARD + BLOCK1_BF16 + ("mel_db_bf16", "floor_dct"))
+    diff = float(np.abs(probs - load("cpu").predict(waves, seed=seed)).max())
+    log(f"artifacts {what}: max |card - cpu| probs {diff:.3g}")
+    require(diff <= atol, f"artifacts {what}: the card and the CPU differ by {diff}")
+    return gpu, check_probs(probs, len(waves), what), launches, diff, build_ms
+
+
+def serve_cli_phase(results, waves, direct):
+    """cli.serve's own code path (make_server: the manifest, --warmup 4,
+    --batch_window_ms 5) on the card: /healthz, one /predict, then one
+    concurrent /predict per utterance; each within 1e-5 of ``direct``."""
+    from sept_tpu_torch.cli import serve
+
+    t0 = time.perf_counter()
+    server = serve.make_server(["--output_dir", str(results), "--port", "0", "--device", DEV,
+                                "--warmup", "4", "--batch_window_ms", "5"])
+    start_ms = (time.perf_counter() - t0) * 1e3
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.port}"
+    results_, ms = {}, {}
+    try:
+        require(post(f"{base}/healthz", None) == {"status": "ok", "pred": "emotion",
+                                                 "cloaked": False}, "serve cli: healthz")
+        first, first_ms = latency_post(f"{base}/predict", pcm16_body(waves[0]))
+        gate = threading.Barrier(len(waves))
+
+        def fire(i):
+            gate.wait(60)
+            results_[i], ms[i] = latency_post(f"{base}/predict", pcm16_body(waves[i]))
+
+        threads = [threading.Thread(target=fire, args=(i,)) for i in range(len(waves))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        require(len(results_) == len(waves), "serve cli: concurrent requests did not finish")
+        metrics = post(f"{base}/metrics", None)
+    finally:
+        server.shutdown()
+        thread.join(30)
+    require(not thread.is_alive(), "serve cli: server thread did not stop")
+    got = np.concatenate([check_probs(results_[i]["probs"], 1, f"serve cli {i}")
+                          for i in range(len(waves))])
+    want = np.concatenate([direct.predict([w]) for w in waves])
+    diff = max(float(np.abs(got - want).max()),
+               float(np.abs(np.asarray(first["probs"]) - want[:1]).max()))
+    require(diff <= 1e-5, f"serve cli: probs differ from a direct predict by {diff}")
+    return {"startup_with_warmup_ms": start_ms, "first_request_ms": first_ms,
+            "concurrent_median_ms": float(np.median(list(ms.values()))),
+            "concurrent_max_ms": float(max(ms.values())),
+            "device_calls": metrics["device_calls_total"],
+            "max_abs_probs_diff_vs_direct": diff}
+
+
+def predict_cli_phase(results, tree, root):
+    """cli.predict over the CREMA-D tree on the card (launches, ms an
+    utterance), then with --device cpu over the first ART_PREDICT_CPU of
+    its files (a tree of links beside it, the demographics too): the CPU's
+    rows are the card's for those files, probabilities within PROBS_ATOL."""
+    import csv
+
+    from sept_tpu_torch.cli import predict
+
+    sub = root / "crema_sub"
+    sub.mkdir()
+    (sub / "VideoDemographics.csv").symlink_to(tree / "VideoDemographics.csv")
+    for f in sorted(tree.glob("*.wav"))[:ART_PREDICT_CPU]:
+        (sub / f.name).symlink_to(f)
+    rows, walls = {}, {}
+    for dev, corpus in ((DEV, tree), ("cpu", sub)):
+        out = root / f"predict_{dev}.csv"
+        argv = ["--output_dir", str(results), "--dataset", "crema-d", "--corpus_root",
+                str(corpus), "--out", str(out), "--device", dev]
+        if dev == DEV:
+            _, launches, walls[dev] = drive(lambda: predict.main(argv),
+                                            must=("mel_db", "block1_conv_stats",
+                                                  "block1_norm_pool"),
+                                            must_not=BACKWARD + BLOCK1_BF16 + ("mel_db_bf16",
+                                                                               "floor_dct"))
+        else:
+            t0 = time.perf_counter()
+            predict.main(argv)
+            walls[dev] = (time.perf_counter() - t0) * 1e3
+        with open(out, newline="") as f:
+            rows[dev] = {r["utt_id"]: r for r in csv.DictReader(f)}
+    require(rows["cpu"] and set(rows["cpu"]) <= set(rows[DEV]), "predict cli: rows differ")
+    cols = [c for c in next(iter(rows["cpu"].values())) if c.startswith("p_")]
+    diff = max(abs(float(rows[DEV][u][c]) - float(rows["cpu"][u][c]))
+               for u in rows["cpu"] for c in cols)
+    require(diff <= PROBS_ATOL, f"predict cli: the card and the CPU differ by {diff}")
+    return {"utterances": len(rows[DEV]), "utterances_cpu": len(rows["cpu"]),
+            "card_ms_per_utterance": walls[DEV] / len(rows[DEV]),
+            "cpu_ms_per_utterance": walls["cpu"] / len(rows["cpu"]),
+            "max_abs_probs_diff": diff}, launches
+
+
+def exchange_phase(results, root, cloak, waves, originals):
+    """export_torch -> import_torch of the baseline and the GRL cloak: live
+    tensors bit-equal, the synthesized keys present, the imported artifacts
+    served within 1e-6 of ``originals`` ({artifact: (load_predictor
+    keywords, noise seed, probs)})."""
+    from sept_tpu_torch.cli import export_torch, import_torch
+    from sept_tpu_torch.serve import load_predictor
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+
+    back = root / "imported"
+    out, walls = {}, {"export_ms": 0.0, "import_ms": 0.0}
+    for art in ("baseline_emotion", cloak):
+        pt = root / f"{art}.pt"
+        t0 = time.perf_counter()
+        export_torch.main(["--output_dir", str(results), "--artifact", art, "--out", str(pt)])
+        t1 = time.perf_counter()
+        import_torch.main(["--checkpoint", str(pt), "--output_dir", str(back), "--artifact",
+                           art])
+        walls["export_ms"] += (t1 - t0) * 1e3
+        walls["import_ms"] += (time.perf_counter() - t1) * 1e3
+        exported = torch.load(str(pt), weights_only=True)
+        prefix = "original_model." if art == cloak else ""
+        dead = {f"{prefix}{k}" for k in ("dense2.weight", "dense2.bias", "att_mat1",
+                                         "att_mat2", "att_linear1.weight",
+                                         "att_linear2.weight", "pred_gender_layer.weight")}
+        require(dead <= set(exported), f"exchange {art}: synthesized keys missing")
+        a = CheckpointManager(str(results)).restore(art, 1, "cpu")
+        b = CheckpointManager(str(back)).restore(art, 1, "cpu")
+        live = [k for k in a if not k.endswith("num_batches_tracked")]
+        require(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in live),
+                f"exchange {art}: live tensors differ after export -> import")
+        out[art] = {"tensors_exported": len(exported), "live_tensors": len(live)}
+    for art, (kw, seed, want) in originals.items():
+        got = load_predictor(str(back), device=DEV, **kw).predict(waves, seed=seed)
+        diff = float(np.abs(got - want).max())
+        require(diff <= 1e-6, f"exchange {art}: the imported artifact serves {diff} away")
+        out[art]["max_abs_probs_diff_served"] = diff
+    return {**out, **walls}
+
+
+def zoo_phase(fold):
+    """Three baseline steps each of the deep LSTM (f32 and bf16),
+    OneDConvNet and PlainConv2d at full width on the card and on the CPU,
+    dropout 0, lr 1e-2, CPU_BATCH windows of the fold's training split;
+    held with hold_steps at the fold tolerances.  The deep model runs K1-K4
+    (its bf16 mode in bf16), the others no kernel of the port."""
+    from sept_tpu_torch.models import build_backbone, compute_dtype, pooling_for
+    from sept_tpu_torch.train.config import ExperimentConfig
+    from sept_tpu_torch.train.optim import make_optimizer
+    from sept_tpu_torch.train.steps import init_state, make_baseline_step
+
+    split = fold.training
+    n = 3 * CPU_BATCH
+    data = {"spec": torch.from_numpy(split.windows[:n])[:, None],
+            "labels_emo": torch.from_numpy(split.labels_emo[:n]).long(),
+            "labels_gen": torch.from_numpy(split.labels_gen[:n]).long(),
+            "weight": torch.ones(n)}
+    cases = {"deep_lstm": ("deep-2d-cnn-lstm", "float32", TRAIN_F32_TOL),
+             "deep_lstm_bf16": ("deep-2d-cnn-lstm", "bfloat16", TRAIN_BF16_TOL),
+             "one_d": ("1d-cnn-lstm-att", "float32", TRAIN_F32_TOL),
+             "plain": ("2d-cnn", "float32", TRAIN_F32_TOL)}
+    info, launches = {}, {}
+    cudnn = torch.backends.cudnn
+    pinned = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for name, (mt, dtype, tol) in cases.items():
+            def make():
+                return build_backbone(mt, hidden_size=HIDDEN, feature_len=N_MELS, win_len=WIN,
+                                      rnn_cell="lstm", dropout_rate=0.0,
+                                      compute_dtype=compute_dtype(dtype))
+
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED + 31)
+                sd = make().state_dict()
+            k1k4 = BLOCK1[:4] if dtype == "float32" else BLOCK1_BF16[:4]
+            must = k1k4 if "deep" in name else ()
+            run = {}
+            for dev in (DEV, "cpu"):
+                model = make()
+                model.load_state_dict(sd)
+                cfg = ExperimentConfig(optimizer="sgd", learning_rate=1e-2)
+                state = init_state(model, make_optimizer(cfg, 100, model), SEED, dev)
+                step = make_baseline_step(pooling_for(mt))
+
+                def steps():
+                    return [float(step(state, {k: v[i * CPU_BATCH:(i + 1) * CPU_BATCH].to(dev)
+                                               for k, v in data.items()})[1]["loss"])
+                            for i in range(3)]
+
+                if dev == DEV:
+                    losses, launches[f"artifacts_zoo_{name}"], ms = drive(
+                        steps, must=must,
+                        must_not=tuple(k for k in BLOCK1 + BLOCK1_BF16 if k not in must)
+                        + NO_FRONTEND)
+                else:
+                    losses = steps()
+                run[dev] = (np.asarray(losses), snapshot(state.model))
+            info[name] = {"model_type": mt, "compute_dtype": dtype, "card_wall_ms_3_steps": ms,
+                          **hold_steps(f"artifacts zoo {name}", run, tol)}
+    finally:
+        cudnn.deterministic, cudnn.benchmark = pinned
+    return info, launches
+
+
+def artifacts_phase(rng, root, results, tree, common, cfg, fold):
+    """The artifacts the cli phase's run_all left under ``results``: served
+    through load_predictor on the card and the CPU (the baseline, the GRL
+    cloak at ART_SUPP), through cli.serve and cli.predict, exchanged through
+    export_torch -> import_torch; a deep baseline trained by
+    train_baseline and served; the model zoo's steps.  Returns (info,
+    launches by path)."""
+    from sept_tpu_torch.cli import train_baseline as TB
+    from sept_tpu_torch.cli import train_cloak as TC
+    from sept_tpu_torch.eval.sweep import EVAL_MAX_SCALE, eval_mask
+    from sept_tpu_torch.models import CloakNoise
+    from sept_tpu_torch.serve import load_predictor
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+
+    waves = [(speechlike(rng, int(ART_SECONDS * 16000)) * 20000).astype(np.int16)
+             for _ in range(ART_UTTS)]
+    info, launches = {"utterances": ART_UTTS, "seconds": ART_SECONDS}, {}
+
+    gpu, probs, launches["artifacts_load_predictor"], diff, ms = card_vs_cpu(
+        lambda d: load_predictor(str(results), "baseline_emotion", 1, device=d), waves,
+        "baseline")
+    info["baseline"] = {"restore_and_build_ms": ms, "max_abs_probs_diff_card_cpu": diff}
+
+    cloak = TC.cloak_artifact(dataclasses.replace(cfg, suppression_ratio=ART_SUPP))
+    ckw = {"cloak_artifact": cloak, "suppression_ratio": ART_SUPP}
+    gc, cprobs, launches["artifacts_cloak"], diff, ms = card_vs_cpu(
+        lambda d: load_predictor(str(results), device=d, **ckw), waves, "grl cloak",
+        seed=ART_SEED)
+    state = CheckpointManager(str(results)).restore(cloak, 1, "cpu")
+    probe = CloakNoise(WIN, N_MELS, max_scale=EVAL_MAX_SCALE)
+    probe.load_state_dict({k: state[f"noise.{k}"] for k in ("locs", "rhos")})
+    mask = eval_mask(probe.scales().detach()[0].numpy(), ART_SUPP)
+    require(mask is not None and np.array_equal(gc.mask.cpu().numpy(), mask),
+            "artifacts: the cloak's mask is not eval_mask of its scales")
+    info["grl_cloak"] = {"artifact": cloak, "restore_and_build_ms": ms,
+                         "max_abs_probs_diff_card_cpu": diff,
+                         "mask_kept_share": float(mask.mean())}
+
+    info["serve_cli"], launches["artifacts_serve_cli"], _ = drive(
+        lambda: serve_cli_phase(results, waves, gpu),
+        must=("mel_db", "block1_conv_stats", "block1_norm_pool"),
+        must_not=BACKWARD + BLOCK1_BF16 + ("mel_db_bf16", "floor_dct"))
+    info["predict_cli"], launches["artifacts_predict_cli"] = predict_cli_phase(results, tree,
+                                                                                root)
+    info["exchange"] = exchange_phase(results, root, cloak, waves, {
+        "baseline_emotion": ({}, 0, probs), cloak: (ckw, ART_SEED, cprobs)})
+
+    deep_dir = root / "deep_results"
+    _, launches["artifacts_deep_train"], ms = drive(
+        lambda: TB.main(["--dataset", "synthetic", "--model_type", "deep-2d-cnn-lstm",
+                         "--num_epochs", "1", *common, "--output_dir", str(deep_dir)]),
+        must=BLOCK1[:4], must_not=("block1_input_grad",) + BLOCK1_BF16 + NO_FRONTEND)
+    _, _, launches["artifacts_deep_serve"], diff, build_ms = card_vs_cpu(
+        lambda d: load_predictor(str(deep_dir), device=d), waves, "deep baseline")
+    info["deep"] = {"epoch_wall_ms": ms, "restore_and_build_ms": build_ms,
+                    "max_abs_probs_diff_card_cpu": diff}
+    info["zoo_steps"], zoo_launches = zoo_phase(fold)
+    launches.update(zoo_launches)
+    info["launches_by_path"] = {p: {k: v for k, v in c.items() if v}
+                                for p, c in launches.items()}
     return info, launches
 
 
@@ -2656,9 +2981,10 @@ def main():
     fold, fold_launches, fold_csv = fold_phase(np.random.default_rng(SEED + 19))
     paths.update(fold_launches)
     log(f"fold done at {time.perf_counter() - t0:.1f} s")
-    cli, cli_launches = cli_phase(np.random.default_rng(SEED + 23))
+    cli, cli_launches, artifacts, art_launches = cli_phase(np.random.default_rng(SEED + 23))
     paths.update(cli_launches)
-    log(f"cli done at {time.perf_counter() - t0:.1f} s")
+    paths.update(art_launches)
+    log(f"cli and artifacts done at {time.perf_counter() - t0:.1f} s: {artifacts}")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
     kernels[0]["featurize_shapes"] = mel_featurize_phase(mfcc_chunk)
@@ -2708,7 +3034,7 @@ def main():
         "block1_fwd_bwd": block1_bf16, "gru": gru,
         "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}},
              {"fold": {**fold, "csv": fold_csv, "launches_by_path": fold_launches}},
-             {"cli": {**cli, "card": smi}},
+             {"cli": {**cli, "card": smi}}, {"artifacts": {**artifacts, "card": smi}},
              {"card": smi}, {"kernels": kernels}]
     # every result line also goes to a file, whole, where a caller that
     # keeps only the end of the output still finds them

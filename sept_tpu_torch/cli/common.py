@@ -20,7 +20,8 @@ import torch
 
 from sept_tpu_torch.train.config import ExperimentConfig
 
-__all__ = ["add_common_args", "config_from_args", "require_one_device", "setup_seed"]
+__all__ = ["add_common_args", "add_device_arg", "config_from_args", "require_one_device",
+           "setup_seed"]
 
 
 def setup_seed(seed: int = 8) -> None:
@@ -39,7 +40,13 @@ def require_one_device(args) -> None:
         raise NotImplementedError(
             f"data parallelism (--n_devices {args.n_devices}, SEPT_COORDINATOR="
             f"{os.environ.get('SEPT_COORDINATOR')!r}) is not ported yet "
-            "(ROADMAP.md §1 item 8); the port trains on one device")
+            "(ROADMAP.md §1 item 9); the port trains on one device")
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device of every stage: 'cuda' (the card, the "
+                        "default; raises without one) or 'cpu'")
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
@@ -100,9 +107,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--output_dir", default="results")
     p.add_argument("--work_dir", default="work",
                    help="where features/folds are stored")
-    p.add_argument("--device", default="cuda",
-                   help="torch device of every stage: 'cuda' (the card, the "
-                        "default; raises without one) or 'cpu'")
+    add_device_arg(p)
 
 
 def config_from_args(args, **overrides) -> ExperimentConfig:

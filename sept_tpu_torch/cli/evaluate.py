@@ -43,18 +43,19 @@ def main(argv=None):
     from sept_tpu_torch.data.store import load_fold
     from sept_tpu_torch.eval.sweep import (SweepModel, eval_mask, evaluate_cloaked_test,
                                            rows_to_csv, sweep_to_rows)
-    from sept_tpu_torch.models import build_backbone
+    from sept_tpu_torch.models import build_backbone, pooling_for
     from sept_tpu_torch.train.checkpoint import CheckpointManager
     from sept_tpu_torch.train.loop import refuse_global_feature
 
     refuse_global_feature(cfg)
     fold_dir = os.path.join(args.work_dir, "folds", cfg.dataset)
     ckpt = CheckpointManager(cfg.output_dir)
-    backbone = dict(hidden_size=cfg.hidden_size, feature_len=cfg.feature_len, att=cfg.att,
-                    attention_size=cfg.attention_size)
+    backbone = dict(hidden_size=cfg.hidden_size, feature_len=cfg.feature_len,
+                    win_len=cfg.win_len, att=cfg.att, attention_size=cfg.attention_size)
     model = SweepModel(build_backbone(cfg.model_type, pred="emotion", **backbone),
                        build_backbone(cfg.model_type, pred="gender", **backbone),
-                       win_len=cfg.win_len, n_feats=cfg.feature_len).to(device)
+                       win_len=cfg.win_len, n_feats=cfg.feature_len,
+                       pooling=pooling_for(cfg.model_type)).to(device)
     emo_art = baseline_artifact(dataclasses.replace(cfg, adv=False, pred="emotion"))
     adv_art = baseline_artifact(dataclasses.replace(cfg, adv=True, pred="gender"))
 

@@ -55,7 +55,8 @@ def seeded_backbone(cfg, pred: str):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         return build_backbone(cfg.model_type, hidden_size=cfg.hidden_size,
-                              feature_len=cfg.feature_len, pred=pred, att=cfg.att,
+                              feature_len=cfg.feature_len, win_len=cfg.win_len, pred=pred,
+                              att=cfg.att,
                               attention_size=cfg.attention_size,
                               compute_dtype=compute_dtype(cfg.compute_dtype))
 

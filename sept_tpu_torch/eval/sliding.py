@@ -25,6 +25,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from sept_tpu_torch.device import resolve_device
+
 __all__ = ["sliding_vote", "make_sliding_vote_fn", "vote_split"]
 
 
@@ -61,11 +63,13 @@ def make_sliding_vote_fn(logits_fn: Callable, win_len: int = 200, shift_len: int
 
 
 def vote_split(vote: Callable, split, win_len: int, batch_size: int = 16,
-               device="cpu") -> np.ndarray:
+               device="cuda") -> np.ndarray:
     """Voted probabilities (N, C) of a split's whole utterances, as numpy:
-    ``vote`` (a :func:`make_sliding_vote_fn`) runs on ``device``,
-    ``batch_size`` utterances a call; the last batch is padded with zero
-    utterances of ``win_len`` frames, whose rows are cut."""
+    ``vote`` (a :func:`make_sliding_vote_fn`) runs on ``device`` (the card
+    unless the caller passes ``"cpu"``), ``batch_size`` utterances a call;
+    the last batch is padded with zero utterances of ``win_len`` frames,
+    whose rows are cut."""
+    device = resolve_device(device)
     probs = []
     n = len(split)
     for lo in range(0, n, batch_size):
@@ -82,10 +86,13 @@ def vote_split(vote: Callable, split, win_len: int, batch_size: int = 16,
 
 
 def sliding_vote(logits_fn: Callable, specs, lengths, win_len: int = 200,
-                 shift_len: int = 50):
+                 shift_len: int = 50, device="cuda"):
     """One-shot helper: (predictions (B,), mean probabilities (B, C)) as
-    numpy arrays."""
+    numpy arrays.  ``specs`` and ``lengths`` go to ``device``, the one
+    ``logits_fn``'s model is on (the card unless the caller passes
+    ``"cpu"``)."""
+    device = resolve_device(device)
     probs, _ = make_sliding_vote_fn(logits_fn, win_len, shift_len)(
-        torch.as_tensor(specs), torch.as_tensor(lengths))
+        torch.as_tensor(specs, device=device), torch.as_tensor(lengths, device=device))
     probs = probs.cpu().numpy()
     return np.argmax(probs, -1), probs

@@ -29,7 +29,6 @@ from torch import nn
 from sept_tpu_torch.data.pipeline import SplitArrays
 from sept_tpu_torch.eval import metrics as M
 from sept_tpu_torch.eval.sliding import make_sliding_vote_fn, vote_split
-from sept_tpu_torch.models.backbone import Conv2dBiRNN
 from sept_tpu_torch.models.cloak import CloakNoise
 from sept_tpu_torch.train.steps import make_eval_logits_fn
 
@@ -60,16 +59,19 @@ def train_mask(scales: np.ndarray, suppression_ratio: int) -> Optional[np.ndarra
 class SweepModel(nn.Module):
     """The sweep's joint forward: windows (N, 1, T, D) -> the cloak's noise,
     ONE epsilon draw for the whole call, then the noised windows through the
-    frozen emotion model and the frozen gender adversary, logits
-    concatenated (N, n_emo + n_adv).  The noise layer runs with max_scale
-    ``EVAL_MAX_SCALE``, the evaluation bound."""
+    frozen emotion model and the frozen gender adversary, both with
+    ``pooling`` (:func:`sept_tpu_torch.models.pooling_for` of their model
+    type: the deep model flattens), logits concatenated (N, n_emo + n_adv).
+    The noise layer runs with max_scale ``EVAL_MAX_SCALE``, the evaluation
+    bound."""
 
-    def __init__(self, emotion: Conv2dBiRNN, adversary: Conv2dBiRNN, win_len: int = 200,
-                 n_feats: int = 128):
+    def __init__(self, emotion: nn.Module, adversary: nn.Module, win_len: int = 200,
+                 n_feats: int = 128, pooling: Optional[str] = "mean"):
         super().__init__()
         self.noise = CloakNoise(win_len, n_feats, max_scale=EVAL_MAX_SCALE)
         self.emotion = emotion
         self.adversary = adversary
+        self.pooling = pooling
 
     def load_cell(self, cloak: dict, baseline: dict, adversary: dict) -> "SweepModel":
         """One (ratio, fold) cell: the cloak artifact's ``noise.locs`` and
@@ -82,7 +84,8 @@ class SweepModel(nn.Module):
     def forward(self, wins: torch.Tensor, eps: torch.Tensor,
                 mask: Optional[torch.Tensor] = None):
         noised = self.noise(wins[:, 0], mask=mask, eps=eps)[:, None]
-        return torch.cat([self.emotion(noised), self.adversary(noised)], -1)
+        return torch.cat([self.emotion(noised, pooling=self.pooling),
+                          self.adversary(noised, pooling=self.pooling)], -1)
 
 
 def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[np.ndarray],

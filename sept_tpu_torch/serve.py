@@ -17,8 +17,9 @@ a predictor switches TF32 off for cuBLAS and cuDNN
 = False), the counterpart of the JAX package's ``PARITY_PRECISION =
 HIGHEST``: blocks 2-3 (cuDNN) and the GRU would otherwise run in TF32.
 
-``load_predictor`` and the serve CLI are not ported yet (ROADMAP.md §1 item
-4); the checkpoints they read are (:mod:`sept_tpu_torch.train.checkpoint`).
+:func:`load_predictor` builds a predictor from the artifacts the trainers
+and ``cli.import_torch`` write (:mod:`sept_tpu_torch.train.checkpoint`);
+``cli.serve`` and ``cli.predict`` are its command lines.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.models import CloakNoise, build_backbone, pooling_for
 from sept_tpu_torch.ops.mel import mel_db
 
-__all__ = ["Predictor", "CloakedPredictor", "PredictionServer"]
+__all__ = ["Predictor", "CloakedPredictor", "PredictionServer", "load_predictor"]
 
 
 class Predictor:
@@ -57,7 +58,7 @@ class Predictor:
         self.device = resolve_device(device)
         f32_precision()
         self.model = build_backbone(model_type, hidden_size=hidden_size,
-                                    feature_len=feature_len, pred=pred,
+                                    feature_len=feature_len, win_len=win_len, pred=pred,
                                     att=att, attention_size=attention_size)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
@@ -187,13 +188,100 @@ class CloakedPredictor(Predictor):
 
 
 # ---------------------------------------------------------------------------
-# the HTTP deployment surface
+# checkpoint -> predictor, and the HTTP deployment surface
 
 _CLASS_NAMES = {
     # label order fixed by the reference's maps (training_tools.py:9-10)
     "emotion": ("neu", "hap", "sad", "ang"),
     "gender": ("F", "M"),
 }
+
+
+def load_predictor(
+    output_dir: str,
+    artifact: str = "baseline_emotion",
+    fold: int = 1,
+    cloak_artifact: Optional[str] = None,
+    suppression_ratio: int = 0,
+    n_fft: int = 800,
+    device="cuda",
+    **overrides,
+) -> Predictor:
+    """Build a serving predictor on ``device`` from training artifacts on
+    disk.
+
+    ``artifact``/``fold`` name the frozen classifier checkpoint
+    (``cli.train_baseline`` or ``cli.import_torch``).  The architecture
+    (model_type, pred, hidden_size, feature_len, win_len, att,
+    attention_size) comes from the ``manifest_fold<k>.json`` beside it, so
+    the served model is built as it was trained; keyword ``overrides`` take
+    precedence over the manifest, and without a manifest the defaults apply.
+    ``shift_len`` defaults to ``win_len // 4``; an unknown override raises
+    ``TypeError``.  Artifacts trained with the global feature, and imported
+    LSTM artifacts (the JAX package's ``Predictor`` builds a GRU whatever the
+    manifest says, so it cannot serve them either), raise ``ValueError``.
+
+    ``cloak_artifact`` (a ``cli.train_cloak`` artifact, plain or GRL) serves
+    the privacy-preserving path: the cloak's ``noise.locs`` / ``noise.rhos``
+    are restored, the evaluation-direction mask for ``suppression_ratio`` is
+    taken from their scales at max_scale 5 (the evaluation bound), and a
+    :class:`CloakedPredictor` is returned."""
+    import json
+    import os
+
+    from sept_tpu_torch.eval.sweep import EVAL_MAX_SCALE, eval_mask
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+
+    mcfg = {}
+    mpath = os.path.join(output_dir, artifact, f"manifest_fold{fold}.json")
+    if os.path.isfile(mpath):
+        with open(mpath) as f:
+            mcfg = json.load(f).get("config", {})
+
+    def knob(name, default):
+        if name in overrides:
+            return overrides.pop(name)
+        return mcfg.get(name, default)
+
+    win_len = int(knob("win_len", 200))
+    common = dict(
+        model_type=knob("model_type", "2d-cnn-lstm"),
+        pred=knob("pred", "emotion"),
+        hidden_size=int(knob("hidden_size", 64)),
+        feature_len=int(knob("feature_len", 128)),
+        win_len=win_len,
+        shift_len=int(overrides.pop("shift_len", win_len // 4)),
+        att=knob("att", None),
+        attention_size=int(knob("attention_size", 128)),
+        n_fft=n_fft,
+    )
+    if overrides:
+        raise TypeError(f"unknown load_predictor overrides: {sorted(overrides)}")
+    if mcfg.get("global_feature"):
+        raise ValueError(
+            f"{artifact} was trained with global_feature=1 (gemaps concat); "
+            "the serving path computes windowed spectral features only — "
+            "evaluate such artifacts with cli.evaluate, or retrain with "
+            "--global_feature 0 to serve")
+    if mcfg.get("rnn_cell", "gru") != "gru":
+        raise ValueError(
+            f"{artifact} holds an {mcfg['rnn_cell']!r} RNN (an imported "
+            "deep_two_d_cnn_lstm_tmp); serving builds the GRU models only, as "
+            "the JAX package's Predictor does")
+
+    ckpt = CheckpointManager(output_dir)
+    state = ckpt.restore(artifact, fold, "cpu")
+    if cloak_artifact is None:
+        return Predictor(state, device=device, **common)
+    cloak = ckpt.restore(cloak_artifact, fold, "cpu")
+    noise = {k: cloak[f"noise.{k}"] for k in ("locs", "rhos")}
+    probe = CloakNoise(win_len=win_len, n_feats=common["feature_len"], max_scale=EVAL_MAX_SCALE)
+    probe.load_state_dict(noise)
+    with torch.no_grad():
+        scales = probe.scales()[0].numpy()
+    return CloakedPredictor(state, noise_state_dict=noise,
+                            mask=eval_mask(scales, suppression_ratio),
+                            max_scale=EVAL_MAX_SCALE, device=device, **common)
 
 
 class PredictionServer:

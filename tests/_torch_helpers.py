@@ -38,6 +38,28 @@ def jax_backbone(hidden=8, pred="emotion", att=None, win=60, d=32, seed=0):
     return model, params, stats
 
 
+@functools.lru_cache(maxsize=None)
+def jax_zoo(model_type, hidden=8, pred="emotion", att=None, win=60, d=32, seed=0,
+            rnn_cell="gru"):
+    """(model, params, batch_stats) of the JAX package's ``build_backbone``
+    of any --model_type, initialised with its own pooling and perturbed as
+    :func:`jax_backbone` perturbs; shared by the tests of one process."""
+    from sept_tpu.models import build_backbone, pooling_for
+
+    model = build_backbone(model_type, hidden_size=hidden, pred=pred, att=att,
+                           rnn_cell=rnn_cell)
+    init = functools.partial(model.init, pooling=pooling_for(model_type))
+    v = jax.jit(init)({"params": jax.random.PRNGKey(seed)}, jnp.zeros((1, win, d, 1)))
+    rng = np.random.default_rng(seed + 100)
+    params = _perturb(jax.tree_util.tree_map(np.asarray, v["params"]), rng, 0.05)
+    stats = {
+        name: {"mean": (0.1 * rng.standard_normal(s["mean"].shape)).astype(np.float32),
+               "var": (1.0 + 0.5 * rng.random(s["var"].shape)).astype(np.float32)}
+        for name, s in v.get("batch_stats", {}).items()
+    }
+    return model, params, stats
+
+
 def speechlike(rng, n, noise=0.05):
     """A 16 kHz test signal: two tones over a broadband noise floor.
 

@@ -7,7 +7,9 @@ import pytest
 import torch
 
 from sept_tpu_torch.compat.from_jax import backbone_state_dict
-from sept_tpu_torch.models import Conv2dBiRNN, build_backbone, pooling_for
+from sept_tpu.models import pooling_for as jax_pooling_for
+from sept_tpu_torch.models import (Conv2dBiRNN, DeepConv2dBiRNN, OneDConvNet, PlainConv2d,
+                                   build_backbone, pooling_for)
 from sept_tpu_torch.models.backbone import flatten_channel_major
 
 from _torch_helpers import jax_backbone
@@ -56,9 +58,12 @@ def test_model_zoo_and_train_mode_refusals():
     assert isinstance(build_backbone("cnn-lstm-att", hidden_size=8), Conv2dBiRNN)
     assert pooling_for("2d-cnn-lstm") == "mean"
     assert pooling_for("deep-2d-cnn-lstm") is None
-    for name in ("deep-2d-cnn-lstm", "1d-cnn-lstm-att", "2d-cnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_backbone(name)
+    # every JAX --model_type builds, each with the JAX package's pooling
+    for name, cls, pooling in (("deep-2d-cnn-lstm", DeepConv2dBiRNN, None),
+                               ("1d-cnn-lstm-att", OneDConvNet, "mean"),
+                               ("2d-cnn", PlainConv2d, "mean")):
+        assert type(build_backbone(name, hidden_size=8)) is cls
+        assert pooling_for(name) == jax_pooling_for(name) == pooling
     with pytest.raises(ValueError, match="unknown model_type"):
         build_backbone("transformer")
     m = Conv2dBiRNN(hidden_size=8, feature_len=32)

@@ -28,7 +28,7 @@ from sept_tpu_torch.compat.from_jax import backbone_state_dict
 from sept_tpu_torch.data.pipeline import SplitArrays
 from sept_tpu_torch.eval import metrics as M
 from sept_tpu_torch.eval import sweep as S
-from sept_tpu_torch.eval.sliding import make_sliding_vote_fn, sliding_vote
+from sept_tpu_torch.eval.sliding import make_sliding_vote_fn, sliding_vote, vote_split
 from sept_tpu_torch.models import Conv2dBiRNN
 from sept_tpu_torch.train.config import ExperimentConfig
 from sept_tpu_torch.train.loop import run_test
@@ -105,10 +105,27 @@ def test_sliding_vote_matches_jax():
         torch.from_numpy(specs), torch.from_numpy(lengths))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
-    preds, probs = sliding_vote(make_eval_logits_fn(port), specs, lengths, WIN, SHIFT)
+    preds, probs = sliding_vote(make_eval_logits_fn(port), specs, lengths, WIN, SHIFT,
+                                device="cpu")
     np.testing.assert_array_equal(probs, got.numpy())
     np.testing.assert_array_equal(preds, got.numpy().argmax(-1))
     assert port.training  # the eval forward put the mode back
+
+
+def test_sliding_entry_points_need_cuda(monkeypatch):
+    """vote_split and sliding_vote run on the card unless asked for the CPU:
+    without one they raise instead of voting on the CPU."""
+    _, _, _, port = _models("emotion")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    specs, lengths = _specs(), LENGTHS
+    with pytest.raises(RuntimeError, match="cuda"):
+        sliding_vote(make_eval_logits_fn(port), specs, lengths, WIN, SHIFT)
+    vote = make_sliding_vote_fn(make_eval_logits_fn(port), WIN, SHIFT)
+    with pytest.raises(RuntimeError, match="cuda"):
+        vote_split(vote, _test_split(SplitArrays), WIN, 4)
+    probs = vote_split(vote, _test_split(SplitArrays), WIN, 4, device="cpu")
+    np.testing.assert_allclose(probs, sliding_vote(make_eval_logits_fn(port), specs, lengths,
+                                                   WIN, SHIFT, device="cpu")[1], atol=1e-6)
 
 
 def _test_split(split_cls, n=len(LENGTHS)):

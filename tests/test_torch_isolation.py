@@ -54,7 +54,9 @@ def test_port_imports_with_jax_blocked():
         "import sept_tpu_torch.data.walkers, sept_tpu_torch.runtime.wavio\n"
         "import sept_tpu_torch.cli.common, sept_tpu_torch.cli.featurize\n"
         "import sept_tpu_torch.cli.preprocess, sept_tpu_torch.cli.evaluate\n"
-        "import sept_tpu_torch.cli.run_all\n"
+        "import sept_tpu_torch.cli.run_all, sept_tpu_torch.cli.serve\n"
+        "import sept_tpu_torch.cli.predict, sept_tpu_torch.cli.export_torch\n"
+        "import sept_tpu_torch.cli.import_torch, sept_tpu_torch.compat.torch_io\n"
         "import chip_smoke\n"
         "assert not any(m.startswith(('jax', 'flax', 'orbax', 'sklearn')) for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
