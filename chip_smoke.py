@@ -94,7 +94,8 @@ and read just after; each kernel the path must use has to have launched
                of 40 speakers x 16 utterances (640 of 1.2-3.5 s) at the CLI
                defaults (128 mels, windows 200 x 128, hidden 64), fold 1, 3
                epochs a stage, the GRL cloak at scale lambda 0.1 and
-               suppression 0 and 20: the f32 mel kernel in featurize, K1-K4
+               suppression 0 and 20 (featurize with its default gemaps /
+               emobase functionals): the f32 mel kernel in featurize, K1-K4
                in the baseline and the adversary (no K5), all five in the
                cloaks, K1 and K2 only in evaluate, no bf16 mode anywhere; each
                artifact's state_dict and manifest, the baselines' run.json,
@@ -128,6 +129,21 @@ and read just after; each kernel the path must use has to have launched
                steps each of the deep LSTM in f32 (K1-K4) and bf16 (K1-K4 in
                their bf16 mode), OneDConvNet and PlainConv2d (no kernel of
                the port) on the card and the CPU at 6's and 9's tolerances.
+12b. global    the global feature: the gemaps / emobase functionals of
+               7's corpus (all 7,442 utterances) alone
+               (combined_functionals_batch: torch ops, no kernel of the port)
+               and with mel_spec (featurize_corpus with include_gemaps: the
+               f32 mel kernel, never the bf16 one), each vector (88,) /
+               (988,) and finite, utterances per second, 1,024 of them under
+               torch.profiler, 16 held to the CPU path within rtol = atol =
+               2e-3; then run_all --global_feature 1 at 11's size and
+               kernels a stage (under build/global_smoke): every artifact's
+               manifest says global_feature, the baselines' dense1 takes 2 x
+               64 + 88, the CSV, fold 1's global vectors, the sweep held to
+               the CPU on 16 test utterances (probabilities within 1e-4); and
+               3 steps with the vector of the baseline and of the GRL game
+               (antithetic, saliency 0.5) from its artifacts on the card and
+               the CPU at 6's tolerances.
 13. kernels    each kernel against its plain version on the tensors the main
                path gives it (mel 1e-3 dB cell by cell, and where the FFT
                kernel and the dense plain version part by more, the kernel
@@ -185,7 +201,8 @@ and read just after; each kernel the path must use has to have launched
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
 ...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
-``{"train_bf16": ...}``, ``{"fold": ...}``, ``{"cli": ...}`` and ``{"artifacts": ...}`` lines, the card's ``name, power.limit`` from
+``{"train_bf16": ...}``, ``{"fold": ...}``, ``{"cli": ...}``, ``{"artifacts": ...}``
+and ``{"global": ...}`` lines, the card's ``name, power.limit`` from
 nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
 mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
@@ -318,6 +335,13 @@ ART_UTTS, ART_SECONDS, ART_SUPP, ART_SEED = 8, 4.0, 20, 3
 # cli.predict with --device cpu reads this many of the CREMA-D tree's files
 ART_PREDICT_CPU = 32
 CREMA_SENTENCES, CREMA_STEREO_SR = ("DFA", "IEO"), 44100
+# the global feature (the global phase): the gemaps / emobase functionals of
+# the featurize phase's corpus, GLOBAL_CPU of its utterances held to the CPU
+# path within GLOBAL_TOL (rtol and atol: the bound tests/test_torch_egemaps.py
+# and tests/test_torch_emobase.py hold the port to the JAX package with),
+# then run_all --global_feature 1 at the cli phase's size under
+# build/global_smoke
+GLOBAL_CPU, GLOBAL_TOL = 16, 2e-3
 CORPORA = ("iemocap", "crema-d")
 NO_FRONTEND = ("mel_db", "mel_db_bf16", "floor_dct")  # featurization's kernels
 # K2 (norm_pool) off the main path, both modes, (B, H, W, misaligned): odd H
@@ -931,11 +955,11 @@ def train_weights():
     return build_weights()[0], gender.state_dict()
 
 
-def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32):
+def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32, global_dim=0):
     from sept_tpu_torch.models import Conv2dBiRNN
 
     m = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred=pred, dropout_rate=dropout,
-                    compute_dtype=cd)
+                    compute_dtype=cd, global_dim=global_dim)
     m.load_state_dict(sd)
     return m
 
@@ -1709,11 +1733,12 @@ def fold_data(rng):
                     split(FOLD_TEST, test=True))
 
 
-def sweep_model(device):
+def sweep_model(device, global_dim=0):
     from sept_tpu_torch.eval.sweep import SweepModel
     from sept_tpu_torch.models import Conv2dBiRNN
 
-    return SweepModel(Conv2dBiRNN(HIDDEN, N_MELS, "emotion"), Conv2dBiRNN(HIDDEN, N_MELS, "gender"),
+    return SweepModel(Conv2dBiRNN(HIDDEN, N_MELS, "emotion", global_dim=global_dim),
+                      Conv2dBiRNN(HIDDEN, N_MELS, "gender", global_dim=global_dim),
                       WIN, N_MELS).to(device)
 
 
@@ -1864,19 +1889,22 @@ def fold_phase(rng):
 def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs, ratios=FOLD_CPU_RATIOS, what="fold"):
     """The sweep on the CPU (plain versions) from the same checkpoints, with
     the card's epsilon and masks, on the first FOLD_CPU_UTTS test utterances
-    (the card's first batch) at ``ratios``: probabilities within
+    (the card's first batch) at ``ratios`` (with ``cfg.global_feature``,
+    each utterance's 88-dim vector to both models): probabilities within
     PROBS_ATOL, predictions equal wherever the CPU's top two are more than
     2 * PROBS_ATOL apart."""
     from sept_tpu_torch.data.pipeline import SplitArrays
     from sept_tpu_torch.eval.sweep import evaluate_cloaked_test
+    from sept_tpu_torch.models import N_GLOBAL
 
     test = SplitArrays(**{f.name: getattr(fold.test, f.name)[:FOLD_CPU_UTTS]
                           for f in dataclasses.fields(SplitArrays)})
-    model = sweep_model("cpu")
+    model = sweep_model("cpu", N_GLOBAL if cfg.global_feature else 0)
     out = {"utterances": FOLD_CPU_UTTS, "ratios": list(ratios)}
     for r in ratios:
         sweep_cell(model, ckpt, cfg, r, "cpu")
-        b, a = evaluate_cloaked_test(model, test, masks[r], WIN, SHIFT, eps=eps.cpu())
+        b, a = evaluate_cloaked_test(model, test, masks[r], WIN, SHIFT, eps=eps.cpu(),
+                                     use_global=cfg.global_feature)
         want = np.concatenate([b["probs"], a["probs"]], -1)
         got = probs[r][:FOLD_CPU_UTTS]
         diff = float(np.abs(got - want).max())
@@ -2001,91 +2029,115 @@ def crema_tree(root, rng):
     return i
 
 
-def cli_phase(rng):
-    """The protocol through the port's CLIs on the card, under
-    build/cli_smoke: run_all on the synthetic corpus (launches per stage,
-    the artifacts, the CSV), the sweep's first FOLD_CPU_UTTS test
-    utterances again on the CPU from the card's checkpoints; featurize of a
-    CREMA-D-shaped WAV tree for mel_spec and mfcc, 8 utterances of each
-    store held to the CPU path, preprocess's fold 1 held to plan_folds; a
-    bf16 baseline through --compute_dtype; then, before the tree is
-    removed, the artifacts phase on its artifacts.  Returns (info, launches
-    by path, the artifacts phase's info and launches by path)."""
+def run_all_phase(root, extra=(), what="cli"):
+    """run_all on the synthetic corpus (CLI_SPEAKERS x CLI_UTTS) at the CLI
+    defaults under ``root`` with ``extra`` flags: launches per stage (each
+    stage's kernels, cli_stage_kernels), the artifacts, the baselines'
+    run.json, the CSV; then the sweep's first FOLD_CPU_UTTS test utterances
+    again on the CPU from the card's checkpoints.  Returns (info, launches
+    of the run, fold 1, the results directory, the GRL config)."""
     import csv
 
     from sept_tpu_torch.cli import evaluate, featurize, preprocess, run_all
     from sept_tpu_torch.cli import train_baseline as TB
     from sept_tpu_torch.cli import train_cloak as TC
-    from sept_tpu_torch.data.splits import plan_folds
-    from sept_tpu_torch.data.store import load_feature_store, load_fold, load_manifest
-    from sept_tpu_torch.runtime.wavio import decode_batch, narrow_pcm16
+    from sept_tpu_torch.data.store import load_fold
+    from sept_tpu_torch.models import N_GLOBAL
     from sept_tpu_torch.train.checkpoint import CheckpointManager
     from sept_tpu_torch.train.config import preset
 
-    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
-    shutil.rmtree(root, ignore_errors=True)
     work, results = root / "work", root / "results"
-    common = ["--work_dir", str(work), "--output_dir", str(results), "--folds", "1",
-              "--device", DEV]
     argv = ["--dataset", "synthetic", "--n_speakers", str(CLI_SPEAKERS), "--utts_per_speaker",
             str(CLI_UTTS), "--num_epochs", str(CLI_EPOCHS), "--grl", "1", "--scale_lamda",
-            str(CLI_SCALE), "--ratios", *map(str, CLI_RATIOS), *common]
-    info, launches = {"run_all_argv": argv[:-len(common)]}, {}
+            str(CLI_SCALE), "--ratios", *map(str, CLI_RATIOS), *extra,
+            "--work_dir", str(work), "--output_dir", str(results), "--folds", "1",
+            "--device", DEV]
+    info = {"run_all_argv": argv[:-8]}
+    with StageMeter((featurize, preprocess, TB, TC, evaluate)) as meter:
+        _, launches, ms = drive(
+            lambda: run_all.main(argv), must=("mel_db",) + BLOCK1,
+            must_not=BLOCK1_BF16 + ("mel_db_bf16", "floor_dct"))
+    info["run_all_wall_ms"] = ms
+    info["stages"] = {}
+    for st in meter.stages:
+        must, absent = cli_stage_kernels(st["stage"])
+        for k in must:
+            require(st["launches"][k] > 0, f"{what} {st['stage']}: {k} never launched")
+        for k in absent:
+            require(st["launches"][k] == 0, f"{what} {st['stage']}: {k} launched")
+        info["stages"][st["stage"]] = {"wall_ms": st["wall_ms"], "launches": {
+            k: v for k, v in st["launches"].items() if v}}
+    names = [st["stage"] for st in meter.stages]
+    require(names == ["featurize", "preprocess", "baseline", "adversary"]
+            + [f"cloak_{r}" for r in CLI_RATIOS] + ["evaluate"], f"{what} stages {names}")
+    log(f"{what} run_all: {info['stages']}")
+
+    use_global = "--global_feature" in extra
+    cfg = preset("cloak_grl", scale_lambda=CLI_SCALE, dataset="synthetic",
+                 global_feature=use_global)
+    ckpt = CheckpointManager(str(results))
+    baselines = [TB.artifact_name(dataclasses.replace(cfg, adv=a, pred=p))
+                 for a, p in ((False, "emotion"), (True, "gender"))]
+    for art in baselines + [TC.cloak_artifact(dataclasses.replace(cfg, suppression_ratio=r))
+                            for r in CLI_RATIOS]:
+        require((results / art / "fold1" / "state_dict.pt").is_file()
+                and (results / art / "manifest_fold1.json").is_file(),
+                f"{what}: artifact {art} incomplete")
+        manifest = json.loads((results / art / "manifest_fold1.json").read_text())
+        require(manifest["config"]["global_feature"] == use_global,
+                f"{what}: {art} manifest global_feature {manifest['config']['global_feature']}")
+    for art in baselines:
+        run = json.loads((results / art / "run.json").read_text())
+        require(set(run["results"]) == {"mean_test_acc", "mean_test_uar", "folds"},
+                f"{what}: {art}/run.json results {sorted(run['results'])}")
+        width = ckpt.restore(art, 1, "cpu")["dense1.weight"].shape[1]
+        require(width == 2 * HIDDEN + (N_GLOBAL if use_global else 0),
+                f"{what}: {art} dense1 takes {width}")
+    with open(results / f"grl-{CLI_SCALE}.csv", newline="") as f:
+        table = list(csv.reader(f))
+    require(table[0] == ["", "baseline_acc", "baseline_rec", "adv_acc", "adv_rec"]
+            and [r[0] for r in table[1:]] == [f"suppression_ratio_{r}_synthetic"
+                                              for r in CLI_RATIOS],
+            f"{what}: CSV layout {table}")
+    values = [float(v) for r in table[1:] for v in r[1:]]
+    require(all(0.0 <= v <= 1.0 for v in values), f"{what}: CSV values {values}")
+    info["csv"] = table
+    fold = load_fold(str(work / "folds" / "synthetic" / "fold1.npz"))
+    info["splits"] = split_sizes(fold)
+
+    per_ratio = meter.stages[-1]["out"]
+    probs = {r: np.concatenate([per_ratio[r][0][0]["probs"], per_ratio[r][0][1]["probs"]],
+                               -1) for r in CLI_RATIOS}
+    model = sweep_model(DEV, N_GLOBAL if use_global else 0)
+    # the CLI's epsilon (evaluate_cloaked_test draws it from noise_seed = the
+    # config's seed on the model's device) and its masks
+    eps = model.noise.draw_eps(torch.Generator(device=DEV).manual_seed(cfg.seed))
+    masks = {r: sweep_cell(model, ckpt, cfg, r, DEV) for r in CLI_RATIOS}
+    info["sweep_cpu"] = fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs, CLI_RATIOS, what)
+    return info, launches, fold, results, cfg
+
+
+def cli_phase(rng):
+    """The protocol through the port's CLIs on the card, under
+    build/cli_smoke: run_all on the synthetic corpus (run_all_phase);
+    featurize of a CREMA-D-shaped WAV tree for mel_spec and mfcc, 8
+    utterances of each store held to the CPU path, preprocess's fold 1 held
+    to plan_folds; a bf16 baseline through --compute_dtype; then, before the
+    tree is removed, the artifacts phase on its artifacts.  Returns (info,
+    launches by path, the artifacts phase's info and launches by path)."""
+    from sept_tpu_torch.cli import featurize, preprocess
+    from sept_tpu_torch.cli import train_baseline as TB
+    from sept_tpu_torch.data.splits import plan_folds
+    from sept_tpu_torch.data.store import load_feature_store, load_fold, load_manifest
+    from sept_tpu_torch.runtime.wavio import decode_batch, narrow_pcm16
+
+    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--work_dir", str(root / "work"), "--output_dir", str(root / "results"),
+              "--folds", "1", "--device", DEV]
+    launches = {}
     try:
-        with StageMeter((featurize, preprocess, TB, TC, evaluate)) as meter:
-            _, launches["cli_run_all"], ms = drive(
-                lambda: run_all.main(argv), must=("mel_db",) + BLOCK1,
-                must_not=BLOCK1_BF16 + ("mel_db_bf16", "floor_dct"))
-        info["run_all_wall_ms"] = ms
-        info["stages"] = {}
-        for st in meter.stages:
-            must, absent = cli_stage_kernels(st["stage"])
-            for k in must:
-                require(st["launches"][k] > 0, f"cli {st['stage']}: {k} never launched")
-            for k in absent:
-                require(st["launches"][k] == 0, f"cli {st['stage']}: {k} launched")
-            info["stages"][st["stage"]] = {"wall_ms": st["wall_ms"], "launches": {
-                k: v for k, v in st["launches"].items() if v}}
-        names = [st["stage"] for st in meter.stages]
-        require(names == ["featurize", "preprocess", "baseline", "adversary"]
-                + [f"cloak_{r}" for r in CLI_RATIOS] + ["evaluate"], f"cli stages {names}")
-        log(f"cli run_all: {info['stages']}")
-
-        cfg = preset("cloak_grl", scale_lambda=CLI_SCALE, dataset="synthetic")
-        baselines = [TB.artifact_name(dataclasses.replace(cfg, adv=a, pred=p))
-                     for a, p in ((False, "emotion"), (True, "gender"))]
-        for art in baselines + [TC.cloak_artifact(dataclasses.replace(cfg, suppression_ratio=r))
-                                for r in CLI_RATIOS]:
-            require((results / art / "fold1" / "state_dict.pt").is_file()
-                    and (results / art / "manifest_fold1.json").is_file(),
-                    f"cli: artifact {art} incomplete")
-        for art in baselines:
-            run = json.loads((results / art / "run.json").read_text())
-            require(set(run["results"]) == {"mean_test_acc", "mean_test_uar", "folds"},
-                    f"cli: {art}/run.json results {sorted(run['results'])}")
-        with open(results / f"grl-{CLI_SCALE}.csv", newline="") as f:
-            table = list(csv.reader(f))
-        require(table[0] == ["", "baseline_acc", "baseline_rec", "adv_acc", "adv_rec"]
-                and [r[0] for r in table[1:]] == [f"suppression_ratio_{r}_synthetic"
-                                                  for r in CLI_RATIOS],
-                f"cli: CSV layout {table}")
-        values = [float(v) for r in table[1:] for v in r[1:]]
-        require(all(0.0 <= v <= 1.0 for v in values), f"cli: CSV values {values}")
-        info["csv"] = table
-        fold = load_fold(str(work / "folds" / "synthetic" / "fold1.npz"))
-        info["splits"] = split_sizes(fold)
-
-        per_ratio = meter.stages[-1]["out"]
-        probs = {r: np.concatenate([per_ratio[r][0][0]["probs"], per_ratio[r][0][1]["probs"]],
-                                   -1) for r in CLI_RATIOS}
-        model = sweep_model(DEV)
-        ckpt = CheckpointManager(str(results))
-        # the CLI's epsilon (evaluate_cloaked_test draws it from noise_seed
-        # = the config's seed on the model's device) and its masks
-        eps = model.noise.draw_eps(torch.Generator(device=DEV).manual_seed(cfg.seed))
-        masks = {r: sweep_cell(model, ckpt, cfg, r, DEV) for r in CLI_RATIOS}
-        info["sweep_cpu"] = fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs, CLI_RATIOS, "cli")
-        del model
+        info, launches["cli_run_all"], fold, results, cfg = run_all_phase(root)
 
         tree, cwork = root / "crema-d", root / "crema_work"
         n_files = crema_tree(tree, rng)
@@ -2144,6 +2196,171 @@ def cli_phase(rng):
         shutil.rmtree(root, ignore_errors=True)
     info["launches_by_path"] = {p: {k: v for k, v in c.items() if v} for p, c in launches.items()}
     return info, launches, artifacts, art_launches
+
+
+# ---------------------------------------------------------------------------
+# the global feature: the functionals and --global_feature 1
+
+
+def check_functionals(vecs, corpus, what):
+    """{name: {utt: vector}}: every utterance of ``corpus`` holds a finite
+    (88,) gemaps and (988,) emobase vector."""
+    for name, width in (("gemaps", 88), ("emobase", 988)):
+        got = vecs[name]
+        require(set(got) == set(corpus), f"{what} {name}: utterances missing")
+        require(all(v.shape == (width,) and bool(np.isfinite(v).all()) for v in got.values()),
+                f"{what} {name}: a vector not finite or not ({width},)")
+
+
+def hold_functionals(gpu, waves, what):
+    """The card's functionals of ``waves`` against featurize_corpus on the
+    CPU (torch ops there too): each vector within GLOBAL_TOL, relative and
+    absolute.  Returns the largest |gpu - cpu| / (GLOBAL_TOL + GLOBAL_TOL
+    |cpu|) of each set (the check passes at <= 1)."""
+    from sept_tpu_torch.data.featurize import featurize_corpus
+
+    cpu = featurize_corpus(waves, "mel_spec", include_gemaps=True, device="cpu")
+    out = {}
+    for name in ("gemaps", "emobase"):
+        shares = {u: np.abs(gpu[name][u] - cpu[u][name])
+                  / (GLOBAL_TOL + GLOBAL_TOL * np.abs(cpu[u][name])) for u in waves}
+        worst = max(shares, key=lambda u: shares[u].max())
+        dim = int(shares[worst].argmax())
+        ratio = float(shares[worst][dim])
+        diff = max(float(np.abs(gpu[name][u] - cpu[u][name]).max()) for u in waves)
+        log(f"{what} {name}: max |gpu - cpu| {diff:.3g}, {ratio:.3g} of the bound at "
+            f"{worst}[{dim}]")
+        require(ratio <= 1.0, f"{what} {name}: the card and the CPU differ ({ratio} of "
+                f"rtol = atol = {GLOBAL_TOL})")
+        # emobase's dimension lld * 19 + functional
+        out[name] = {"max_abs_diff_vs_cpu": diff, "max_share_of_bound": ratio,
+                     "worst": {"utterance": worst, "dim": dim, "card": float(gpu[name][worst][dim]),
+                               "cpu": float(cpu[worst][name][dim])}}
+    return out
+
+
+def global_steps_phase(fold, results, cfg):
+    """Three steps with the global vector of the baseline and of the GRL game
+    (antithetic, saliency_align SALIENCY_ALIGN) on the card and on the CPU
+    from run_all's artifacts, on the first 3 * CPU_BATCH training windows,
+    dropout 0, one injected epsilon, lr 1e-2: held as the train-cpu phase
+    holds its steps (TRAIN_F32_TOL)."""
+    from sept_tpu_torch.cli.train_baseline import artifact_name
+    from sept_tpu_torch.cli.train_cloak import cloak_artifact
+    from sept_tpu_torch.models import N_GLOBAL, CloakedModelGRL
+    from sept_tpu_torch.train.checkpoint import CheckpointManager
+    from sept_tpu_torch.train.config import preset
+    from sept_tpu_torch.train.optim import make_cloak_optimizer, make_optimizer
+    from sept_tpu_torch.train.steps import init_state, make_baseline_step, make_cloak_grl_step
+
+    n = 3 * CPU_BATCH
+    split = fold.training
+    data = {"spec": torch.from_numpy(split.windows[:n])[:, None],
+            "labels_emo": torch.from_numpy(split.labels_emo[:n]).long(),
+            "labels_gen": torch.from_numpy(split.labels_gen[:n]).long(),
+            "weight": torch.ones(n), "global": torch.from_numpy(split.global_data[:n])}
+    eps = torch.from_numpy((0.1 * np.random.default_rng(SEED + 29).standard_normal(
+        (1, WIN, N_MELS))).astype(np.float32))
+    ckpt = CheckpointManager(str(results))
+    emo = ckpt.restore(artifact_name(dataclasses.replace(cfg, adv=False, pred="emotion")), 1,
+                       "cpu")
+    cloak = ckpt.restore(cloak_artifact(dataclasses.replace(cfg, suppression_ratio=0)), 1, "cpu")
+    gender = {k[len("gender_backbone."):]: v for k, v in cloak.items()
+              if k.startswith("gender_backbone.")}
+    runs = {}
+    cudnn = torch.backends.cudnn
+    pinned = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for dev in (DEV, "cpu"):
+            bcfg = preset("baseline", learning_rate=1e-2, global_feature=True)
+            m = backbone(emo, dropout=0.0, global_dim=N_GLOBAL)
+            base = init_state(m, make_optimizer(bcfg, T_BATCHES, m), SEED, dev)
+            gcfg = dataclasses.replace(cfg, learning_rate=1e-2, antithetic_noise=True,
+                                       saliency_align=SALIENCY_ALIGN)
+            m = CloakedModelGRL(backbone(emo, dropout=0.0, global_dim=N_GLOBAL),
+                                backbone(gender, "gender", dropout=0.0, global_dim=N_GLOBAL),
+                                gcfg.grl_lambda, WIN, N_MELS, gcfg.noise_min_scale,
+                                gcfg.noise_max_scale)
+            m.noise.load_state_dict({k: cloak[f"noise.{k}"] for k in ("locs", "rhos")})
+            grl = init_state(m, make_cloak_optimizer(gcfg, T_BATCHES, m,
+                                                     ("noise", "gender_backbone")),
+                             SEED + 2, dev)
+            steps = {"baseline": (base, make_baseline_step(use_global=True), False),
+                     "cloak_grl": (grl, make_cloak_grl_step(
+                         gcfg.scale_lambda, gcfg.gender_lambda, antithetic=True,
+                         saliency_align=SALIENCY_ALIGN, use_global=True), True)}
+            for name, (state, step, cloaked) in steps.items():
+                losses = []
+                for i in range(3):
+                    batch = {k: v[i * CPU_BATCH:(i + 1) * CPU_BATCH].to(dev)
+                             for k, v in data.items()}
+                    losses.append(float(step(state, batch, **(
+                        {"eps": eps.to(dev)} if cloaked else {}))[1]["loss"]))
+                runs.setdefault(name, {})[dev] = (np.asarray(losses), snapshot(state.model))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = pinned
+    out = {name: hold_steps(f"global {name}", r, TRAIN_F32_TOL) for name, r in runs.items()}
+    out.update(batch=CPU_BATCH, steps=3, learning_rate=1e-2, tolerance=TRAIN_F32_TOL)
+    return out
+
+
+def global_phase(corpus):
+    """The global feature on the card: the gemaps / emobase functionals of
+    the featurize phase's corpus alone (combined_functionals_batch) and with
+    mel_spec (featurize_corpus with include_gemaps, the f32 mel kernel, never
+    the bf16 one), N_FEAT_PROFILE of its utterances under torch.profiler,
+    GLOBAL_CPU held to the CPU path; then run_all --global_feature 1 at the
+    cli phase's size under build/global_smoke (run_all_phase: K1-K4 in the
+    baselines, all five in the GRL cloaks, K1 and K2 in the sweep, the sweep
+    held to the CPU) and three steps with the vector on the card and the
+    CPU (global_steps_phase).  Returns (info, launches by path)."""
+    from sept_tpu_torch.data.featurize import featurize_corpus
+    from sept_tpu_torch.ops.emobase import combined_functionals_batch
+
+    samples = sum(len(w) for w in corpus.values())
+    info = {"utterances": len(corpus), "audio_hours": samples / 16000 / 3600}
+    launches = {}
+    absent = BLOCK1 + BLOCK1_BF16 + ("mel_db_bf16", "floor_dct")
+    (gem, emo), launches["global_functionals"], ms = drive(
+        lambda: combined_functionals_batch(corpus, device=DEV), must=(),
+        must_not=absent + ("mel_db",))
+    check_functionals({"gemaps": gem, "emobase": emo}, corpus, "global functionals")
+    info["functionals"] = {"wall_s": ms / 1e3, "utterances_per_s": len(corpus) / (ms / 1e3)}
+    store, launches["global_featurize"], ms = drive(
+        lambda: featurize_corpus(corpus, "mel_spec", include_gemaps=True, device=DEV),
+        must=("mel_db",), must_not=absent)
+    check_store({u: {k: v[k] for k in ("mel1", "mel2")} for u, v in store.items()}, corpus,
+                "mel_spec")
+    check_functionals({k: {u: v[k] for u, v in store.items()} for k in ("gemaps", "emobase")},
+                      corpus, "global featurize")
+    info["with_mel_spec"] = {"wall_s": ms / 1e3, "utterances_per_s": len(corpus) / (ms / 1e3)}
+    info["featurize_vs_functionals_max_abs"] = max(
+        float(np.abs(store[u][k] - ref[u]).max()) for k, ref in (("gemaps", gem), ("emobase", emo))
+        for u in corpus)
+    log(f"global featurize: {info}")
+    del store
+    sub = dict(list(corpus.items())[:N_FEAT_PROFILE])
+    info["profile"] = {"utterances": N_FEAT_PROFILE, **path_profile(
+        lambda: featurize_corpus(sub, "mel_spec", include_gemaps=True, device=DEV))}
+    small = dict(list(corpus.items())[:GLOBAL_CPU])
+    info["cpu_check"] = {"utterances": GLOBAL_CPU, **hold_functionals(
+        {"gemaps": gem, "emobase": emo}, small, "global")}
+    del gem, emo
+
+    root = Path(__file__).resolve().parent / "build" / "global_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        info["run_all"], launches["global_run_all"], fold, results, cfg = run_all_phase(
+            root, ("--global_feature", "1"), "global")
+        g = fold.training.global_data
+        require(g.shape[1] == 88 and bool(np.isfinite(g).all()) and bool(np.abs(g).max() > 0),
+                "global: fold 1's global vectors are missing")
+        info["steps_cpu"] = global_steps_phase(fold, results, cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info["launches_by_path"] = {p: {k: v for k, v in c.items() if v} for p, c in launches.items()}
+    return info, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2480,7 +2697,8 @@ def hold_store(gpu, waves, feature_type, what):
     out = {}
     if feature_type == "mel_spec":
         # cells more than 60 dB under the utterance's peak sit at the f32
-        # rounding floor of the DFT (ROADMAP §4): held on their own
+        # rounding floor of the DFT (ROADMAP §3, "Mel cells at the f32
+        # rounding floor"): held on their own
         live = {(u, k): cpu[u][k] > cpu[u][k].max() - 60.0 for u in waves for k in keys}
         diff = max(float(np.abs(gpu[u][k] - cpu[u][k])[live[u, k]].max())
                    for u in waves for k in keys)
@@ -2529,7 +2747,8 @@ def featurize_phase(rng):
     """featurize_corpus of a CREMA-D-sized int16 corpus for mel_spec and for
     mfcc through the kernels (f32 mel; floor + DCT on mfcc; never the bf16
     mel), then 8 utterances again on the CPU path.  Returns (info, launches
-    by path, the first 64-utterance mfcc chunk of bucket 64000)."""
+    by path, the first 64-utterance mfcc chunk of bucket 64000, the
+    corpus)."""
     from sept_tpu_torch.data.featurize import featurize_corpus
     from sept_tpu_torch.ops import functionals as FN
 
@@ -2565,7 +2784,7 @@ def featurize_phase(rng):
     chunk = next((W, ns) for ids, W, _, ns in
                  FN.chunked_wave_batches(corpus, 8000, 64, FN.n_frames)
                  if W.shape == (64, 64000))
-    return info, launches, chunk
+    return info, launches, chunk, corpus
 
 
 def fused_mfcc_phase(rng):
@@ -2963,7 +3182,7 @@ def main():
         f"launches {train_launches}")
     train_cpu = train_cpu_phase(ds, order, sds)
     log(f"train-cpu done at {time.perf_counter() - t0:.1f} s")
-    feat, feat_launches, mfcc_chunk = featurize_phase(np.random.default_rng(SEED + 14))
+    feat, feat_launches, mfcc_chunk, corpus = featurize_phase(np.random.default_rng(SEED + 14))
     paths.update(feat_launches)
     feat["fused_mfcc"], mfcc_launches = fused_mfcc_phase(np.random.default_rng(SEED + 15))
     paths.update(mfcc_launches)
@@ -2985,6 +3204,10 @@ def main():
     paths.update(cli_launches)
     paths.update(art_launches)
     log(f"cli and artifacts done at {time.perf_counter() - t0:.1f} s: {artifacts}")
+    glob, glob_launches = global_phase(corpus)
+    del corpus
+    paths.update(glob_launches)
+    log(f"global done at {time.perf_counter() - t0:.1f} s")
 
     kernels, block1, shapes = kernel_phase(gpu, reqs[0], paths)
     kernels[0]["featurize_shapes"] = mel_featurize_phase(mfcc_chunk)
@@ -3035,7 +3258,7 @@ def main():
         "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}},
              {"fold": {**fold, "csv": fold_csv, "launches_by_path": fold_launches}},
              {"cli": {**cli, "card": smi}}, {"artifacts": {**artifacts, "card": smi}},
-             {"card": smi}, {"kernels": kernels}]
+             {"global": {**glob, "card": smi}}, {"card": smi}, {"kernels": kernels}]
     # every result line also goes to a file, whole, where a caller that
     # keeps only the end of the output still finds them
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -15,8 +15,11 @@ the featurize, preprocess, train_baseline, train_cloak, evaluate and
 run_all CLIs (``python -m sept_tpu_torch.cli.<name>``); artifacts in and
 out: ``serve.load_predictor``, the serve and predict CLIs, and the
 export_torch / import_torch CLIs to and from the reference's ``model.pt``;
-and every model type of the JAX package (the deep CNN + RNN, GRU or LSTM,
-the 1-D CNN, the plain 2-D CNN).  The mel chain (f32
+every model type of the JAX package (the deep CNN + RNN, GRU or LSTM,
+the 1-D CNN, the plain 2-D CNN); and the global feature: the 88-dim gemaps
+and 988-dim emobase functionals (``ops/egemaps.py``, ``ops/emobase.py``),
+the openSMILE import, and ``--global_feature 1`` from featurize to the
+sweep.  The mel chain (f32
 and bf16), the MFCC's floor + DCT and the first conv block are hand-written
 CUDA kernels (``sept_tpu_torch/csrc``).  What is still to be ported is listed in
 ROADMAP.md.

@@ -4,7 +4,7 @@ Counterpart of ``sept_tpu/cli/common.py``.  The flags are the JAX CLIs',
 less ``--prng_impl``, ``--conv_backend`` and ``--remat`` (the port's config
 has no such fields: one block-1 path, torch's generators, no remat), plus
 ``--device``: every entry point runs on the card unless asked for the CPU.
-Data parallelism is not ported (ROADMAP.md §1 item 8): ``--n_devices``
+Data parallelism is not ported (ROADMAP.md §1 item 9): ``--n_devices``
 above 1, or a multi-host ``SEPT_COORDINATOR`` in the environment, raises
 ``NotImplementedError`` instead of training on one card.
 """

@@ -12,6 +12,8 @@ scale lies above the ratio's percentile, run the test utterances through
 the cloak (max_scale 5 at evaluation) and the noised windows through both
 frozen models with the sliding-window vote, and write the fold means in
 the reference CSV schema to ``<output_dir>/(non-)grl-<scale_lamda>.csv``.
+With ``--global_feature 1`` both frozen models take each test utterance's
+88-dim vector beside its noised windows, as they were trained.
 """
 
 from __future__ import annotations
@@ -43,15 +45,14 @@ def main(argv=None):
     from sept_tpu_torch.data.store import load_fold
     from sept_tpu_torch.eval.sweep import (SweepModel, eval_mask, evaluate_cloaked_test,
                                            rows_to_csv, sweep_to_rows)
-    from sept_tpu_torch.models import build_backbone, pooling_for
+    from sept_tpu_torch.models import N_GLOBAL, build_backbone, pooling_for
     from sept_tpu_torch.train.checkpoint import CheckpointManager
-    from sept_tpu_torch.train.loop import refuse_global_feature
 
-    refuse_global_feature(cfg)
     fold_dir = os.path.join(args.work_dir, "folds", cfg.dataset)
     ckpt = CheckpointManager(cfg.output_dir)
     backbone = dict(hidden_size=cfg.hidden_size, feature_len=cfg.feature_len,
-                    win_len=cfg.win_len, att=cfg.att, attention_size=cfg.attention_size)
+                    win_len=cfg.win_len, att=cfg.att, attention_size=cfg.attention_size,
+                    global_dim=N_GLOBAL if cfg.global_feature else 0)
     model = SweepModel(build_backbone(cfg.model_type, pred="emotion", **backbone),
                        build_backbone(cfg.model_type, pred="gender", **backbone),
                        win_len=cfg.win_len, n_feats=cfg.feature_len,
@@ -69,7 +70,8 @@ def main(argv=None):
                             ckpt.restore(adv_art, k, device))
             mask = eval_mask(model.noise.scales().detach()[0].cpu().numpy(), ratio)
             b, a = evaluate_cloaked_test(model, fold.test, mask, win_len=cfg.win_len,
-                                         shift_len=cfg.shift_len, noise_seed=cfg.seed)
+                                         shift_len=cfg.shift_len, noise_seed=cfg.seed,
+                                         use_global=cfg.global_feature)
             fold_results.append((b, a))
             print(f"ratio {ratio} fold{k}: baseline acc {b['acc']:.3f} "
                   f"uar {b['rec']:.3f} | adversary acc {a['acc']:.3f} "

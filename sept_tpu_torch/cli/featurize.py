@@ -1,18 +1,20 @@
 """CLI: corpus featurization (the reference's audio_feature_extraction.py).
 
-    python -m sept_tpu_torch.cli.featurize --dataset synthetic --functionals 0
-    python -m sept_tpu_torch.cli.featurize --dataset crema-d --corpus_root DIR --functionals 0
+    python -m sept_tpu_torch.cli.featurize --dataset synthetic
+    python -m sept_tpu_torch.cli.featurize --dataset crema-d --corpus_root DIR
 
 Counterpart of ``sept_tpu/cli/featurize.py``.  Decodes audio with the
 native decoder (``runtime/wavio.py``: threaded, the next chunk decoding
 while this one featurizes), featurizes on the device
 (``data/featurize.py``: the f32 mel kernel, and for ``--feature_type mfcc``
-the floor + DCT kernel), and writes
-``<work_dir>/feature/<type>/<dataset>/data_<len>.npz`` plus
-``manifest.json``, the JAX package's files.  ``--functionals 1`` (the
-default, as in the JAX package) and ``--import_opensmile`` raise
-``NotImplementedError``: the gemaps/emobase functionals are not ported
-(ROADMAP.md §1 item 9); pass ``--functionals 0``.
+the floor + DCT kernel; with ``--functionals 1``, the default as in the JAX
+package, the 88-dim gemaps and 988-dim emobase functionals of the same
+chunks), and writes ``<work_dir>/feature/<type>/<dataset>/data_<len>.npz``
+plus ``manifest.json``, the JAX package's files.  ``--import_opensmile
+PATH`` (repeatable) replaces the computed functionals with real openSMILE
+values from a CSV or the reference's feature pickle
+(``data/opensmile_import.py``); an id the corpus lacks is an error, a
+partial cover a warning.
 """
 
 from __future__ import annotations
@@ -32,11 +34,14 @@ def main(argv=None):
     p.add_argument("--utts_per_speaker", type=int, default=12)
     p.add_argument("--functionals", type=int, default=1,
                    help="also extract the 88-dim gemaps + 988-dim emobase "
-                        "functionals: not ported yet, 1 raises; 0 skips them "
-                        "for runs that train with global_feature=0")
+                        "functionals (the reference extracts both beside the "
+                        "spectral features); 0 skips them for runs that train "
+                        "with global_feature=0")
     p.add_argument("--import_opensmile", action="append", default=None, metavar="PATH",
-                   help="openSMILE functionals to import into the store: not "
-                        "ported yet, raises")
+                   help="CSV (openSMILE pandas output) or reference feature "
+                        "pickle whose real eGeMAPSv02 / emobase functionals "
+                        "replace the computed stand-ins in the store, verbatim "
+                        "(repeatable; see data/opensmile_import.py)")
     p.add_argument("--decode_chunk", type=int, default=512,
                    help="decode this many files at a time (0 = all at once): "
                         "bounds host memory and overlaps the next chunk's "
@@ -44,10 +49,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     setup_seed(args.seed)
-    if args.import_opensmile:
-        raise NotImplementedError(
-            "--import_opensmile: the openSMILE import is not ported yet "
-            "(ROADMAP.md §1 item 9)")
 
     from sept_tpu_torch.data.featurize import featurize_corpus
     from sept_tpu_torch.data.store import save_feature_store, save_manifest
@@ -57,8 +58,8 @@ def main(argv=None):
                                 feature_len=args.input_spec_size,
                                 include_gemaps=bool(args.functionals), device=device)
 
-    # an empty corpus refuses what featurize_corpus refuses (the functionals,
-    # an unknown feature type) before any audio is made or decoded
+    # an empty corpus refuses what featurize_corpus refuses (an unknown
+    # feature type) before any audio is made or decoded
     featurize({})
     if args.dataset in ("synthetic", "synthetic_hard"):
         from sept_tpu_torch.data.synthetic import make_corpus, make_hard_corpus
@@ -111,6 +112,24 @@ def main(argv=None):
                          for r, i in enumerate(idxs) if lens[r] > 0}
                 store.update(featurize(waves))
         manifest = [u for u in manifest if u.utt_id in store]
+
+    if args.import_opensmile:
+        from sept_tpu_torch.data.opensmile_import import apply_opensmile, load_opensmile_file
+
+        for path in args.import_opensmile:
+            replaced, unmatched, uncovered = apply_opensmile(store, load_opensmile_file(path))
+            if unmatched:
+                p.error(f"--import_opensmile {path}: {len(unmatched)} utterance ids not in "
+                        f"this corpus (first: {unmatched[:3]}) — wrong corpus or id scheme?")
+            for name, miss in uncovered.items():
+                # a partial import mixes real openSMILE values with computed
+                # stand-ins: say so without blocking an intended partial corpus
+                print(f"WARNING: --import_opensmile {path} covers only "
+                      f"{len(store) - len(miss)}/{len(store)} utterances for {name!r}; "
+                      f"the other {len(miss)} (first: {miss[:3]}) keep computed "
+                      "stand-in values and are NOT numerically interoperable with "
+                      "reference artifacts")
+            print(f"imported {replaced} openSMILE functional vectors from {path}")
 
     out_dir = os.path.join(args.work_dir, "feature", args.feature_type, args.dataset)
     os.makedirs(out_dir, exist_ok=True)

@@ -8,12 +8,11 @@ drivers, with no os.system process spawning).
 Counterpart of ``sept_tpu/cli/run_all.py``.  Stages: featurize ->
 preprocess -> baseline -> adversary -> cloak (with ``--grl 1`` the GRL
 cloak) at suppression 0, then at each nonzero ``--ratios`` -> the
-evaluation sweep; every flag goes to every stage.  Where the JAX package
-featurizes with its default ``--functionals 1``, the port featurizes with
-``--functionals 0``: the functionals are not ported, and nothing downstream
-reads them while ``--global_feature`` is 0 (fold assembly fills zeros).
-``--global_feature 1`` raises before the first stage (ROADMAP.md §1 items
-3 and 9), as does a data-parallel request (``--n_devices`` above 1).
+evaluation sweep; every flag goes to every stage.  Featurize runs with its
+defaults, the gemaps / emobase functionals included, so ``--global_feature
+1`` trains and evaluates on the 88-dim vectors.  A data-parallel request
+(``--n_devices`` above 1) raises before the first stage (ROADMAP.md §1
+item 9).
 """
 
 from __future__ import annotations
@@ -36,10 +35,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     resolve_device(args.device)
     require_one_device(args)
-    if args.global_feature:
-        raise NotImplementedError(
-            "--global_feature 1: the global feature and the functionals it is "
-            "made from are not ported yet (ROADMAP.md §1 items 3 and 9)")
 
     def fwd(extra=()):
         out = []
@@ -55,8 +50,7 @@ def main(argv=None):
     if not args.skip_featurize:
         print("== featurize ==")
         featurize.main(fwd(["--n_speakers", str(args.n_speakers),
-                            "--utts_per_speaker", str(args.utts_per_speaker),
-                            "--functionals", "0"]))
+                            "--utts_per_speaker", str(args.utts_per_speaker)]))
     print("== preprocess ==")
     preprocess.main(fwd())
     print("== baseline (emotion) ==")

@@ -28,7 +28,7 @@ import torch
 from sept_tpu_torch.cli.common import (add_common_args, config_from_args, require_one_device,
                                        setup_seed)
 from sept_tpu_torch.device import resolve_device
-from sept_tpu_torch.models import build_backbone, compute_dtype, pooling_for
+from sept_tpu_torch.models import N_GLOBAL, build_backbone, compute_dtype, pooling_for
 from sept_tpu_torch.train.device_loop import fit_device
 from sept_tpu_torch.train.loop import speaker_weights
 from sept_tpu_torch.train.optim import make_optimizer
@@ -49,16 +49,18 @@ def artifact_name(cfg) -> str:
 
 
 def seeded_backbone(cfg, pred: str):
-    """``build_backbone`` of ``cfg``'s model with ``pred``'s head, its
-    weights initialized from ``cfg.seed`` (torch's global generator is left
-    as it was)."""
+    """``build_backbone`` of ``cfg``'s model with ``pred``'s head (its
+    ``dense1`` taking the 88-dim global feature with ``cfg.global_feature``),
+    its weights initialized from ``cfg.seed`` (torch's global generator is
+    left as it was)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         return build_backbone(cfg.model_type, hidden_size=cfg.hidden_size,
                               feature_len=cfg.feature_len, win_len=cfg.win_len, pred=pred,
                               att=cfg.att,
                               attention_size=cfg.attention_size,
-                              compute_dtype=compute_dtype(cfg.compute_dtype))
+                              compute_dtype=compute_dtype(cfg.compute_dtype),
+                              global_dim=N_GLOBAL if cfg.global_feature else 0)
 
 
 def run_fold(cfg, fold, ckpt, verbose=True, metrics_path=None, resume_path=None,
@@ -75,7 +77,8 @@ def run_fold(cfg, fold, ckpt, verbose=True, metrics_path=None, resume_path=None,
     # steps into epochs by dividing by this
     steps_per_epoch = max(1, -(-len(train_split) // cfg.batch_size))
     state = init_state(model, make_optimizer(cfg, steps_per_epoch, model), cfg.seed, dev)
-    logits_fn = make_eval_logits_fn(model, pooling=pooling_for(cfg.model_type))
+    logits_fn = make_eval_logits_fn(model, cfg.global_feature,
+                                    pooling=pooling_for(cfg.model_type))
     spk_w = speaker_weights(train_split) if "combine" in cfg.dataset else None
     result = fit_device(state, train_split, val_split, fold.test, cfg, logits_fn,
                         spk_weights=spk_w, verbose=verbose, resume_path=resume_path)

@@ -15,7 +15,9 @@ sweep's mask).  Under SGD the lr defaults to 1e-3, under Adam to 5e-4;
 StepLR steps every 10 epochs; ``--grl 1`` steps the schedule once an epoch
 and takes Plateau(3, 0.5).  Artifacts:
 ``cloak[_grl]_lamda<scale_lambda>_supp<r>[_anti][_sal<w>][_mdeval][_bf16]/
-fold<k>``.
+fold<k>``.  With ``--global_feature 1`` the frozen baseline and the GRL
+adversary both take the 88-dim global vector (the adversary's ``dense1``
+built pooled + 88 wide).
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
     # validation and test: the cloak forward with one fixed noise draw
     eps0 = model.noise.draw_eps(torch.Generator(device=dev).manual_seed(EVAL_NOISE_SEED))
     mask_t = None if mask is None else torch.as_tensor(mask, device=dev)
-    eval_logits = make_eval_logits_fn(model, eps=eps0, mask=mask_t,
+    eval_logits = make_eval_logits_fn(model, cfg.global_feature, eps=eps0, mask=mask_t,
                                       pooling=pooling_for(cfg.model_type))
     spk_w = speaker_weights(fold.training) if "combine" in cfg.dataset else None
 

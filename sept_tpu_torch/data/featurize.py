@@ -15,10 +15,15 @@ copy, not a view of the chunk):
 - ``feature_type="mfcc"``: ``mfcc`` (120, T), hop 200: the MFCCs of the
   wave and of its two gradients (spacings 1 and 2).
 
+- with ``include_gemaps`` / ``include_emobase``: ``gemaps`` (88,) and
+  ``emobase`` (988,), the functionals of :mod:`sept_tpu_torch.ops.egemaps`
+  and :mod:`sept_tpu_torch.ops.emobase` on the same staged chunk (one STFT
+  preamble and one YIN pitch for both).
+
 On a card the mel goes through the f32 mel kernel and the MFCC's top_db
 floor + DCT through the floor + DCT kernel (``ops/mfcc.py``); the JAX
-package computes the same functions with XLA ops.  The 88-dim ``gemaps`` and
-988-dim ``emobase`` functionals are not ported yet (ROADMAP §1 item 9).
+package computes the same functions with XLA ops.  The functionals are
+torch ops on the same device, as they are plain XLA ops in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.ops import frontend as F
 from sept_tpu_torch.ops import functionals as FN
+from sept_tpu_torch.ops.emobase import functionals_chunk
 from sept_tpu_torch.ops.mel import mel_db
 from sept_tpu_torch.ops.mfcc import dct_basis, floor_dct
 
@@ -127,18 +133,13 @@ def featurize_corpus(waveforms: dict[str, np.ndarray], feature_type: str = "mel_
     """Featurize every waveform (float32 or int16 PCM, 16 kHz) into the
     reference feature-store dict (see the module docstring).
 
-    ``include_gemaps`` / ``include_emobase`` (the latter tracks the former
-    when None) raise ``NotImplementedError``: the functionals are not ported
-    (ROADMAP §1 item 9); pass ``include_gemaps=False``.  Each chunk's
-    outputs are copied to the host before the next chunk is staged, so the
-    device holds one chunk at a time, not the corpus.
+    ``include_emobase`` tracks ``include_gemaps`` when None, as in the JAX
+    package.  Each chunk's outputs are copied to the host before the next
+    chunk is staged, so the device holds one chunk at a time, not the
+    corpus.
     """
     if include_emobase is None:
         include_emobase = include_gemaps
-    if include_gemaps or include_emobase:
-        raise NotImplementedError(
-            "featurize_corpus: the gemaps/emobase functionals are not ported yet "
-            "(ROADMAP.md §1 item 9); pass include_gemaps=False")
     if feature_type not in ("mel_spec", "mfcc"):
         raise ValueError(f"unknown feature_type: {feature_type!r}")
     dev = resolve_device(device)
@@ -146,8 +147,8 @@ def featurize_corpus(waveforms: dict[str, np.ndarray], feature_type: str = "mel_
     hop = _HOP if feature_type == "mel_spec" else _MFCC_HOP
     store: dict[str, dict[str, np.ndarray]] = {u: {} for u in waveforms}
     with torch.no_grad():
-        for ids, W, _, ns in FN.chunked_wave_batches(waveforms, quantum, batch_size,
-                                                     FN.n_frames):
+        for ids, W, ts, ns in FN.chunked_wave_batches(waveforms, quantum, batch_size,
+                                                      FN.n_frames):
             Wd = torch.from_numpy(W).to(dev)
             nsd = torch.from_numpy(ns).to(dev)
             if feature_type == "mel_spec":
@@ -159,4 +160,12 @@ def featurize_corpus(waveforms: dict[str, np.ndarray], feature_type: str = "mel_
                 t = feature_frames(int(ns[row]), hop)
                 for key, arr in outs.items():
                     store[u][key] = arr[row, :, :t].copy()
+            if include_gemaps or include_emobase:
+                vecs = functionals_chunk(Wd, torch.from_numpy(ts).to(dev), nsd,
+                                         include_gemaps, include_emobase)
+                for key, v in zip(("gemaps", "emobase"), vecs):
+                    if v is not None:
+                        v = v.cpu().numpy()
+                        for row, u in enumerate(ids):
+                            store[u][key] = v[row].copy()
     return store

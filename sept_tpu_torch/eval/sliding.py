@@ -15,7 +15,8 @@ forward per padded utterance batch:
 
 ``head_sizes`` splits multi-head logits (``(4, 2)`` for the sweep's joint
 emotion + gender forward) and softmaxes each head on its own before the
-vote.
+vote.  With the global feature, each utterance's (88,) vector is repeated
+over its windows and goes to ``logits_fn`` beside them.
 """
 
 from __future__ import annotations
@@ -32,13 +33,15 @@ __all__ = ["sliding_vote", "make_sliding_vote_fn", "vote_split"]
 
 def make_sliding_vote_fn(logits_fn: Callable, win_len: int = 200, shift_len: int = 50,
                          head_sizes: Optional[Sequence[int]] = None):
-    """``logits_fn(wins (N, 1, win_len, D)) -> (N, C)`` logits (C =
-    sum(head_sizes) when multi-head).  Returns ``vote(specs (B, max_t, D),
-    lengths (B,)) -> (probs (B, C), n_valid (B,))``, tensors on the specs'
-    device."""
+    """``logits_fn(wins (N, 1, win_len, D)[, g (N, 88)]) -> (N, C)`` logits
+    (C = sum(head_sizes) when multi-head).  Returns ``vote(specs (B, max_t,
+    D), lengths (B,), global_feature=None) -> (probs (B, C), n_valid
+    (B,))``, tensors on the specs' device; a (B, 88) ``global_feature`` is
+    repeated over each utterance's windows and passed as ``g``."""
     heads = tuple(head_sizes) if head_sizes is not None else None
 
-    def vote(specs: torch.Tensor, lengths: torch.Tensor):
+    def vote(specs: torch.Tensor, lengths: torch.Tensor,
+             global_feature: Optional[torch.Tensor] = None):
         b, max_t, d = specs.shape
         dev = specs.device
         n_win = max(0, (max_t - win_len) // shift_len) + 1
@@ -47,7 +50,10 @@ def make_sliding_vote_fn(logits_fn: Callable, win_len: int = 200, shift_len: int
         # a batch shorter than one window reads its last frame again, as
         # JAX's gather clamps an index past the end
         wins = specs[:, idx.clamp(max=max_t - 1), :].reshape(b * n_win, 1, win_len, d)
-        logits = logits_fn(wins)
+        if global_feature is None:
+            logits = logits_fn(wins)
+        else:
+            logits = logits_fn(wins, global_feature.repeat_interleave(n_win, 0))
         if heads is None:
             probs = torch.softmax(logits, -1)
         else:
@@ -63,12 +69,13 @@ def make_sliding_vote_fn(logits_fn: Callable, win_len: int = 200, shift_len: int
 
 
 def vote_split(vote: Callable, split, win_len: int, batch_size: int = 16,
-               device="cuda") -> np.ndarray:
+               device="cuda", use_global: bool = False) -> np.ndarray:
     """Voted probabilities (N, C) of a split's whole utterances, as numpy:
     ``vote`` (a :func:`make_sliding_vote_fn`) runs on ``device`` (the card
     unless the caller passes ``"cpu"``), ``batch_size`` utterances a call;
     the last batch is padded with zero utterances of ``win_len`` frames,
-    whose rows are cut."""
+    whose rows are cut.  ``use_global``: each utterance's
+    ``split.global_data`` row goes with it (zeros for the pad rows)."""
     device = resolve_device(device)
     probs = []
     n = len(split)
@@ -76,23 +83,28 @@ def vote_split(vote: Callable, split, win_len: int, batch_size: int = 16,
         hi = min(lo + batch_size, n)
         pad = batch_size - (hi - lo)
         specs, lengths = split.windows[lo:hi], split.lengths[lo:hi]
+        g = split.global_data[lo:hi].astype(np.float32) if use_global else None
         if pad:
             specs = np.concatenate([specs, np.zeros((pad,) + specs.shape[1:], specs.dtype)])
             lengths = np.concatenate([lengths, np.full(pad, win_len, np.int32)])
+            if g is not None:
+                g = np.concatenate([g, np.zeros((pad, g.shape[1]), g.dtype)])
         p, _ = vote(torch.as_tensor(specs, device=device),
-                    torch.as_tensor(lengths, device=device))
+                    torch.as_tensor(lengths, device=device),
+                    None if g is None else torch.as_tensor(g, device=device))
         probs.append(p[: hi - lo].cpu().numpy())
     return np.concatenate(probs) if probs else np.zeros((0, 0), np.float32)
 
 
 def sliding_vote(logits_fn: Callable, specs, lengths, win_len: int = 200,
-                 shift_len: int = 50, device="cuda"):
+                 shift_len: int = 50, device="cuda", global_feature=None):
     """One-shot helper: (predictions (B,), mean probabilities (B, C)) as
-    numpy arrays.  ``specs`` and ``lengths`` go to ``device``, the one
-    ``logits_fn``'s model is on (the card unless the caller passes
-    ``"cpu"``)."""
+    numpy arrays.  ``specs``, ``lengths`` and ``global_feature`` (B, 88) or
+    None go to ``device``, the one ``logits_fn``'s model is on (the card
+    unless the caller passes ``"cpu"``)."""
     device = resolve_device(device)
+    g = None if global_feature is None else torch.as_tensor(global_feature, device=device)
     probs, _ = make_sliding_vote_fn(logits_fn, win_len, shift_len)(
-        torch.as_tensor(specs, device=device), torch.as_tensor(lengths, device=device))
+        torch.as_tensor(specs, device=device), torch.as_tensor(lengths, device=device), g)
     probs = probs.cpu().numpy()
     return np.argmax(probs, -1), probs

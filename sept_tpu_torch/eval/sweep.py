@@ -82,16 +82,20 @@ class SweepModel(nn.Module):
         return self
 
     def forward(self, wins: torch.Tensor, eps: torch.Tensor,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                global_feature: Optional[torch.Tensor] = None):
+        """``global_feature`` (N, 88) goes to both frozen models."""
         noised = self.noise(wins[:, 0], mask=mask, eps=eps)[:, None]
-        return torch.cat([self.emotion(noised, pooling=self.pooling),
-                          self.adversary(noised, pooling=self.pooling)], -1)
+        return torch.cat([
+            self.emotion(noised, pooling=self.pooling, global_feature=global_feature),
+            self.adversary(noised, pooling=self.pooling, global_feature=global_feature)], -1)
 
 
 def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[np.ndarray],
                           win_len: int = 200, shift_len: int = 50, batch_size: int = 16,
                           noise_seed: int = 8, n_emo: int = 4, n_adv: int = 2,
-                          eps: Optional[torch.Tensor] = None) -> tuple[dict, dict]:
+                          eps: Optional[torch.Tensor] = None,
+                          use_global: bool = False) -> tuple[dict, dict]:
     """The cloak -> frozen-models protocol on one test split, on the model's
     device, ``batch_size`` utterances a forward
     (:func:`sept_tpu_torch.eval.sliding.vote_split`).
@@ -100,7 +104,11 @@ def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[n
     seeded with ``noise_seed`` and every batch reuses it; ``eps`` injects
     the draw instead (the tests feed JAX's).  ``mask=None`` means no
     suppression: the same output as an all-ones mask (``x*1 + noise*1``).
-    Everything runs in eval mode under ``torch.inference_mode``.  Returns
+    Everything runs in eval mode under ``torch.inference_mode``.
+    ``use_global``: each utterance's 88-dim ``global_data`` row goes to
+    both frozen models beside its noised windows, the only semantics that
+    matches how models trained with the global feature see their input
+    (the JAX package's reading of the reference's eval path).  Returns
     (baseline_result, adversary_result) dicts with acc / rec / conf, a
     ``per_dataset`` breakdown when the split mixes corpora (combine mode),
     and the voted ``probs`` of each head (N, n_emo) and (N, n_adv)."""
@@ -108,9 +116,10 @@ def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[n
     if eps is None:
         eps = model.noise.draw_eps(torch.Generator(device=dev).manual_seed(noise_seed))
     mask_t = None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
-    vote = make_sliding_vote_fn(make_eval_logits_fn(model, eps=eps.to(dev), mask=mask_t),
+    vote = make_sliding_vote_fn(make_eval_logits_fn(model, use_global, eps=eps.to(dev),
+                                                    mask=mask_t),
                                 win_len, shift_len, head_sizes=(n_emo, n_adv))
-    probs = vote_split(vote, test, win_len, batch_size, dev)
+    probs = vote_split(vote, test, win_len, batch_size, dev, use_global)
     baseline = M.split_result(test.labels_emo, np.argmax(probs[:, :n_emo], -1), test.datasets)
     adversary = M.split_result(test.labels_gen, np.argmax(probs[:, n_emo:], -1), test.datasets)
     baseline["probs"], adversary["probs"] = probs[:, :n_emo], probs[:, n_emo:]

@@ -6,6 +6,7 @@ import inspect
 import torch
 
 from sept_tpu_torch.models.backbone import (
+    N_GLOBAL,
     NUM_EMO_CLASSES,
     NUM_GENDER_CLASSES,
     Conv2dBiRNN,
@@ -16,6 +17,7 @@ from sept_tpu_torch.models.backbone import (
 from sept_tpu_torch.models.cloak import CloakedModel, CloakedModelGRL, CloakNoise
 
 __all__ = [
+    "N_GLOBAL",
     "NUM_EMO_CLASSES",
     "NUM_GENDER_CLASSES",
     "CloakNoise",

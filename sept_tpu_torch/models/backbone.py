@@ -77,10 +77,16 @@ Train mode follows the JAX package, not torch's modules:
   would move at twice the JAX rate, and weight decay would fall on one
   addend and not on the sum.
 
-Every model takes ``forward(x, pooling=..., dropout=..., update_stats=...)``
-so that the train steps, the cloaks and the saliency term run any of them;
-``pooling`` only matters to the 2-D CNN + RNN family (``OneDConvNet`` and
-``PlainConv2d`` ignore it, as in the JAX package).
+Every model takes ``forward(x, pooling=..., dropout=..., update_stats=...,
+global_feature=...)`` so that the train steps, the cloaks and the saliency
+term run any of them; ``pooling`` only matters to the 2-D CNN + RNN family
+(``OneDConvNet`` and ``PlainConv2d`` ignore it, as in the JAX package).
+
+The global feature (``--global_feature 1``): a model built with
+``global_dim=N_GLOBAL`` concatenates the utterance's 88-dim vector
+``global_feature`` (B, 88) after pooling, on the f32 pooled vector, so
+``dense1`` (``classifier`` for ``OneDConvNet``) takes pooled + 88 inputs;
+``PlainConv2d`` accepts both and ignores them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -95,11 +101,12 @@ from torch import nn
 from sept_tpu_torch.ops.conv_block1 import block1_eval, block1_train_forward
 
 __all__ = ["Conv2dBiRNN", "DeepConv2dBiRNN", "OneDConvNet", "PlainConv2d", "DropoutDraws",
-           "NUM_EMO_CLASSES", "NUM_GENDER_CLASSES", "bigru_layer_lowp", "bilstm_layer_lowp",
-           "flatten_channel_major"]
+           "NUM_EMO_CLASSES", "NUM_GENDER_CLASSES", "N_GLOBAL", "bigru_layer_lowp",
+           "bilstm_layer_lowp", "flatten_channel_major"]
 
 NUM_EMO_CLASSES = 4  # neu / hap / sad / ang
 NUM_GENDER_CLASSES = 2  # F / M
+N_GLOBAL = 88  # the global feature's width (the gemaps functionals)
 _CHANNELS = (32, 64, 128)
 _N_HEADS = 16
 _MOMENTUM = 0.9  # flax convention: ra = 0.9 * ra + 0.1 * batch (torch's 0.1)
@@ -227,6 +234,11 @@ class _Backbone(nn.Module):
         if pred in ("gender", "multitask"):
             self.pred_gender_layer = nn.Linear(width, NUM_GENDER_CLASSES)
 
+    @staticmethod
+    def _with_global(z, global_feature):
+        """The pooled vector with the global feature concatenated, if any."""
+        return z if global_feature is None else torch.cat([z, global_feature], -1)
+
     def _heads(self, z):
         if self.pred == "multitask":
             return self.pred_emotion_layer(z), self.pred_gender_layer(z)
@@ -279,7 +291,7 @@ class Conv2dBiRNN(_Backbone):
                  pred: str = "emotion", att: Optional[str] = None,
                  attention_size: int = 128, num_rnn_layers: int = 2,
                  dropout_rate: float = 0.2, compute_dtype: torch.dtype = torch.float32,
-                 rnn_cell: str = "gru"):
+                 rnn_cell: str = "gru", global_dim: int = 0):
         super().__init__()
         if att not in (None, "self_att"):
             raise ValueError(f"unknown att: {att!r}")
@@ -313,7 +325,7 @@ class Conv2dBiRNN(_Backbone):
             self.att_linear1 = nn.Linear(2 * hidden_size, attention_size,
                                          bias=False)
             self.att_linear2 = nn.Linear(attention_size, _N_HEADS, bias=False)
-        self.dense1 = nn.Linear(2 * hidden_size, 128)
+        self.dense1 = nn.Linear(2 * hidden_size + global_dim, 128)
         self._init_heads(pred)
 
     def _rnn(self, x, draws):
@@ -398,12 +410,13 @@ class Conv2dBiRNN(_Backbone):
         return _attention_pool(x, self.att_linear1, self.att_linear2)
 
     def forward(self, x: torch.Tensor, pooling: Optional[str] = "mean",
-                dropout: Optional[DropoutDraws] = None, update_stats: bool = True):
-        """(B, 1, T, D) windows -> logits; a tuple (emotion, gender) for
-        ``pred="multitask"``.  A train-mode call with a non-zero dropout rate
-        needs ``dropout``."""
-        z = torch.relu(self.dense1(self.pool(self.encode(x, dropout, update_stats),
-                                             pooling)))
+                dropout: Optional[DropoutDraws] = None, update_stats: bool = True,
+                global_feature: Optional[torch.Tensor] = None):
+        """(B, 1, T, D) windows [and (B, 88) global vectors] -> logits; a
+        tuple (emotion, gender) for ``pred="multitask"``.  A train-mode call
+        with a non-zero dropout rate needs ``dropout``."""
+        z = self.pool(self.encode(x, dropout, update_stats), pooling)
+        z = torch.relu(self.dense1(self._with_global(z, global_feature)))
         return self._heads(self._dropout(z, dropout, z.shape))
 
 
@@ -420,21 +433,23 @@ class DeepConv2dBiRNN(Conv2dBiRNN):
                  pred: str = "emotion", att: Optional[str] = None,
                  attention_size: int = 128, num_rnn_layers: int = 2,
                  dropout_rate: float = 0.2, compute_dtype: torch.dtype = torch.float32,
-                 rnn_cell: str = "gru"):
+                 rnn_cell: str = "gru", global_dim: int = 0):
         super().__init__(hidden_size, feature_len, pred, att, attention_size, num_rnn_layers,
-                         dropout_rate, compute_dtype, rnn_cell)
+                         dropout_rate, compute_dtype, rnn_cell, global_dim)
         c = _CHANNELS[-1]
         self.conv.extend([nn.Conv2d(c, c, 5, padding=2), nn.BatchNorm2d(c), nn.ReLU(),
                           nn.Dropout2d(dropout_rate)])
         if att is None:
-            self.dense1 = nn.Linear(2 * hidden_size * (win_len // 2 ** len(_CHANNELS)), 128)
+            self.dense1 = nn.Linear(
+                2 * hidden_size * (win_len // 2 ** len(_CHANNELS)) + global_dim, 128)
 
     def _n_blocks(self) -> int:
         return len(_CHANNELS) + 1
 
     def forward(self, x: torch.Tensor, pooling: Optional[str] = None,
-                dropout: Optional[DropoutDraws] = None, update_stats: bool = True):
-        return super().forward(x, pooling, dropout, update_stats)
+                dropout: Optional[DropoutDraws] = None, update_stats: bool = True,
+                global_feature: Optional[torch.Tensor] = None):
+        return super().forward(x, pooling, dropout, update_stats, global_feature)
 
 
 def _attention_pool(x, linear1, linear2):
@@ -454,7 +469,7 @@ class OneDConvNet(_Backbone):
 
     def __init__(self, feature_len: int = 128, win_len: int = 200, pred: str = "emotion",
                  att: Optional[str] = None, attention_size: int = 128,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, global_dim: int = 0):
         super().__init__()
         if att not in (None, "self_att"):
             raise ValueError(f"unknown att: {att!r}")
@@ -466,13 +481,15 @@ class OneDConvNet(_Backbone):
         if att == "self_att":
             self.att_linear1 = nn.Linear(c_in, attention_size)
             self.att_linear2 = nn.Linear(attention_size, _ONE_D_HEADS)
-        self.classifier = nn.Linear(c_in * (t if att is None else 1), 128)
+        self.classifier = nn.Linear(c_in * (t if att is None else 1) + global_dim, 128)
         self._init_heads(pred)
 
     def forward(self, x: torch.Tensor, pooling: Optional[str] = None,
-                dropout: Optional[DropoutDraws] = None, update_stats: bool = True):
-        """(B, 1, T, D) windows -> logits; ``pooling`` and ``update_stats``
-        are accepted for the shared call and unused."""
+                dropout: Optional[DropoutDraws] = None, update_stats: bool = True,
+                global_feature: Optional[torch.Tensor] = None):
+        """(B, 1, T, D) windows [and (B, 88) global vectors] -> logits;
+        ``pooling`` and ``update_stats`` are accepted for the shared call and
+        unused."""
         x = x[:, 0].transpose(1, 2)  # (B, D, T): the mel bins are the channels
         for i, (_, pool) in enumerate(_ONE_D):
             x = tf.max_pool1d(torch.relu(getattr(self, f"Conv_{i}")(x)), pool)
@@ -482,7 +499,7 @@ class OneDConvNet(_Backbone):
             z = x.reshape(x.shape[0], -1)
         else:
             z = _attention_pool(x, self.att_linear1, self.att_linear2)
-        z = torch.relu(self.classifier(z))
+        z = torch.relu(self.classifier(self._with_global(z, global_feature)))
         return self._heads(self._dropout(z, dropout, z.shape))
 
 
@@ -494,7 +511,8 @@ class PlainConv2d(_Backbone):
     per-class projection ``w1`` (emotion) or ``w2`` (any other ``pred``: 2
     classes) of shape (win_len // 8, classes), and the mean over F."""
 
-    def __init__(self, win_len: int = 200, pred: str = "emotion", dropout_rate: float = 0.5):
+    def __init__(self, win_len: int = 200, pred: str = "emotion", dropout_rate: float = 0.5,
+                 global_dim: int = 0):
         super().__init__()
         if pred not in ("emotion", "gender", "multitask"):
             raise ValueError(f"unknown pred: {pred!r}")
@@ -511,9 +529,11 @@ class PlainConv2d(_Backbone):
         setattr(self, "w1" if pred == "emotion" else "w2", w)
 
     def forward(self, x: torch.Tensor, pooling: Optional[str] = None,
-                dropout: Optional[DropoutDraws] = None, update_stats: bool = True):
-        """(B, 1, T, D) windows -> (B, classes) logits; ``pooling`` is
-        accepted for the shared call and unused."""
+                dropout: Optional[DropoutDraws] = None, update_stats: bool = True,
+                global_feature: Optional[torch.Tensor] = None):
+        """(B, 1, T, D) windows -> (B, classes) logits; ``pooling``,
+        ``global_dim`` and ``global_feature`` are accepted for the shared
+        call and unused, as in the JAX package."""
         for i, (_, bn, pool) in enumerate(_PLAIN):
             x = getattr(self, f"conv{i}")(x)
             if bn:

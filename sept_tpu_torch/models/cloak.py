@@ -26,7 +26,9 @@ The cloaked models take NCHW windows (B, 1, win_len, n_feats) and the
 epsilon draw of the step (``CloakNoise.draw_eps``); ``noise_sign`` flips it.
 The backbones may compute in bf16 (``Conv2dBiRNN(compute_dtype=...)``): the
 noise and ``x + noise`` stay f32 and block 1's K1 rounds the noised input,
-as in the JAX package.
+as in the JAX package.  ``global_feature`` (B, 88) goes to every backbone
+as it is (no noise, no gradient reversal), for backbones built with
+``global_dim``.
 """
 
 from __future__ import annotations
@@ -109,9 +111,10 @@ class CloakedModel(nn.Module):
 
     def forward(self, x: torch.Tensor, eps: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, pooling: Optional[str] = "mean",
-                noise_sign: float = 1.0):
+                noise_sign: float = 1.0, global_feature: Optional[torch.Tensor] = None):
         noised = _noised(self.noise, x, mask, noise_sign, eps)
-        return self.backbone(noised, pooling=pooling), noised.detach()
+        return (self.backbone(noised, pooling=pooling, global_feature=global_feature),
+                noised.detach())
 
 
 class CloakedModelGRL(nn.Module):
@@ -137,12 +140,12 @@ class CloakedModelGRL(nn.Module):
     def forward(self, x: torch.Tensor, eps: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, pooling: Optional[str] = "mean",
                 noise_sign: float = 1.0, dropout: Optional[DropoutDraws] = None,
-                update_stats: bool = True):
+                update_stats: bool = True, global_feature: Optional[torch.Tensor] = None):
         """``dropout`` and ``update_stats`` go to the gender backbone (see
         ``Conv2dBiRNN.encode``)."""
         noised = _noised(self.noise, x, mask, noise_sign, eps)
-        emo = self.emotion_backbone(noised, pooling=pooling)
+        emo = self.emotion_backbone(noised, pooling=pooling, global_feature=global_feature)
         gen = self.gender_backbone(gradient_reversal(noised, self.grl_lambda),
                                    pooling=pooling, dropout=dropout,
-                                   update_stats=update_stats)
+                                   update_stats=update_stats, global_feature=global_feature)
         return emo, gen, noised.detach()

@@ -51,7 +51,17 @@ def pcm_to_float(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Constant tables (numpy, float64 internally, float32 at the edge)
+# Constant tables (numpy, float64 internally, float32 at the edge).  Each is
+# cached for the process and returned read-only: a caller's in-place write
+# would otherwise change every later user's table.  Tensors are made from
+# them by copy (``torch.tensor``), never by ``torch.from_numpy``, whose CPU
+# tensor would share the cached storage.
+
+
+def _frozen(*arrays):
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays if len(arrays) > 1 else arrays[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,7 +69,7 @@ def hann_window(win_length: int, periodic: bool = True) -> np.ndarray:
     """Hann window matching ``torch.hann_window(win_length, periodic=True)``."""
     n = win_length if periodic else win_length - 1
     k = np.arange(win_length, dtype=np.float64)
-    return (0.5 - 0.5 * np.cos(2.0 * math.pi * k / n)).astype(np.float32)
+    return _frozen((0.5 - 0.5 * np.cos(2.0 * math.pi * k / n)).astype(np.float32))
 
 
 def hz_to_mel(freq, mel_scale: str = "htk"):
@@ -113,7 +123,7 @@ def melscale_fbanks(
     fb = np.maximum(0.0, np.minimum(down, up))
     if norm == "slaney":
         fb *= (2.0 / (f_pts[2 : n_mels + 2] - f_pts[:n_mels]))[None, :]
-    return fb.astype(np.float32)
+    return _frozen(fb.astype(np.float32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,7 +136,7 @@ def rdft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     t = np.arange(n_fft, dtype=np.float64)[:, None]
     f = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
     ang = 2.0 * math.pi * t * f / n_fft
-    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    return _frozen(np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,7 +152,7 @@ def create_dct(n_mfcc: int, n_mels: int, norm: str | None = "ortho") -> np.ndarr
         dct *= math.sqrt(2.0 / n_mels)
     else:
         raise ValueError(f"unsupported DCT norm: {norm!r}")
-    return dct.T.astype(np.float32)
+    return _frozen(dct.T.astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +178,8 @@ def stft_power(wave: torch.Tensor, n_fft: int, hop_length: int,
     onesided, not normalized, the DFT as two GEMMs."""
     frames = frame_signal(wave, n_fft, hop_length, center, pad_mode)
     dev = wave.device
-    frames = frames * torch.from_numpy(hann_window(n_fft)).to(dev)
-    cos_m, sin_m = (torch.from_numpy(m).to(dev) for m in rdft_matrices(n_fft))
+    frames = frames * torch.tensor(hann_window(n_fft), device=dev)
+    cos_m, sin_m = (torch.tensor(m, device=dev) for m in rdft_matrices(n_fft))
     re = frames @ cos_m
     im = frames @ sin_m
     return (re * re + im * im).T
@@ -201,9 +211,8 @@ def mel_spectrogram(wave: torch.Tensor, n_fft: int = 1024, hop_length: int = 160
     if f_max is None:
         f_max = float(sample_rate // 2)
     spec = stft_power(wave, n_fft, hop_length)
-    fb = torch.from_numpy(
-        melscale_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate)
-    ).to(wave.device)
+    fb = torch.tensor(melscale_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate),
+                      device=wave.device)
     mel = (spec.T @ fb).T
     return amplitude_to_db(mel, "power", top_db) if to_db else mel
 
@@ -216,7 +225,7 @@ def mfcc(wave: torch.Tensor, sample_rate: int = 16000, n_mfcc: int = 40,
     128 mels, AmplitudeToDB('power', top_db 80), DCT-II ortho."""
     mel = mel_spectrogram(wave, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
                           sample_rate=sample_rate, top_db=top_db)
-    dct = torch.from_numpy(create_dct(n_mfcc, n_mels, "ortho")).to(wave.device)
+    dct = torch.tensor(create_dct(n_mfcc, n_mels, "ortho"), device=wave.device)
     return (mel.T @ dct).T
 
 

@@ -43,7 +43,7 @@ def _tables(n_fft: int, n_mels: int, device: torch.device):
     """(window, cos, sin, filterbank) as f32 tensors on ``device``."""
     cos_m, sin_m = F.rdft_matrices(n_fft)
     fb = F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000)
-    return tuple(torch.from_numpy(a).to(device)
+    return tuple(torch.tensor(a, device=device)
                  for a in (F.hann_window(n_fft), cos_m, sin_m, fb))
 
 
@@ -205,7 +205,7 @@ def _fft_tables(n_fft: int, n_mels: int, device: torch.device):
     radices, tw = fft_plan(n_fft)
     index, weights = sparse_bank(n_fft, n_mels)
     pairs = np.stack([tw.real, tw.imag], -1).ravel()
-    return (radices,) + tuple(torch.from_numpy(a).to(device) for a in (
+    return (radices,) + tuple(torch.tensor(a, device=device) for a in (
         F.hann_window(n_fft), pairs, index, weights))
 
 

@@ -24,8 +24,8 @@ __all__ = ["dct_basis", "floor_dct", "floor_dct_plain", "fused_mfcc"]
 @functools.lru_cache(maxsize=None)
 def dct_basis(n_mfcc: int, n_mels: int, device: torch.device) -> torch.Tensor:
     """DCT-II ortho basis, (n_mels, n_mfcc) f32 on ``device``."""
-    # create_dct's array is a transpose: make the kernel's row-major copy
-    return torch.from_numpy(F.create_dct(n_mfcc, n_mels, "ortho")).contiguous().to(device)
+    # a row-major copy of create_dct's (transposed, read-only) array
+    return torch.tensor(F.create_dct(n_mfcc, n_mels, "ortho"), device=device).contiguous()
 
 
 def floor_dct_plain(mel_db: torch.Tensor, floor: torch.Tensor,

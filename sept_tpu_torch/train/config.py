@@ -42,7 +42,8 @@ class ExperimentConfig:
     hidden_size: int = 64
     attention_size: int = 128
     att: Optional[str] = None
-    # the 88-dim global feature: not ported (ROADMAP.md §1 item 3), raises
+    # concatenate the 88-dim global feature (the gemaps functionals) after
+    # pooling; the models are built with global_dim=N_GLOBAL
     global_feature: bool = False
     # "float32" or "bfloat16" (the CLIs' --compute_dtype): blocks 1-3 and the
     # GRU compute in it, parameters and running statistics stay f32

@@ -17,8 +17,10 @@ The state is updated in place, so the best state is a snapshot
 (:meth:`sept_tpu_torch.train.steps.TrainState.snapshot`), never the live
 state.  Shuffles come from ``np.random.default_rng(cfg.seed)``, one
 permutation of the real rows an epoch with the pad rows last, as in the JAX
-package.  Data parallelism (the JAX drivers' ``mesh``) is ROADMAP.md §1 item
-8; the global feature raises (item 3).
+package.  With ``cfg.global_feature`` each split's 88-dim ``global_data``
+goes to the device beside its windows (:class:`DeviceSplit`) and to every
+forward.  Data parallelism (the JAX fold loops' ``mesh``) is ROADMAP.md §1
+item 9.
 """
 
 from __future__ import annotations
@@ -33,13 +35,7 @@ from sept_tpu_torch.device import resolve_device
 from sept_tpu_torch.eval import metrics as M
 from sept_tpu_torch.models import pooling_for
 from sept_tpu_torch.train.config import ExperimentConfig
-from sept_tpu_torch.train.loop import (
-    EarlyStopping,
-    FitResult,
-    first_head,
-    refuse_global_feature,
-    run_test,
-)
+from sept_tpu_torch.train.loop import EarlyStopping, FitResult, first_head, run_test
 from sept_tpu_torch.train.midfold import MidFoldCheckpoint
 from sept_tpu_torch.train.optim import PlateauScheduler, set_lr_scale
 from sept_tpu_torch.train.steps import (
@@ -57,8 +53,10 @@ class DeviceSplit:
     """One split's windows, labels and weights on the device, padded to a
     multiple of the batch size with copies of row 0 at weight 0.
 
-    ``split`` is any object with ``windows`` (N, T, D), ``labels_emo`` and
-    ``labels_gen`` arrays (a :class:`SplitArrays`, or the JAX package's).  The
+    ``split`` is any object with ``windows`` (N, T, D), ``labels_emo``,
+    ``labels_gen`` and ``global_data`` (N, 88) arrays (a
+    :class:`SplitArrays`, or the JAX package's); ``globals`` is the last on
+    the device, as the JAX package uploads it whether or not it is used.  The
     pad copies are excluded from loss and metrics by their weight but still
     enter train-mode BatchNorm statistics, as in the JAX package: all-zero
     rows would bias them with out-of-distribution data.
@@ -85,6 +83,7 @@ class DeviceSplit:
         self.labels_gen = padded(split.labels_gen, torch.long)
         self.labels = self.labels_gen if label_key == "labels_gen" else self.labels_emo
         self.weights = torch.as_tensor(w, device=dev)
+        self.globals = padded(split.global_data, torch.float32)
         self.n_real = n
         self.n_batches = (n + pad) // batch_size
         self.batch_size = batch_size
@@ -133,23 +132,26 @@ def _loop_restore(loop, early, plateau):
             loop["history"])
 
 
-def make_val_pass(apply_logits: Callable):
+def make_val_pass(apply_logits: Callable, use_global: bool = False):
     """Whole-split validation pass, batch by batch, so peak activation memory
-    stays bounded by the batch size.  ``apply_logits(windows (B, 1, T, D))``
-    is an eval forward (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`;
-    a tuple's first element is taken).  Returns ``val(windows (M, T, D),
-    labels (M,), weights (M,), n_batches, batch_size) -> (loss, preds
-    (M,))``, where the loss is the MEAN OF PER-BATCH MEANS (each batch's
+    stays bounded by the batch size.  ``apply_logits(windows (B, 1, T, D)[,
+    g (B, 88)])`` is an eval forward
+    (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`; a tuple's first
+    element is taken), given the batch's global vectors with ``use_global``.
+    Returns ``val(windows (M, T, D), labels (M,), weights (M,), n_batches,
+    batch_size[, globals_ (M, 88)]) -> (loss, preds (M,))``, where the loss
+    is the MEAN OF PER-BATCH MEANS (each batch's
     weighted CE over its real rows), the statistic the reference feeds to the
     plateau scheduler and early stopping; one weighted mean over the split
     would differ whenever it is not a multiple of the batch size."""
 
-    def val(windows, labels, weights, *, n_batches: int, batch_size: int):
+    def val(windows, labels, weights, *, n_batches: int, batch_size: int, globals_=None):
         losses, preds = [], []
         with torch.inference_mode():
             for i in range(n_batches):
                 sl = slice(i * batch_size, (i + 1) * batch_size)
-                logits = first_head(apply_logits(windows[sl][:, None]))
+                g = (globals_[sl],) if use_global else ()
+                logits = first_head(apply_logits(windows[sl][:, None], *g))
                 losses.append(weighted_ce(logits, labels[sl], weights[sl]))
                 preds.append(logits.argmax(-1))
         return torch.stack(losses).mean(), torch.cat(preds)
@@ -253,7 +255,7 @@ def _epoch_metrics(losses, correct, counts) -> dict:
 def _val_epoch(val_pass, ds: DeviceSplit):
     def val_epoch(state):
         loss, preds = val_pass(ds.windows, ds.labels, ds.weights, n_batches=ds.n_batches,
-                               batch_size=ds.batch_size)
+                               batch_size=ds.batch_size, globals_=ds.globals)
         valid = ds.weights.cpu().numpy() > 0
         acc, uar = _masked_uar(ds.labels.cpu().numpy(), preds.cpu().numpy(), valid)
         return {"loss": float(loss), "acc": acc, "uar": uar}
@@ -272,15 +274,17 @@ def fit_device(state: TrainState, train_split: SplitArrays, val_split: SplitArra
     state and the loop's bookkeeping persist after every epoch, an
     interrupted fold resumes at the next epoch with the same shuffle, and
     the directory goes once the fold completes."""
-    refuse_global_feature(cfg)
     dev = state.generator.device
     label_key = "labels_gen" if cfg.pred == "gender" else "labels_emo"
     train_ds = DeviceSplit(train_split, label_key, cfg.batch_size,
                            _spk_weight_vec(train_split, spk_weights), dev)
     val_ds = DeviceSplit(val_split, label_key, cfg.batch_size,
                          _spk_weight_vec(val_split, spk_weights), dev)
-    run_epoch = make_epoch_runner(pooling=pooling_for(cfg.model_type))
-    gkw = {"labels_gen": train_ds.labels_gen} if cfg.pred == "multitask" else {}
+    run_epoch = make_epoch_runner(pooling=pooling_for(cfg.model_type),
+                                  use_global=cfg.global_feature)
+    gkw = {"globals_": train_ds.globals} if cfg.global_feature else {}
+    if cfg.pred == "multitask":
+        gkw["labels_gen"] = train_ds.labels_gen
 
     def train_epoch(st, epoch, order):
         st, losses, correct, counts = run_epoch(
@@ -290,7 +294,7 @@ def fit_device(state: TrainState, train_split: SplitArrays, val_split: SplitArra
 
     return _run_epoch_loop(
         state, cfg, train_epoch=train_epoch,
-        val_epoch=_val_epoch(make_val_pass(logits_fn), val_ds),
+        val_epoch=_val_epoch(make_val_pass(logits_fn, cfg.global_feature), val_ds),
         test_epoch=lambda st: run_test(logits_fn, test_split, cfg, device=dev),
         m_total=train_ds.n_batches * train_ds.batch_size, n_real=train_ds.n_real,
         resume_path=resume_path, verbose=verbose)
@@ -309,7 +313,6 @@ def fit_device_cloak(state: TrainState, train_split: SplitArrays, val_split: Spl
     the training draws to inject, ``eps[epoch]`` of shape (n_batches, 1,
     win_len, n_feats) (the tests feed the JAX draws); else each step draws
     from the state's generator.  ``resume_path``: see :func:`fit_device`."""
-    refuse_global_feature(cfg)
     dev = state.generator.device
     train_ds = DeviceSplit(train_split, "labels_emo", cfg.batch_size,
                            _spk_weight_vec(train_split, spk_weights), dev)
@@ -319,18 +322,20 @@ def fit_device_cloak(state: TrainState, train_split: SplitArrays, val_split: Spl
     run_epoch = make_cloak_epoch_runner(
         scale_lambda=cfg.scale_lambda, gender_lambda=cfg.gender_lambda, grl=cfg.grl,
         apply_scale_reg=cfg.suppression_ratio == 0, pooling=pooling_for(cfg.model_type),
-        antithetic=cfg.antithetic_noise, saliency_align=cfg.saliency_align)
+        antithetic=cfg.antithetic_noise, saliency_align=cfg.saliency_align,
+        use_global=cfg.global_feature)
 
     def train_epoch(st, epoch, order):
         st, losses, correct, counts = run_epoch(
             st, train_ds.windows, train_ds.labels_emo, train_ds.labels_gen,
             train_ds.weights, order, mask_t, n_batches=train_ds.n_batches,
-            batch_size=train_ds.batch_size, eps=None if eps is None else eps[epoch])
+            batch_size=train_ds.batch_size, eps=None if eps is None else eps[epoch],
+            globals_=train_ds.globals)
         return st, _epoch_metrics(losses, correct, counts)
 
     return _run_epoch_loop(
         state, cfg, train_epoch=train_epoch,
-        val_epoch=_val_epoch(make_val_pass(eval_logits_fn), val_ds),
+        val_epoch=_val_epoch(make_val_pass(eval_logits_fn, cfg.global_feature), val_ds),
         test_epoch=lambda st: run_test(eval_logits_fn, test_split, cfg, device=dev),
         m_total=train_ds.n_batches * train_ds.batch_size, n_real=train_ds.n_real,
         resume_path=resume_path, verbose=verbose, epoch_callback=epoch_callback)

@@ -22,15 +22,7 @@ from sept_tpu_torch.eval import metrics as M
 from sept_tpu_torch.eval.sliding import make_sliding_vote_fn, vote_split
 from sept_tpu_torch.train.config import ExperimentConfig
 
-__all__ = ["EarlyStopping", "speaker_weights", "run_test", "FitResult",
-           "refuse_global_feature", "first_head"]
-
-
-def refuse_global_feature(cfg: ExperimentConfig) -> None:
-    if cfg.global_feature:
-        raise NotImplementedError(
-            "global_feature=True: the 88-dim global feature is not ported to "
-            "PyTorch yet (ROADMAP.md §1 item 3)")
+__all__ = ["EarlyStopping", "speaker_weights", "run_test", "FitResult", "first_head"]
 
 
 class EarlyStopping:
@@ -78,15 +70,15 @@ def run_test(logits_fn: Callable, test: SplitArrays, cfg: ExperimentConfig,
     """Sliding-window vote over whole test utterances, ``batch_size`` at a
     time; the last batch is padded with zero utterances of ``win_len``
     frames, whose results are cut.  ``logits_fn`` is an eval forward
-    (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`) on ``device``.
-    Combine mode (more than one corpus tag) adds a ``per_dataset``
-    breakdown."""
-    refuse_global_feature(cfg)
+    (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`) on ``device``;
+    with ``cfg.global_feature`` it also takes each window's (88,) vector,
+    its utterance's ``test.global_data`` row.  Combine mode (more than one
+    corpus tag) adds a ``per_dataset`` breakdown."""
     dev = resolve_device(device)
     label_key = label_key or ("labels_gen" if cfg.pred == "gender" else "labels_emo")
-    vote = make_sliding_vote_fn(lambda wins: first_head(logits_fn(wins)), cfg.win_len,
-                                cfg.shift_len)
-    probs = vote_split(vote, test, cfg.win_len, batch_size, dev)
+    vote = make_sliding_vote_fn(lambda wins, *g: first_head(logits_fn(wins, *g)),
+                                cfg.win_len, cfg.shift_len)
+    probs = vote_split(vote, test, cfg.win_len, batch_size, dev, cfg.global_feature)
     preds = probs.argmax(-1) if len(probs) else np.zeros(0, np.int64)
     truth = getattr(test, label_key)
     return {**M.split_result(truth, preds, test.datasets, rec_key="uar"), "preds": preds,

@@ -26,8 +26,14 @@ the test vote and the sweep.
 
 The models carry their own ``compute_dtype`` (``Conv2dBiRNN``): a bf16
 model trains through the same steps, with logits, losses and metrics in f32.
-Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).  The
-88-dim global feature is not ported yet.
+Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).
+
+``use_global``: the 88-dim global feature goes to the model beside the
+windows, ``batch["global"]`` (B, 88) in a step and ``globals_`` (M, 88) in
+an epoch runner, rows picked with the windows'.  The model must be built
+with ``global_dim=N_GLOBAL`` (its ``dense1`` takes pooled + 88 inputs):
+where the JAX package's ``init_state(use_global=...)`` fixes that width at
+init, the port fixes it when the model is built.
 """
 
 from __future__ import annotations
@@ -149,7 +155,7 @@ def _scale_reg(model, loss, scale_lambda, apply_scale_reg):
     return loss
 
 
-def _input_saliency(backbone: nn.Module, spec, labels, weights, pooling):
+def _input_saliency(backbone: nn.Module, spec, labels, weights, pooling, global_feature=None):
     """|d weighted CE / d x| of ``backbone`` in eval mode with its parameters
     held constant, averaged over the batch and scaled to unit mean: (T, D).
     The parameters go in detached (``functional_call``), so the backward
@@ -159,7 +165,9 @@ def _input_saliency(backbone: nn.Module, spec, labels, weights, pooling):
     try:
         params = {k: v.detach() for k, v in backbone.named_parameters()}
         x = spec.detach().requires_grad_()
-        logits = torch.func.functional_call(backbone, params, (x,), {"pooling": pooling})
+        g = None if global_feature is None else global_feature.detach()
+        logits = torch.func.functional_call(backbone, params, (x,),
+                                            {"pooling": pooling, "global_feature": g})
         (grad,) = torch.autograd.grad(weighted_ce(logits, labels, weights), x)
     finally:
         backbone.train(was_training)
@@ -169,7 +177,8 @@ def _input_saliency(backbone: nn.Module, spec, labels, weights, pooling):
 
 def saliency_alignment_loss(model: nn.Module, spec: torch.Tensor, labels_emo: torch.Tensor,
                             labels_gen: torch.Tensor, weights: torch.Tensor,
-                            pooling: Optional[str] = "mean") -> torch.Tensor:
+                            pooling: Optional[str] = "mean",
+                            global_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
     """First-order scale-shaping term of the cloak + GRL game, a framework
     extension of the JAX package (off by default):
     ``mean(scales * (sal_emo - sal_gen))``, where each saliency is the input
@@ -178,9 +187,12 @@ def saliency_alignment_loss(model: nn.Module, spec: torch.Tensor, labels_emo: to
     The saliencies are constants, so the term is linear in the scales and
     its gradient reaches only the noise's ``rhos``: minimizing it moves noise
     onto the cells the gender adversary reads and off the ones the emotion
-    model reads.  ``model`` is a ``CloakedModelGRL``."""
-    sal = (_input_saliency(model.emotion_backbone, spec, labels_emo, weights, pooling)
-           - _input_saliency(model.gender_backbone, spec, labels_gen, weights, pooling))
+    model reads.  ``model`` is a ``CloakedModelGRL``; ``global_feature``
+    (B, 88), a constant, goes to both backbones."""
+    sal = (_input_saliency(model.emotion_backbone, spec, labels_emo, weights, pooling,
+                           global_feature)
+           - _input_saliency(model.gender_backbone, spec, labels_gen, weights, pooling,
+                             global_feature))
     return (cloak_scales(model) * sal).mean()
 
 
@@ -188,9 +200,9 @@ def saliency_alignment_loss(model: nn.Module, spec: torch.Tensor, labels_emo: to
 # baseline / adversary / multitask
 
 
-def _baseline_update(state, spec, labels, weights, labels_gen, pooling):
+def _baseline_update(state, spec, labels, weights, labels_gen, pooling, g=None):
     model = state.model.train()
-    out = model(spec, pooling=pooling, dropout=DropoutDraws(state.generator))
+    out = model(spec, pooling=pooling, dropout=DropoutDraws(state.generator), global_feature=g)
     if model.pred == "multitask":
         out, gen_out = out
         loss = weighted_ce(out, labels, weights) + weighted_ce(gen_out, labels_gen, weights)
@@ -200,58 +212,65 @@ def _baseline_update(state, spec, labels, weights, labels_gen, pooling):
     return _metrics(out.detach(), labels, weights, loss)
 
 
-def make_baseline_step(pooling: Optional[str] = "mean"):
+def make_baseline_step(pooling: Optional[str] = "mean", use_global: bool = False):
     """Supervised step for baseline / adversary / multitask training:
     ``step(state, batch) -> (state, metrics)`` with ``batch`` holding
-    ``spec`` (B, 1, T, D), ``labels_emo``, ``labels_gen`` and ``weight``.
-    pred="multitask" sums emotion and gender CE; metrics track the emotion
-    head.  ``pooling`` must match evaluation's."""
+    ``spec`` (B, 1, T, D), ``labels_emo``, ``labels_gen`` and ``weight``
+    (and ``global`` with ``use_global``).  pred="multitask" sums emotion and
+    gender CE; metrics track the emotion head.  ``pooling`` must match
+    evaluation's."""
     f32_precision()
 
     def step(state: TrainState, batch: dict):
         key = "labels_gen" if state.model.pred == "gender" else "labels_emo"
+        g = batch["global"] if use_global else None
         return state, _baseline_update(state, batch["spec"], batch[key], batch["weight"],
-                                       batch["labels_gen"], pooling)
+                                       batch["labels_gen"], pooling, g)
 
     return step
 
 
-def make_epoch_runner(pooling: Optional[str] = "mean"):
+def make_epoch_runner(pooling: Optional[str] = "mean", use_global: bool = False):
     """Whole-epoch trainer over device-resident windows:
     ``run(state, windows (M, T, D), labels (M,), weights (M,), order (M,),
-    n_batches, batch_size[, labels_gen]) -> (state, losses, correct,
-    counts)``, one batch after another in ``order``.  ``labels`` are the
-    model's own targets; pass ``labels_gen`` for pred="multitask"."""
+    n_batches, batch_size[, globals_][, labels_gen]) -> (state, losses,
+    correct, counts)``, one batch after another in ``order``.  ``labels``
+    are the model's own targets; pass ``labels_gen`` for pred="multitask"
+    and ``globals_`` (M, 88) with ``use_global``."""
     f32_precision()
 
     def run(state, windows, labels, weights, order, *, n_batches: int,
-            batch_size: int, labels_gen=None):
+            batch_size: int, globals_=None, labels_gen=None):
         metrics = []
         for idx in _batches(order, n_batches, batch_size, windows.device):
             metrics.append(_baseline_update(
                 state, windows[idx][:, None], labels[idx], weights[idx],
-                None if labels_gen is None else labels_gen[idx], pooling))
+                None if labels_gen is None else labels_gen[idx], pooling,
+                globals_[idx] if use_global else None))
         return (state, *_stack(metrics))
 
     return run
 
 
-def make_eval_logits_fn(model: nn.Module, **forward_kwargs):
-    """Eval forward: ``fn(spec (B, 1, T, D)) -> model(spec,
-    **forward_kwargs)`` in eval mode under ``torch.inference_mode`` with TF32
-    off; the tuple of both heads for pred="multitask", a cloaked model's
-    tuple whole (its first element is the emotion logits).  The model's mode
-    is put back after each call, so a validation pass between two train
-    epochs leaves it training; no graph is built, so no backward kernel
-    runs and nothing is saved for one."""
+def make_eval_logits_fn(model: nn.Module, use_global: bool = False, **forward_kwargs):
+    """Eval forward: ``fn(spec (B, 1, T, D), global_feature=None) ->
+    model(spec, **forward_kwargs)`` in eval mode under
+    ``torch.inference_mode`` with TF32 off; the (B, 88) ``global_feature``
+    goes to the model with ``use_global`` and is dropped without.  Returns
+    the tuple of both heads for pred="multitask", a cloaked model's tuple
+    whole (its first element is the emotion logits).  The model's mode is
+    put back after each call, so a validation pass between two train epochs
+    leaves it training; no graph is built, so no backward kernel runs and
+    nothing is saved for one."""
     f32_precision()
 
-    def fn(spec):
+    def fn(spec, global_feature=None):
         was_training = model.training
         model.eval()
+        g = {"global_feature": global_feature} if use_global else {}
         try:
             with torch.inference_mode():
-                return model(spec, **forward_kwargs)
+                return model(spec, **g, **forward_kwargs)
         finally:
             model.train(was_training)
 
@@ -263,9 +282,11 @@ def make_eval_logits_fn(model: nn.Module, **forward_kwargs):
 
 
 def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
-                    pooling: Optional[str] = "mean", antithetic: bool = False):
+                    pooling: Optional[str] = "mean", antithetic: bool = False,
+                    use_global: bool = False):
     """Cloak step on a ``CloakedModel`` whose backbone the optimizer froze:
-    ``step(state, batch, mask=None, eps=None) -> (state, metrics)``.
+    ``step(state, batch, mask=None, eps=None) -> (state, metrics)``;
+    ``batch["global"]`` goes to the backbone with ``use_global``.
 
     ``antithetic``: the loss is the mean of the +eps and -eps passes of one
     draw; the first-order noise of the sigma gradient cancels between them.
@@ -278,9 +299,11 @@ def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
         labels, w = batch[key], batch["weight"]
         if eps is None:
             eps = model.noise.draw_eps(state.generator)
+        g = batch["global"] if use_global else None
 
         def branch(sign):
-            return model(batch["spec"], eps, mask=mask, pooling=pooling, noise_sign=sign)[0]
+            return model(batch["spec"], eps, mask=mask, pooling=pooling, noise_sign=sign,
+                         global_feature=g)[0]
 
         logits = branch(1.0)
         loss = weighted_ce(logits, labels, w)
@@ -295,7 +318,8 @@ def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
 
 def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
                         apply_scale_reg: bool = True, pooling: Optional[str] = "mean",
-                        antithetic: bool = False, saliency_align: float = 0.0):
+                        antithetic: bool = False, saliency_align: float = 0.0,
+                        use_global: bool = False):
     """Cloak + GRL minimax step on a ``CloakedModelGRL`` (noise and gender
     adversary trainable): ``step(state, batch, mask=None, eps=None)``.
 
@@ -305,6 +329,7 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
     ``saliency_align``: weight of :func:`saliency_alignment_loss`, whose
     saliencies are taken before the forward updates the gender backbone's
     running statistics (the JAX step reads the step's incoming statistics).
+    ``batch["global"]`` goes to both backbones with ``use_global``.
     """
     f32_precision()
 
@@ -314,19 +339,21 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
         if eps is None:
             eps = model.noise.draw_eps(state.generator)
         draws = DropoutDraws(state.generator)
+        g = batch["global"] if use_global else None
 
         def pair_loss(emo_logits, gen_logits):
             return weighted_ce(emo_logits, le, w) + gender_lambda * weighted_ce(
                 gen_logits, lg, w)
 
-        align = (saliency_alignment_loss(model, batch["spec"], le, lg, w, pooling)
+        align = (saliency_alignment_loss(model, batch["spec"], le, lg, w, pooling, g)
                  if saliency_align else None)
-        emo, gen, _ = model(batch["spec"], eps, mask=mask, pooling=pooling, dropout=draws)
+        emo, gen, _ = model(batch["spec"], eps, mask=mask, pooling=pooling, dropout=draws,
+                            global_feature=g)
         loss = pair_loss(emo, gen)
         if antithetic:
             emo_m, gen_m, _ = model(batch["spec"], eps, mask=mask, pooling=pooling,
                                     noise_sign=-1.0, dropout=draws.replay(),
-                                    update_stats=False)
+                                    update_stats=False, global_feature=g)
             loss = 0.5 * (loss + pair_loss(emo_m, gen_m))
         loss = _scale_reg(model, loss, scale_lambda, apply_scale_reg)
         if align is not None:
@@ -342,22 +369,25 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
 def make_cloak_epoch_runner(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
                             grl: bool = False, apply_scale_reg: bool = True,
                             pooling: Optional[str] = "mean", antithetic: bool = False,
-                            saliency_align: float = 0.0):
+                            saliency_align: float = 0.0, use_global: bool = False):
     """Whole-epoch cloak / cloak + GRL trainer: ``run(state, windows (M, T,
     D), labels_emo, labels_gen, weights, order, mask, n_batches, batch_size,
-    eps=None) -> (state, losses, correct, counts)``; ``mask=None`` for
-    unsuppressed training, ``eps`` (n_batches, 1, T, D) to inject the draws.
+    eps=None, globals_=None) -> (state, losses, correct, counts)``;
+    ``mask=None`` for unsuppressed training, ``eps`` (n_batches, 1, T, D) to
+    inject the draws, ``globals_`` (M, 88) with ``use_global``.
     ``saliency_align`` applies to the GRL game only, as in the JAX package."""
     step = (make_cloak_grl_step(scale_lambda, gender_lambda, apply_scale_reg, pooling,
-                                antithetic, saliency_align) if grl else
-            make_cloak_step(scale_lambda, apply_scale_reg, pooling, antithetic))
+                                antithetic, saliency_align, use_global) if grl else
+            make_cloak_step(scale_lambda, apply_scale_reg, pooling, antithetic, use_global))
 
     def run(state, windows, labels_emo, labels_gen, weights, order, mask, *,
-            n_batches: int, batch_size: int, eps=None):
+            n_batches: int, batch_size: int, eps=None, globals_=None):
         metrics = []
         for i, idx in enumerate(_batches(order, n_batches, batch_size, windows.device)):
             batch = {"spec": windows[idx][:, None], "labels_emo": labels_emo[idx],
                      "labels_gen": labels_gen[idx], "weight": weights[idx]}
+            if use_global:
+                batch["global"] = globals_[idx]
             metrics.append(step(state, batch, mask, None if eps is None else eps[i])[1])
         return (state, *_stack(metrics))
 

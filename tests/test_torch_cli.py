@@ -183,19 +183,35 @@ def test_run_json_has_the_jax_keys(run_all_cpu, tmp_path, artifact):
 @pytest.mark.parametrize("case", ["global_feature", "functionals", "n_devices", "coordinator",
                                   "import_opensmile", "run_all_n_devices"])
 def test_what_the_port_refuses(tmp_path, monkeypatch, case):
+    """Data parallelism raises ``NotImplementedError`` before any stage
+    runs.  The global feature, the functionals and the openSMILE import,
+    once refused here, are now taken: ``run_all --global_feature 1`` gets
+    past its checks to preprocess (which finds no store under
+    ``--skip_featurize``), ``featurize`` writes gemaps and emobase by
+    default, and ``--import_opensmile`` reads its file (a missing one raises
+    ``FileNotFoundError`` before anything is written)."""
     dirs = ["--work_dir", str(tmp_path), "--output_dir", str(tmp_path / "r"), "--device", "cpu"]
     tiny = ["--dataset", "synthetic", "--n_speakers", "2", "--utts_per_speaker", "1"]
     if case == "coordinator":
         monkeypatch.setenv("SEPT_COORDINATOR", "localhost:1234")
-    call = {"global_feature": lambda: run_all.main(SMALL + dirs + ["--global_feature", "1"]),
+    call = {"global_feature": lambda: run_all.main(SMALL + dirs + ["--global_feature", "1",
+                                                                  "--skip_featurize"]),
             "functionals": lambda: featurize.main(tiny + dirs),
             "n_devices": lambda: train_baseline.main(SMALL + dirs + ["--n_devices", "2"]),
             "coordinator": lambda: train_cloak.main(SMALL + dirs),
             "import_opensmile": lambda: featurize.main(
                 tiny + dirs + ["--functionals", "0", "--import_opensmile", "x.csv"]),
             "run_all_n_devices": lambda: run_all.main(SMALL + dirs + ["--n_devices", "2"])}
-    match = {"global_feature": "global", "functionals": "functionals",
-             "import_opensmile": "openSMILE"}.get(case, "data parallelism")
-    with pytest.raises(NotImplementedError, match=match):
+    if case == "functionals":
+        call[case]()
+        st = store.load_feature_store(str(tmp_path / "feature/mel_spec/synthetic/data_128.npz"))
+        assert len(st) == 2 and all(v["gemaps"].shape == (88,) and v["emobase"].shape == (988,)
+                                    for v in st.values())
+        return
+    raises = {"global_feature": FileNotFoundError,
+              "import_opensmile": FileNotFoundError}.get(case, NotImplementedError)
+    match = {"global_feature": "feature", "import_opensmile": "x.csv"}.get(
+        case, "data parallelism")
+    with pytest.raises(raises, match=match):
         call[case]()
     assert not (tmp_path / "feature").exists()

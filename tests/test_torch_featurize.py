@@ -140,10 +140,21 @@ def test_featurize_corpus_int16_staging_bitwise_equal(feature_type):
                                     {"include_gemaps": False, "include_emobase": True}],
                          ids=["default", "gemaps", "emobase"])
 def test_featurize_corpus_refuses_the_functionals(kwargs):
-    """The functionals are not ported: asked for (also by default, as in
-    JAX), the call raises before touching any device."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FZ.featurize_corpus(_corpus(False), "mel_spec", **kwargs)
+    """Once refused, the functionals are now computed: asked for (also by
+    default, as in JAX), the store holds exactly the sets JAX's holds,
+    ``gemaps`` (88,) and / or ``emobase`` (988,), within rtol = atol = 2e-3
+    of JAX's (``tests/test_functionals.py``'s device-vs-oracle bound; the
+    functionals' own parity is in tests/test_torch_egemaps.py and
+    tests/test_torch_emobase.py)."""
+    waves = _corpus(False)
+    ours = FZ.featurize_corpus(waves, "mel_spec", feature_len=32, device="cpu", **kwargs)
+    theirs = JFZ.featurize_corpus(waves, "mel_spec", feature_len=32, **kwargs)
+    for u in waves:
+        assert set(ours[u]) == set(theirs[u]) and set(ours[u]) - {"mel1", "mel2"}
+        for k in set(ours[u]) & {"gemaps", "emobase"}:
+            assert ours[u][k].shape == theirs[u][k].shape == ((88,) if k == "gemaps" else (988,))
+            np.testing.assert_allclose(ours[u][k], theirs[u][k], rtol=2e-3, atol=2e-3,
+                                       err_msg=f"{u} {k}")
 
 
 def test_featurize_corpus_refuses_an_unknown_feature_type():

@@ -252,8 +252,9 @@ def test_speaker_weights_match_jax():
 
 def test_fold_entry_points_need_cuda_and_refuse_global_feature(monkeypatch, tmp_path):
     """``run_fold`` and ``CheckpointManager.restore`` run on ``device="cuda"``
-    unless asked for the CPU, and raise without a card; the global feature
-    raises."""
+    unless asked for the CPU, and raise without a card.  The global feature,
+    once refused here, now trains: ``run_fold`` with ``global_feature``
+    saves a baseline whose ``dense1`` takes the pooled width plus 88."""
     from sept_tpu_torch.cli.train_baseline import run_fold
     from sept_tpu_torch.data.pipeline import FoldData
     from sept_tpu_torch.train.checkpoint import CheckpointManager
@@ -261,9 +262,10 @@ def test_fold_entry_points_need_cuda_and_refuse_global_feature(monkeypatch, tmp_
     _, (tr, va, te) = _splits()
     fold = FoldData(1, tr, va, tr, va, te)
     ckpt = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        run_fold(ExperimentConfig(**_cfg_kw(global_feature=True)), fold, ckpt, verbose=False,
-                 device="cpu")
+    res = run_fold(ExperimentConfig(**_cfg_kw(global_feature=True, num_epochs=1)), fold, ckpt,
+                   verbose=False, device="cpu")
+    assert np.isfinite(res.history[0]["train"]["loss"])
+    assert ckpt.restore("baseline_emotion", 1, "cpu")["dense1.weight"].shape == (128, 2 * H + 88)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         run_fold(ExperimentConfig(**_cfg_kw()), fold, ckpt, verbose=False)

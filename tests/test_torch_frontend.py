@@ -10,6 +10,7 @@ import torch
 from sept_tpu.ops import frontend as JF
 from sept_tpu.ops.pallas_frontend import pallas_mel_spectrogram
 from sept_tpu_torch.ops import frontend as TF
+from sept_tpu_torch.ops import mel as M
 from sept_tpu_torch.ops.mel import mel_db, mel_db_plain
 
 from _torch_helpers import speechlike
@@ -161,3 +162,19 @@ def test_mel_db_refuses_devices_without_a_kernel():
     x = torch.empty((2, 2000), device="meta")
     with pytest.raises(ValueError, match="no kernel for meta"):
         mel_db(x, 5)
+
+
+def test_cached_tables_are_read_only_and_copied_into_tensors():
+    """The constant tables are cached for the process: each comes back
+    read-only (a caller's in-place write raises instead of changing every
+    later user's table), and the mel kernels' tensors own copies of them
+    (a ``torch.from_numpy`` CPU tensor would share the cached storage)."""
+    tables = (TF.hann_window(1024), *TF.rdft_matrices(1024), TF.create_dct(40, 128),
+              TF.melscale_fbanks(513, 0.0, 8000.0, 320, 16000))
+    for a in tables:
+        assert not a.flags.writeable
+        with pytest.raises(ValueError, match="read-only"):
+            a[0] = 1.0
+    cpu = torch.device("cpu")
+    for t in M._tables(1024, 320, cpu) + M._fft_tables(1024, 320, cpu)[1:]:
+        assert not any(np.shares_memory(t.numpy(), a) for a in tables)

@@ -125,7 +125,7 @@ def mel_fft_restated(padded, t, n_fft, hop, n_mels=128, dtype=torch.float32):
     radices, tw = M.fft_plan(n_fft)
     tw = torch.from_numpy(tw)
     index, weights = M.sparse_bank(n_fft, n_mels)
-    window = torch.from_numpy(TF.hann_window(n_fft)).double()
+    window = torch.tensor(TF.hann_window(n_fft)).double()
     frames = torch.from_numpy(padded).double().unfold(1, n_fft, hop)[:, :t] * window
     cd = torch.complex64 if dtype == torch.float32 else torch.complex128
     m = n_fft // 2

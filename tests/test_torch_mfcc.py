@@ -153,7 +153,7 @@ def test_floor_dct_plain_matches_jax_floor_dot(rng):
     want = np.asarray(jnp.dot(jnp.maximum(jnp.asarray(mel), jnp.asarray(floor)[:, None]),
                               jnp.asarray(dct), precision=JF.PARITY_PRECISION))
     ours = floor_dct(torch.from_numpy(mel), torch.from_numpy(floor),
-                     torch.from_numpy(TF.create_dct(40, 128))).numpy()
+                     torch.tensor(TF.create_dct(40, 128))).numpy()
     # two f32 sums of 128 terms in different orders: 1e-6 of the largest
     # coefficient (~200 here) apart at most
     np.testing.assert_allclose(ours, want, rtol=0, atol=1e-6 * np.abs(want).max())
@@ -198,7 +198,7 @@ def test_floor_dct_stage_matches_pallas_mfcc(rng):
                                              tile=32, interpret=True))[:, :t]
     floor = np.repeat(jmel.max(axis=(1, 2)) - 80.0, t)
     ours = floor_dct(torch.from_numpy(jmel.reshape(-1, 128)), torch.from_numpy(floor),
-                     torch.from_numpy(TF.create_dct(40, 128))).numpy()
+                     torch.tensor(TF.create_dct(40, 128))).numpy()
     theirs = np.asarray(pallas_mfcc(jnp.asarray(padded), tile=32, interpret=True))
     np.testing.assert_allclose(ours.reshape(2, t, 40), theirs, atol=1e-4)
 
@@ -208,7 +208,7 @@ def test_fused_mfcc_without_top_db_is_the_plain_dct(rng):
     t = (padded.shape[1] - 400) // 200 + 1
     ours = fused_mfcc(padded, t, top_db=None, device="cpu").numpy()
     mel = M.mel_db_plain(torch.from_numpy(padded), t, 400, 200)
-    np.testing.assert_array_equal(ours, (mel @ torch.from_numpy(TF.create_dct(40, 128))).numpy())
+    np.testing.assert_array_equal(ours, (mel @ torch.tensor(TF.create_dct(40, 128))).numpy())
     theirs = np.asarray(pallas_mfcc(jnp.asarray(padded), tile=32, top_db=None,
                                     interpret=True))
     jmel = np.asarray(pallas_mel_spectrogram(jnp.asarray(padded), n_fft=400, hop=200,
