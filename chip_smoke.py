@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (f32 and bf16), featurization,
-fold (training, checkpoints, the suppression sweep), command-line and
-artifact (load_predictor, serve / predict / export / import, every model
-type) paths on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's serving, training (f32 and bf16, and
+data-parallel), featurization, fold (training, checkpoints, the suppression
+sweep), command-line and artifact (load_predictor, serve / predict / export
+/ import, every model type) paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -68,6 +68,20 @@ and read just after; each kernel the path must use has to have launched
                parameters within 1e-3 and running statistics within 5e-3 of
                max(|p|, 1) (the bounds the CPU tests hold the port to the
                JAX package with).
+9b. dp         data parallelism: 2 ranks spawned on card 0 over gloo (NCCL
+               refuses two ranks on one card; gloo stages CUDA tensors
+               through the host), T_BATCH / 2 rows a rank, one epoch each of
+               the f32 baseline (K1-K4, no K5), the f32 cloak + GRL with the
+               antithetic pair (all five, K5 carrying dx through the GRL) and
+               the bf16 baseline (K1-K4 in their bf16 mode), full width,
+               dropout 0, lr 1e-2, on the train phase's windows; each rank
+               counts its own launches (set to 0 just before its epoch).  Each
+               held to the same epoch in one process on the card (TRAIN_F32_TOL
+               / TRAIN_BF16_TOL: losses relative, parameters and running
+               statistics of max(|p|, 1)) and the ranks to each other bit for
+               bit; a rank's failure or timeout fails the script.  With two
+               cards or more the f32 baseline also runs on two cards over
+               NCCL; else the line says it was not run.
 10. fold       one fold of the utility-privacy protocol at full width on a
                seeded FoldData (training and adversary splits of 512
                windows, validation of 128, 48 test utterances of 250-800
@@ -201,7 +215,7 @@ and read just after; each kernel the path must use has to have launched
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
 ...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
-``{"train_bf16": ...}``, ``{"fold": ...}``, ``{"cli": ...}``, ``{"artifacts": ...}``
+``{"train_bf16": ...}``, ``{"dp": ...}``, ``{"fold": ...}``, ``{"cli": ...}``, ``{"artifacts": ...}``
 and ``{"global": ...}`` lines, the card's ``name, power.limit`` from
 nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
 mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
@@ -342,6 +356,16 @@ CREMA_SENTENCES, CREMA_STEREO_SR = ("DFA", "IEO"), 44100
 # then run_all --global_feature 1 at the cli phase's size under
 # build/global_smoke
 GLOBAL_CPU, GLOBAL_TOL = 16, 2e-3
+# data parallelism (the dp phase): DP_RANKS ranks share card 0 over gloo,
+# one epoch a case of the training phase's T_BATCHES batches of T_BATCH
+# (T_BATCH / DP_RANKS rows a rank), dropout 0, at DP_LR so that the weights
+# move; each case's (dtype, kernels that must launch, kernels that must not)
+DP_RANKS, DP_DEADLINE_S, DP_LR = 2, 600, 1e-2
+DP_CASES = {
+    "baseline": ("float32", BLOCK1[:-1], ("block1_input_grad",) + BLOCK1_BF16),
+    "cloak_grl": ("float32", BLOCK1, BLOCK1_BF16),
+    "baseline_bf16": ("bfloat16", BLOCK1_BF16[:-1], ("block1_input_grad_bf16",) + BLOCK1),
+}
 CORPORA = ("iemocap", "crema-d")
 NO_FRONTEND = ("mel_db", "mel_db_bf16", "floor_dct")  # featurization's kernels
 # K2 (norm_pool) off the main path, both modes, (B, H, W, misaligned): odd H
@@ -955,11 +979,11 @@ def train_weights():
     return build_weights()[0], gender.state_dict()
 
 
-def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32, global_dim=0):
+def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32, global_dim=0, group=None):
     from sept_tpu_torch.models import Conv2dBiRNN
 
     m = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred=pred, dropout_rate=dropout,
-                    compute_dtype=cd, global_dim=global_dim)
+                    compute_dtype=cd, global_dim=global_dim, bn_group=group)
     m.load_state_dict(sd)
     return m
 
@@ -1102,6 +1126,17 @@ def train_cpu_phase(ds, order, sds, dtype="float32", saliency=0.0, tol=TRAIN_F32
     return out
 
 
+def state_diffs(got, want):
+    """{"param", "stats"}: the largest |got - want| of max(|want|, 1) over
+    the parameters and over the running statistics of two state_dicts."""
+    return {part: max([float((got[k].cpu() - v.cpu()).abs().max())
+                       / max(float(v.abs().max()), 1.0)
+                       for k, v in want.items()
+                       if v.is_floating_point() and ("running" in k) == (part == "stats")],
+                      default=0.0)
+            for part in ("param", "stats")}
+
+
 def hold_steps(what, run, tol):
     """Hold the card's steps to the CPU's: ``run[device] = (losses,
     state_dict after the steps)``; losses within tol["loss"] relative, every
@@ -1109,11 +1144,7 @@ def hold_steps(what, run, tol):
     tol["stats"] of max(|p|, 1)."""
     (lg, sg), (lc, sc) = run[DEV], run["cpu"]
     loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
-    diffs = {part: max([float((sg[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1.0)
-                        for k, v in sc.items()
-                        if v.is_floating_point() and ("running" in k) == (part == "stats")],
-                       default=0.0)
-             for part in ("param", "stats")}
+    diffs = state_diffs(sg, sc)
     log(f"{what}: losses {lc.tolist()}, max rel loss diff {loss_rel:.3g}, max diff of "
         f"max(|p|, 1): {diffs}")
     require(loss_rel <= tol["loss"] and all(d <= tol[k] for k, d in diffs.items()),
@@ -1132,8 +1163,8 @@ def capture_block1(ds, order, sds, dtype="float32"):
     base, _, _ = train_states(sds, DEV, dtype=dtype)
     cap, orig = {}, BB.block1_train_forward
 
-    def spy(x, w, b, gamma, beta, eps, cd=torch.float32):
-        pooled, mean, var = orig(x, w, b, gamma, beta, eps, cd)
+    def spy(x, w, b, gamma, beta, eps, cd=torch.float32, group=None):
+        pooled, mean, var = orig(x, w, b, gamma, beta, eps, cd, group)
         cap.update({k: t.detach().clone() for k, t in
                     dict(x=x, w=w, b=b, gamma=gamma, beta=beta, mean=mean, var=var).items()})
         cap["eps"], cap["cd"] = eps, cd
@@ -3126,6 +3157,163 @@ def norm_pool_edge_phase(device):
     return {"block1_norm_pool_edges": rows}
 
 
+# ---------------------------------------------------------------------------
+# data parallelism
+
+
+def dp_state(case, sds, device, group=None):
+    """The seeded state of a dp phase epoch (dropout 0, lr DP_LR): the
+    baseline (``compute_dtype`` bf16 for "baseline_bf16") or the cloak + GRL
+    game (antithetic pair), the trained backbone with sync-BN over
+    ``group``; and its epoch runner's options."""
+    from sept_tpu_torch.models import CloakedModelGRL, compute_dtype
+    from sept_tpu_torch.train.config import preset
+    from sept_tpu_torch.train.optim import make_cloak_optimizer, make_optimizer
+    from sept_tpu_torch.train.steps import init_state
+
+    emo_sd, gen_sd = sds
+    if case != "cloak_grl":
+        cfg = preset("baseline", learning_rate=DP_LR,
+                     compute_dtype="bfloat16" if case.endswith("bf16") else "float32")
+        m = backbone(emo_sd, dropout=0.0, cd=compute_dtype(cfg.compute_dtype), group=group)
+        return init_state(m, make_optimizer(cfg, T_BATCHES, m), SEED, device), {}
+    cfg = preset("cloak_grl", learning_rate=DP_LR, antithetic_noise=True)
+    m = CloakedModelGRL(backbone(emo_sd, dropout=0.0),
+                        backbone(gen_sd, "gender", dropout=0.0, group=group), cfg.grl_lambda,
+                        WIN, N_MELS, cfg.noise_min_scale, cfg.noise_max_scale)
+    opt = make_cloak_optimizer(cfg, T_BATCHES, m, ("noise", "gender_backbone"))
+    return init_state(m, opt, SEED + 2, device), {
+        "grl": True, "scale_lambda": cfg.scale_lambda, "gender_lambda": cfg.gender_lambda,
+        "antithetic": True}
+
+
+def dp_epoch(case, data, sds, device, batches, group=None):
+    """One epoch of ``batches`` (batch size, count) of ``case`` on ``data``
+    (windows, labels_emo, labels_gen, weights, in order), data-parallel over
+    ``group`` or in one process: (losses, state after, wall ms)."""
+    from sept_tpu_torch.parallel import make_cloak_epoch_runner_dp, make_epoch_runner_dp
+    from sept_tpu_torch.train.steps import make_cloak_epoch_runner, make_epoch_runner
+
+    state, opts = dp_state(case, sds, device, group)
+    windows, le, lg, w = (t.to(device) for t in data)
+    order = torch.arange(len(w), device=device)
+    kw = {"batch_size": batches[0], "n_batches": batches[1]}
+    if opts:
+        run = (make_cloak_epoch_runner(**opts) if group is None
+               else make_cloak_epoch_runner_dp(group, **opts))
+        call = lambda: run(state, windows, le, lg, w, order, None, **kw)  # noqa: E731
+    else:
+        run = make_epoch_runner() if group is None else make_epoch_runner_dp(group)
+        call = lambda: run(state, windows, le, w, order, **kw)  # noqa: E731
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = call()[1]
+    if cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return losses.cpu().numpy(), {k: v.cpu() for k, v in state.model.state_dict().items()}, ms
+
+
+def dp_rank(group, data, sds, cases, batches):
+    """A spawned rank of the dp phase: each case's epoch with every launch
+    count set to 0 just before and read just after; its losses, state,
+    wall, launches and all-reduces."""
+    counters = kernel_counters()
+    out = {}
+    for case in cases:
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        calls, seconds = group.calls, group.seconds
+        losses, state, ms = dp_epoch(case, data, sds, group.device, batches, group)
+        out[case] = {"losses": losses, "state": state, "ms": ms,
+                     "launches": {name: getattr(f, attr) for name, (f, attr) in counters.items()},
+                     "all_reduces": group.calls - calls,
+                     "all_reduce_ms": (group.seconds - seconds) * 1e3}
+    return out
+
+
+def check_launches(launches, must, must_not, what):
+    for name in must:
+        require(launches[name] > 0, f"{what}: kernel {name} never launched: {launches}")
+    for name in must_not:
+        require(launches[name] == 0, f"{what}: kernel {name} launched: {launches}")
+
+
+def dp_hold(what, ranks, one, tol):
+    """Hold the ranks' epoch to the one-process epoch: losses within
+    tol["loss"] relative, parameters and running statistics within
+    tol["param"] / tol["stats"] of max(|p|, 1); and the ranks to each other,
+    bit for bit."""
+    losses, state = one
+    loss_rel = float(np.max(np.abs(ranks[0]["losses"] - losses) / np.abs(losses)))
+    diffs = state_diffs(ranks[0]["state"], state)
+    log(f"dp {what}: losses {losses.tolist()}, max rel loss diff {loss_rel:.3g}, max diff "
+        f"of max(|p|, 1): {diffs}")
+    require(loss_rel <= tol["loss"] and all(d <= tol[k] for k, d in diffs.items()),
+            f"dp {what}: the ranks and one process disagree ({loss_rel}, {diffs})")
+    for r in ranks[1:]:
+        require(all(torch.equal(v, ranks[0]["state"][k]) for k, v in r["state"].items())
+                and np.array_equal(r["losses"], ranks[0]["losses"]),
+                f"dp {what}: the ranks' states differ")
+    return {"losses_one_process": losses.tolist(), "max_rel_loss_diff": loss_rel,
+            "max_param_diff_of_max_abs": diffs["param"],
+            "max_running_stat_diff_of_max_abs": diffs["stats"], "tolerance": tol}
+
+
+def dp_phase(ds, order, sds):
+    """DP_RANKS ranks on card 0 over gloo (NCCL refuses two ranks on one
+    card), one epoch each of DP_CASES at full width on the training phase's
+    first T_BATCH * T_BATCHES windows, held to the same epoch in one
+    process; on a machine of two cards or more, the baseline also on two
+    cards over NCCL.  Returns (info, launches by path: both ranks')."""
+    from sept_tpu_torch.parallel import spawn
+
+    data = tuple(t[order].cpu() for t in (ds.windows, ds.labels_emo, ds.labels_gen,
+                                          ds.weight))
+    sds = tuple({k: v.cpu() for k, v in sd.items()} for sd in sds)
+    t0 = time.perf_counter()
+    batches = (T_BATCH, T_BATCHES)
+    ranks = spawn(dp_rank, (torch.device(DEV, 0) if DEV == "cuda" else "cpu",) * DP_RANKS,
+                  data, sds, tuple(DP_CASES), batches, backend="gloo",
+                  deadline_s=DP_DEADLINE_S)
+    info = {"backend": "gloo", "ranks_on_one_card": DP_RANKS,
+            "spawn_and_epochs_wall_s": time.perf_counter() - t0,
+            "batch": T_BATCH, "per_rank_batch": T_BATCH // DP_RANKS, "batches": T_BATCHES,
+            "learning_rate": DP_LR, "dropout": 0.0}
+    launches = {}
+    for case, (dtype, must, must_not) in DP_CASES.items():
+        tol = TRAIN_BF16_TOL if dtype == "bfloat16" else TRAIN_F32_TOL
+        (losses, state, ms), one_launches, _ = drive(
+            lambda: dp_epoch(case, data, sds, DEV, batches), must, must_not)
+        for r, rank in enumerate(ranks):
+            check_launches(rank[case]["launches"], must, must_not, f"dp {case} rank {r}")
+        launches[f"dp_{case}"] = {k: sum(rank[case]["launches"][k] for rank in ranks)
+                                  for k in one_launches}
+        r0 = ranks[0][case]
+        info[case] = {**dp_hold(case, [rank[case] for rank in ranks], (losses, state), tol),
+                      "losses": r0["losses"].tolist(), "epoch_wall_ms_one_process": ms,
+                      "epoch_wall_ms_ranks": [rank[case]["ms"] for rank in ranks],
+                      "all_reduces_per_step": r0["all_reduces"] / T_BATCHES,
+                      "all_reduce_wall_ms_per_step": r0["all_reduce_ms"] / T_BATCHES,
+                      "block1_launches_per_step_per_rank": {
+                          k: v / T_BATCHES for k, v in r0["launches"].items() if v}}
+    if DEV == "cuda" and torch.cuda.device_count() >= 2:
+        dtype, must, must_not = DP_CASES["baseline"]
+        nccl = spawn(dp_rank, (torch.device("cuda", 0), torch.device("cuda", 1)), data, sds,
+                     ("baseline",), batches, backend="nccl", deadline_s=DP_DEADLINE_S)
+        for r, rank in enumerate(nccl):
+            check_launches(rank["baseline"]["launches"], must, must_not, f"dp nccl rank {r}")
+        info["nccl"] = dp_hold("nccl baseline", [rank["baseline"] for rank in nccl],
+                               dp_epoch("baseline", data, sds, DEV, batches)[:2],
+                               TRAIN_F32_TOL)
+        info["nccl"]["epoch_wall_ms_ranks"] = [rank["baseline"]["ms"] for rank in nccl]
+    else:
+        info["nccl"] = "not run: 1 card"
+    return info, launches
+
+
 def ptxas_summary(reports):
     lines = []
     for name, text in reports.items():
@@ -3197,6 +3385,9 @@ def main():
     train_cpu_bf16 = train_cpu_phase(ds_bf16, order_bf16, sds, "bfloat16", SALIENCY_ALIGN,
                                      TRAIN_BF16_TOL)
     log(f"train-cpu bf16 done at {time.perf_counter() - t0:.1f} s")
+    dp, dp_launches = dp_phase(ds, order, sds)
+    paths.update(dp_launches)
+    log(f"dp done at {time.perf_counter() - t0:.1f} s: {dp}")
     fold, fold_launches, fold_csv = fold_phase(np.random.default_rng(SEED + 19))
     paths.update(fold_launches)
     log(f"fold done at {time.perf_counter() - t0:.1f} s")
@@ -3256,6 +3447,7 @@ def main():
                         for k, v in train_prof.items()},
         "block1_fwd_bwd": block1_bf16, "gru": gru,
         "launches_by_path": {k: v for k, v in paths.items() if k.startswith("train_bf16")}}},
+             {"dp": {**dp, "launches_by_path": dp_launches, "card": smi}},
              {"fold": {**fold, "csv": fold_csv, "launches_by_path": fold_launches}},
              {"cli": {**cli, "card": smi}}, {"artifacts": {**artifacts, "card": smi}},
              {"global": {**glob, "card": smi}}, {"card": smi}, {"kernels": kernels}]

@@ -19,7 +19,10 @@ every model type of the JAX package (the deep CNN + RNN, GRU or LSTM,
 the 1-D CNN, the plain 2-D CNN); and the global feature: the 88-dim gemaps
 and 988-dim emobase functionals (``ops/egemaps.py``, ``ops/emobase.py``),
 the openSMILE import, and ``--global_feature 1`` from featurize to the
-sweep.  The mel chain (f32
+sweep; and data parallelism (``sept_tpu_torch.parallel``: process groups,
+sync-BN through block 1's kernels, the DP step and epoch runners, and
+``--n_devices`` / ``SEPT_*`` through the fold drivers, the sweep and the
+CLIs).  The mel chain (f32
 and bf16), the MFCC's floor + DCT and the first conv block are hand-written
 CUDA kernels (``sept_tpu_torch/csrc``).  What is still to be ported is listed in
 ROADMAP.md.

@@ -1,12 +1,31 @@
-"""Shared CLI plumbing: argparse <-> ExperimentConfig, seeding, the device.
+"""Shared CLI plumbing: argparse <-> ExperimentConfig, seeding, the device,
+the data-parallel group.
 
 Counterpart of ``sept_tpu/cli/common.py``.  The flags are the JAX CLIs',
 less ``--prng_impl``, ``--conv_backend`` and ``--remat`` (the port's config
 has no such fields: one block-1 path, torch's generators, no remat), plus
 ``--device``: every entry point runs on the card unless asked for the CPU.
-Data parallelism is not ported (ROADMAP.md §1 item 9): ``--n_devices``
-above 1, or a multi-host ``SEPT_COORDINATOR`` in the environment, raises
-``NotImplementedError`` instead of training on one card.
+
+Data parallelism (``train_baseline``, ``train_cloak``, ``evaluate``, and
+``run_all``, which passes ``--n_devices`` to them) runs one process a
+device, each a rank of a process group (:mod:`sept_tpu_torch.parallel`):
+
+- ``--n_devices N`` from one launch spawns N local ranks (the ``spawn``
+  start method), rank r on ``cuda:r`` over NCCL; ``--device cpu
+  --n_devices N`` spawns N CPU ranks over gloo (the test facility, the
+  counterpart of JAX's virtual CPU mesh).  An explicit N above the visible
+  devices, or a ``--batch_size`` it does not divide, raises ``SystemExit``;
+- ``--n_devices 0`` (auto) takes every visible card on CUDA and 1 on the
+  CPU, cut to the largest count that divides ``--batch_size``, so a command
+  that worked never starts failing;
+- multi-host: each launched process is one rank of the world that
+  ``SEPT_COORDINATOR=host:port``, ``SEPT_NUM_PROCESSES`` and
+  ``SEPT_PROCESS_ID`` describe (``init_process_group`` over
+  ``tcp://host:port``); ``--n_devices`` must then be 0 or the world size,
+  and a coordinator without the other two raises ``SystemExit``;
+- rank 0 alone writes results, checkpoints, manifests and logs and prints;
+  the other ranks wait at a barrier.  The backend is NCCL on CUDA and gloo
+  on the CPU, with no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -14,14 +33,18 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
+from sept_tpu_torch.parallel import (DataGroup, current_group, init_distributed, is_main,
+                                     make_group, spawn, visible_devices)
 from sept_tpu_torch.train.config import ExperimentConfig
 
-__all__ = ["add_common_args", "add_device_arg", "config_from_args", "require_one_device",
-           "setup_seed"]
+__all__ = ["add_common_args", "add_device_arg", "config_from_args", "printer",
+           "resolve_group", "resolve_world", "setup_seed", "spawn_ranks"]
 
 
 def setup_seed(seed: int = 8) -> None:
@@ -33,14 +56,87 @@ def setup_seed(seed: int = 8) -> None:
     torch.manual_seed(seed)
 
 
-def require_one_device(args) -> None:
-    """Refuse a data-parallel request: ``--n_devices`` above 1 or a set
-    ``SEPT_COORDINATOR`` (the JAX CLIs' multi-host launch)."""
-    if args.n_devices > 1 or os.environ.get("SEPT_COORDINATOR"):
-        raise NotImplementedError(
-            f"data parallelism (--n_devices {args.n_devices}, SEPT_COORDINATOR="
-            f"{os.environ.get('SEPT_COORDINATOR')!r}) is not ported yet "
-            "(ROADMAP.md §1 item 9); the port trains on one device")
+def _dcn_proc_env() -> tuple[int, int]:
+    """(num_processes, process_id) from the multi-host environment.  A set
+    ``SEPT_COORDINATOR`` without the other two is a misconfigured launch:
+    running every host as a job of its own would duplicate the work and
+    clobber the outputs, so it fails with the fix spelled out."""
+    try:
+        return int(os.environ["SEPT_NUM_PROCESSES"]), int(os.environ["SEPT_PROCESS_ID"])
+    except KeyError as e:
+        raise SystemExit(
+            f"SEPT_COORDINATOR is set but {e.args[0]} is not: a multi-host launch needs "
+            "SEPT_COORDINATOR, SEPT_NUM_PROCESSES and SEPT_PROCESS_ID all exported (unset "
+            "SEPT_COORDINATOR for a single-process run)") from None
+
+
+def resolve_world(args) -> int:
+    """``--n_devices``, ``--batch_size``, ``--device`` and the ``SEPT_*``
+    environment -> the number of ranks of the run (1: one device); see the
+    module docstring.  Misuse raises ``SystemExit``."""
+    group, coord = current_group(), os.environ.get("SEPT_COORDINATOR")
+    if group is not None or coord:
+        n = group.world_size if group is not None else _dcn_proc_env()[0]
+        if args.n_devices not in (0, n):
+            raise SystemExit(f"--n_devices {args.n_devices} but the process group holds "
+                             f"{n} ranks (pass 0 or {n})")
+    else:
+        n = args.n_devices
+        cuda = torch.device(args.device).type == "cuda"
+        if n == 0:
+            n = visible_devices(args.device) if cuda else 1
+            while n > 1 and args.batch_size % n:
+                n -= 1
+        avail = visible_devices(args.device)
+        if n > avail:
+            raise SystemExit(f"--n_devices {n} but only {avail} {args.device} devices are "
+                             "visible")
+    if n > 1 and args.batch_size % n:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible by "
+                         f"--n_devices {n}")
+    return max(n, 1)
+
+
+def _run_main(group, main, argv):
+    return main(argv)
+
+
+def spawn_ranks(main, argv, args) -> Optional[list]:
+    """Where this process is a single launch and the run needs N > 1 ranks:
+    run ``main(argv)`` in N new processes, one a device (:func:`spawn`), and
+    return their return values by rank; else None (this process runs alone,
+    or is a rank already).  A rank that fails makes this raise its error."""
+    if current_group() is not None or os.environ.get("SEPT_COORDINATOR"):
+        return None
+    n = resolve_world(args)
+    if n <= 1:
+        return None
+    argv = list(sys.argv[1:] if argv is None else argv)
+    devices = make_group(n, args.device)
+    # CPU ranks share the cores
+    threads = 0 if devices[0].type == "cuda" else max(1, visible_devices("cpu") // n)
+    return spawn(_run_main, devices, main, argv, threads=threads)
+
+
+def resolve_group(args) -> Optional[DataGroup]:
+    """This process's data-parallel group: the one it is a rank of (spawned
+    by :func:`spawn_ranks`, or joined here from the ``SEPT_*``
+    environment), or None for one device.  Rank 0 prints the world size."""
+    n = resolve_world(args)
+    group, coord = current_group(), os.environ.get("SEPT_COORDINATOR")
+    if group is None and coord:
+        group = init_distributed(coord, *_dcn_proc_env(), device=args.device)
+    if group is None and n > 1:
+        raise ValueError(f"a {n}-rank run: start its ranks with spawn_ranks first")
+    if group is not None and group.rank == 0:
+        print(f"data parallel: {group.world_size} ranks over {group.backend}")
+    return group
+
+
+def printer(group: Optional[DataGroup]):
+    """``print`` on the process that writes (rank 0, or a run without a
+    group), a no-op on the other ranks."""
+    return print if is_main(group) else (lambda *a, **k: None)
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -99,8 +195,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="val-loss early-stopping patience (default: config "
                         "preset; large value disables)")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="data-parallel device count: 0 or 1 = one device; "
-                        "more is not ported yet and raises")
+                   help="data-parallel device count: 0 = auto (every visible "
+                        "card on CUDA, 1 on the CPU), N = N ranks, one a "
+                        "device (--device cpu: N CPU ranks over gloo)")
     p.add_argument("--seed", type=int, default=8)
     p.add_argument("--folds", type=int, nargs="*", default=None,
                    help="1-based fold numbers to run (default: all 5)")

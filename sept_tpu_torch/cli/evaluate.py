@@ -13,7 +13,10 @@ the cloak (max_scale 5 at evaluation) and the noised windows through both
 frozen models with the sliding-window vote, and write the fold means in
 the reference CSV schema to ``<output_dir>/(non-)grl-<scale_lamda>.csv``.
 With ``--global_feature 1`` both frozen models take each test utterance's
-88-dim vector beside its noised windows, as they were trained.
+88-dim vector beside its noised windows, as they were trained.  With
+``--n_devices`` (see :mod:`sept_tpu_torch.cli.common`) the ranks vote their
+rows of each test batch, every rank gets every result, and rank 0 writes
+the CSV.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import argparse
 import dataclasses
 import os
 
-from sept_tpu_torch.cli.common import (add_common_args, config_from_args, require_one_device,
-                                       setup_seed)
+from sept_tpu_torch.cli.common import (add_common_args, config_from_args, printer,
+                                       resolve_group, setup_seed, spawn_ranks)
 from sept_tpu_torch.device import resolve_device
+from sept_tpu_torch.parallel import barrier, is_main
 
 
 def main(argv=None):
@@ -35,8 +39,13 @@ def main(argv=None):
     p.add_argument("--grl", type=int, default=0)
     p.add_argument("--ratios", type=int, nargs="*", default=[0, 20, 40, 60, 80])
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    require_one_device(args)
+    resolve_device(args.device)
+    ranks = spawn_ranks(main, argv, args)
+    if ranks is not None:
+        return ranks[0]
+    group = resolve_group(args)
+    device = group.device if group is not None else resolve_device(args.device)
+    say = printer(group)
     setup_seed(args.seed)
     cfg = config_from_args(args, grl=bool(args.grl))
 
@@ -71,22 +80,24 @@ def main(argv=None):
             mask = eval_mask(model.noise.scales().detach()[0].cpu().numpy(), ratio)
             b, a = evaluate_cloaked_test(model, fold.test, mask, win_len=cfg.win_len,
                                          shift_len=cfg.shift_len, noise_seed=cfg.seed,
-                                         use_global=cfg.global_feature)
+                                         use_global=cfg.global_feature, group=group)
             fold_results.append((b, a))
-            print(f"ratio {ratio} fold{k}: baseline acc {b['acc']:.3f} "
-                  f"uar {b['rec']:.3f} | adversary acc {a['acc']:.3f} "
-                  f"uar {a['rec']:.3f}")
+            say(f"ratio {ratio} fold{k}: baseline acc {b['acc']:.3f} "
+                f"uar {b['rec']:.3f} | adversary acc {a['acc']:.3f} "
+                f"uar {a['rec']:.3f}")
         per_ratio[ratio] = fold_results
 
     rows = sweep_to_rows(per_ratio, cfg.dataset)
     name = ("grl-" if cfg.grl else "non-grl-") + str(cfg.scale_lambda)
     out_csv = os.path.join(cfg.output_dir, f"{name}.csv")
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    rows_to_csv(rows, out_csv)
-    print(f"wrote {out_csv}")
+    if is_main(group):
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        rows_to_csv(rows, out_csv)
+    barrier(group)
+    say(f"wrote {out_csv}")
     for r in rows:
-        print(f"  {r.index}: baseline {r.baseline_acc:.3f}/{r.baseline_rec:.3f} "
-              f"adversary {r.adv_acc:.3f}/{r.adv_rec:.3f}")
+        say(f"  {r.index}: baseline {r.baseline_acc:.3f}/{r.baseline_rec:.3f} "
+            f"adversary {r.adv_acc:.3f}/{r.adv_rec:.3f}")
     return per_ratio
 
 

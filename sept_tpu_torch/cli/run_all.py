@@ -10,9 +10,11 @@ preprocess -> baseline -> adversary -> cloak (with ``--grl 1`` the GRL
 cloak) at suppression 0, then at each nonzero ``--ratios`` -> the
 evaluation sweep; every flag goes to every stage.  Featurize runs with its
 defaults, the gemaps / emobase functionals included, so ``--global_feature
-1`` trains and evaluates on the 88-dim vectors.  A data-parallel request
-(``--n_devices`` above 1) raises before the first stage (ROADMAP.md §1
-item 9).
+1`` trains and evaluates on the 88-dim vectors.  ``--n_devices`` goes to
+every stage: the training stages and the sweep run data-parallel (each
+spawns its ranks; see :mod:`sept_tpu_torch.cli.common`), featurize and
+preprocess run once; a request that cannot run (more devices than are
+visible, a batch size they do not divide) raises before the first stage.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import argparse
 
 from sept_tpu_torch.cli import evaluate, featurize, preprocess, train_baseline, train_cloak
-from sept_tpu_torch.cli.common import add_common_args, require_one_device
+from sept_tpu_torch.cli.common import add_common_args, resolve_world
 from sept_tpu_torch.device import resolve_device
 
 
@@ -34,7 +36,7 @@ def main(argv=None):
     p.add_argument("--skip_featurize", action="store_true")
     args = p.parse_args(argv)
     resolve_device(args.device)
-    require_one_device(args)
+    resolve_world(args)
 
     def fwd(extra=()):
         out = []

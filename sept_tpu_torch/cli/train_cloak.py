@@ -17,7 +17,10 @@ and takes Plateau(3, 0.5).  Artifacts:
 ``cloak[_grl]_lamda<scale_lambda>_supp<r>[_anti][_sal<w>][_mdeval][_bf16]/
 fold<k>``.  With ``--global_feature 1`` the frozen baseline and the GRL
 adversary both take the 88-dim global vector (the adversary's ``dense1``
-built pooled + 88 wide).
+built pooled + 88 wide).  ``--n_devices`` trains data-parallel (see
+:mod:`sept_tpu_torch.cli.common`): the GRL adversary, which trains, takes
+sync-BN over the ranks (the frozen emotion backbone runs eval-mode BN and
+needs none), and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -29,13 +32,14 @@ import os
 import numpy as np
 import torch
 
-from sept_tpu_torch.cli.common import (add_common_args, config_from_args, require_one_device,
-                                       setup_seed)
+from sept_tpu_torch.cli.common import (add_common_args, config_from_args, printer,
+                                       resolve_group, setup_seed, spawn_ranks)
 from sept_tpu_torch.cli.train_baseline import artifact_name as baseline_artifact
 from sept_tpu_torch.cli.train_baseline import seeded_backbone
 from sept_tpu_torch.device import resolve_device
 from sept_tpu_torch.eval.sweep import eval_mask, train_mask
 from sept_tpu_torch.models import CloakedModel, CloakedModelGRL, pooling_for
+from sept_tpu_torch.parallel import barrier, is_main
 from sept_tpu_torch.train.device_loop import fit_device_cloak
 from sept_tpu_torch.train.loop import speaker_weights
 from sept_tpu_torch.train.optim import make_cloak_optimizer
@@ -68,11 +72,12 @@ def cloak_artifact(cfg) -> str:
     return name
 
 
-def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
+def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda", group=None):
     """Train one fold's cloak on ``device`` from the checkpoints in ``ckpt``
     (the baseline, and for a suppression run the suppression-0 cloak);
     returns the FitResult and saves the best state_dict under
-    :func:`cloak_artifact`."""
+    :func:`cloak_artifact`.  ``group``: every rank of a data-parallel group
+    calls this; rank 0 saves."""
     dev = resolve_device(device)
     backbone = seeded_backbone(cfg, "emotion")
     base_cfg = dataclasses.replace(cfg, adv=False, pred="emotion")
@@ -81,7 +86,7 @@ def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
     noise_kw = dict(win_len=cfg.win_len, n_feats=cfg.feature_len,
                     min_scale=cfg.noise_min_scale, max_scale=cfg.noise_max_scale)
     if cfg.grl:
-        model = CloakedModelGRL(backbone, seeded_backbone(cfg, "gender"),
+        model = CloakedModelGRL(backbone, seeded_backbone(cfg, "gender", group),
                                 grl_lambda=cfg.grl_lambda, **noise_kw)
         trainable = ("noise", "gender_backbone")
     else:
@@ -116,9 +121,17 @@ def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
 
     result = fit_device_cloak(state, fold.training, fold.validation, fold.test, cfg,
                               eval_logits, mask=mask, spk_weights=spk_w, verbose=verbose,
-                              resume_path=resume_path, epoch_callback=sigma_stats)
+                              resume_path=resume_path, epoch_callback=sigma_stats,
+                              group=group)
     model.load_state_dict(result.best_state["model"])
     scales = cloak_scales(model).detach().cpu().numpy()
+    if is_main(group):
+        _save(cfg, fold, ckpt, result, scales, verbose)
+    barrier(group)
+    return result
+
+
+def _save(cfg, fold, ckpt, result, scales, verbose):
     ckpt.save(cloak_artifact(cfg), fold.fold, result.best_state["model"], manifest={
         "config": cfg,
         "best_epoch": result.best_epoch,
@@ -132,7 +145,6 @@ def run_fold(cfg, fold, ckpt, verbose=True, resume_path=None, device="cuda"):
     if verbose:
         print("scales mean/max/min %.3f/%.3f/%.3f"
               % (scales.mean(), scales.max(), scales.min()))
-    return result
 
 
 def main(argv=None):
@@ -142,8 +154,12 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="skip folds whose checkpoint already exists")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    require_one_device(args)
+    resolve_device(args.device)
+    ranks = spawn_ranks(main, argv, args)
+    if ranks is not None:
+        return ranks[0]
+    group = resolve_group(args)
+    device = group.device if group is not None else resolve_device(args.device)
     setup_seed(args.seed)
     cfg = config_from_args(args, grl=bool(args.grl))
     if args.learning_rate is None:
@@ -162,24 +178,26 @@ def main(argv=None):
     fold_dir = os.path.join(args.work_dir, "folds", cfg.dataset)
     ckpt = CheckpointManager(cfg.output_dir)
     accs, uars = [], []
+    say = printer(group)
     for k in args.folds or range(1, cfg.n_folds + 1):
         if args.resume and ckpt.exists(cloak_artifact(cfg), k):
-            print(f"fold{k}: checkpoint exists, skipping (--resume)")
+            say(f"fold{k}: checkpoint exists, skipping (--resume)")
             continue
         fold = load_fold(os.path.join(fold_dir, f"fold{k}.npz"))
         resume_path = (os.path.join(cfg.output_dir, cloak_artifact(cfg), f"mid_fold{k}")
                        if args.resume else None)
-        result = run_fold(cfg, fold, ckpt, resume_path=resume_path, device=device)
+        result = run_fold(cfg, fold, ckpt, verbose=is_main(group), resume_path=resume_path,
+                          device=device, group=group)
         accs.append(result.final_test_acc)
         uars.append(result.final_test_uar)
-        print(f"fold{k}: test acc {result.final_test_acc:.3f} "
-              f"uar {result.final_test_uar:.3f}")
+        say(f"fold{k}: test acc {result.final_test_acc:.3f} "
+            f"uar {result.final_test_uar:.3f}")
     if accs:
-        print(f"{cloak_artifact(cfg)}: mean test acc {np.mean(accs):.3f} "
-              f"uar {np.mean(uars):.3f}")
+        say(f"{cloak_artifact(cfg)}: mean test acc {np.mean(accs):.3f} "
+            f"uar {np.mean(uars):.3f}")
     else:
-        print(f"{cloak_artifact(cfg)}: all folds resumed from existing "
-              f"checkpoints, nothing trained")
+        say(f"{cloak_artifact(cfg)}: all folds resumed from existing "
+            f"checkpoints, nothing trained")
 
 
 if __name__ == "__main__":

@@ -69,19 +69,30 @@ def make_sliding_vote_fn(logits_fn: Callable, win_len: int = 200, shift_len: int
 
 
 def vote_split(vote: Callable, split, win_len: int, batch_size: int = 16,
-               device="cuda", use_global: bool = False) -> np.ndarray:
+               device="cuda", use_global: bool = False, group=None) -> np.ndarray:
     """Voted probabilities (N, C) of a split's whole utterances, as numpy:
     ``vote`` (a :func:`make_sliding_vote_fn`) runs on ``device`` (the card
     unless the caller passes ``"cpu"``), ``batch_size`` utterances a call;
     the last batch is padded with zero utterances of ``win_len`` frames,
     whose rows are cut.  ``use_global``: each utterance's
-    ``split.global_data`` row goes with it (zeros for the pad rows)."""
+    ``split.global_data`` row goes with it (zeros for the pad rows).
+
+    ``group`` (a data-parallel :class:`~sept_tpu_torch.parallel.DataGroup`):
+    each batch is padded to a multiple of the world size (batch boundaries
+    stay at ``batch_size``), each rank votes its rows of it, and one
+    all-reduce of a zero-filled buffer gives every rank every row (gloo has
+    no all-gather on CUDA tensors), as the JAX package shards a batch over
+    its mesh."""
     device = resolve_device(device)
+    n_dev = 1 if group is None else group.world_size
+    pad_to = -(-batch_size // n_dev) * n_dev
+    k = pad_to // n_dev
+    first = 0 if group is None else group.rank * k
     probs = []
     n = len(split)
     for lo in range(0, n, batch_size):
         hi = min(lo + batch_size, n)
-        pad = batch_size - (hi - lo)
+        pad = pad_to - (hi - lo)
         specs, lengths = split.windows[lo:hi], split.lengths[lo:hi]
         g = split.global_data[lo:hi].astype(np.float32) if use_global else None
         if pad:
@@ -89,11 +100,20 @@ def vote_split(vote: Callable, split, win_len: int, batch_size: int = 16,
             lengths = np.concatenate([lengths, np.full(pad, win_len, np.int32)])
             if g is not None:
                 g = np.concatenate([g, np.zeros((pad, g.shape[1]), g.dtype)])
-        p, _ = vote(torch.as_tensor(specs, device=device),
-                    torch.as_tensor(lengths, device=device),
-                    None if g is None else torch.as_tensor(g, device=device))
-        probs.append(p[: hi - lo].cpu().numpy())
-    return np.concatenate(probs) if probs else np.zeros((0, 0), np.float32)
+        rows = slice(first, first + k)
+        p, _ = vote(torch.as_tensor(specs[rows], device=device),
+                    torch.as_tensor(lengths[rows], device=device),
+                    None if g is None else torch.as_tensor(g[rows], device=device))
+        probs.append(p)
+    if not probs:
+        return np.zeros((0, 0), np.float32)
+    if group is not None:
+        full = torch.zeros((len(probs), pad_to, probs[0].shape[1]), dtype=probs[0].dtype,
+                           device=probs[0].device)
+        full[:, first:first + k] = torch.stack(probs)
+        probs = list(group.sum_(full))
+    return np.concatenate([p[: min(batch_size, n - i * batch_size)].cpu().numpy()
+                           for i, p in enumerate(probs)])
 
 
 def sliding_vote(logits_fn: Callable, specs, lengths, win_len: int = 200,

@@ -95,7 +95,7 @@ def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[n
                           win_len: int = 200, shift_len: int = 50, batch_size: int = 16,
                           noise_seed: int = 8, n_emo: int = 4, n_adv: int = 2,
                           eps: Optional[torch.Tensor] = None,
-                          use_global: bool = False) -> tuple[dict, dict]:
+                          use_global: bool = False, group=None) -> tuple[dict, dict]:
     """The cloak -> frozen-models protocol on one test split, on the model's
     device, ``batch_size`` utterances a forward
     (:func:`sept_tpu_torch.eval.sliding.vote_split`).
@@ -111,7 +111,13 @@ def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[n
     (the JAX package's reading of the reference's eval path).  Returns
     (baseline_result, adversary_result) dicts with acc / rec / conf, a
     ``per_dataset`` breakdown when the split mixes corpora (combine mode),
-    and the voted ``probs`` of each head (N, n_emo) and (N, n_adv)."""
+    and the voted ``probs`` of each head (N, n_emo) and (N, n_adv).
+
+    ``group``: a data-parallel group (the JAX package's ``mesh``) whose
+    ranks all call this with the same arguments: each batch is padded to a
+    multiple of the world size, each rank votes its rows, and every rank
+    returns the whole result, equal to one device's (eval mode: every row's
+    forward stands alone)."""
     dev = model.noise.locs.device
     if eps is None:
         eps = model.noise.draw_eps(torch.Generator(device=dev).manual_seed(noise_seed))
@@ -119,7 +125,7 @@ def evaluate_cloaked_test(model: SweepModel, test: SplitArrays, mask: Optional[n
     vote = make_sliding_vote_fn(make_eval_logits_fn(model, use_global, eps=eps.to(dev),
                                                     mask=mask_t),
                                 win_len, shift_len, head_sizes=(n_emo, n_adv))
-    probs = vote_split(vote, test, win_len, batch_size, dev, use_global)
+    probs = vote_split(vote, test, win_len, batch_size, dev, use_global, group)
     baseline = M.split_result(test.labels_emo, np.argmax(probs[:, :n_emo], -1), test.datasets)
     adversary = M.split_result(test.labels_gen, np.argmax(probs[:, n_emo:], -1), test.datasets)
     baseline["probs"], adversary["probs"] = probs[:, :n_emo], probs[:, n_emo:]

@@ -44,11 +44,12 @@ _CLASSES = {
 # pass one knob set for any --model_type; any other unknown knob raises.
 # The JAX package's family knobs, with ``compute_dtype`` for its ``dtype``
 # (so a bf16 run of 1d-cnn-lstm-att or 2d-cnn trains in f32, as there) and
-# without its ``conv_backend``, ``remat`` and ``bn_axis_name``, which the
-# port does not have; plus the window geometry, which flax reads off the
-# input and torch's modules need when they are built.
+# ``bn_group`` for its ``bn_axis_name`` (so those two types keep plain BN
+# under data parallelism, as there), without its ``conv_backend`` and
+# ``remat``, which the port does not have; plus the window geometry, which
+# flax reads off the input and torch's modules need when they are built.
 _FAMILY_KNOBS = frozenset({"hidden_size", "rnn_cell", "att", "attention_size",
-                           "compute_dtype", "feature_len", "win_len"})
+                           "compute_dtype", "feature_len", "win_len", "bn_group"})
 
 
 def build_backbone(model_type: str, **kwargs):

@@ -77,6 +77,17 @@ Train mode follows the JAX package, not torch's modules:
   would move at twice the JAX rate, and weight decay would fall on one
   addend and not on the sum.
 
+Sync-BN (the JAX models' ``bn_axis_name``): ``Conv2dBiRNN`` and
+``DeepConv2dBiRNN`` built with a data-parallel ``bn_group``
+(:class:`sept_tpu_torch.parallel.DataGroup`) normalize every train-mode
+BatchNorm with the moments of every rank's rows, as flax's BatchNorm with
+``axis_name`` does: block 1 through :class:`~sept_tpu_torch.ops.conv_block1.Block1Train`'s
+group, the later blocks with all-reduced sums of x and x^2 (var = E[x^2] -
+E[x]^2, in f32 ops in both dtypes; ``F.batch_norm`` cannot take global
+moments) through a differentiable all-reduce, so that the backward keeps
+its cross-rank terms.  The running statistics take the global moments.
+Eval mode needs no collective.
+
 Every model takes ``forward(x, pooling=..., dropout=..., update_stats=...,
 global_feature=...)`` so that the train steps, the cloaks and the saliency
 term run any of them; ``pooling`` only matters to the 2-D CNN + RNN family
@@ -291,7 +302,7 @@ class Conv2dBiRNN(_Backbone):
                  pred: str = "emotion", att: Optional[str] = None,
                  attention_size: int = 128, num_rnn_layers: int = 2,
                  dropout_rate: float = 0.2, compute_dtype: torch.dtype = torch.float32,
-                 rnn_cell: str = "gru", global_dim: int = 0):
+                 rnn_cell: str = "gru", global_dim: int = 0, bn_group=None):
         super().__init__()
         if att not in (None, "self_att"):
             raise ValueError(f"unknown att: {att!r}")
@@ -302,6 +313,7 @@ class Conv2dBiRNN(_Backbone):
             raise ValueError(f"Unsupported RNN cell: {rnn_cell!r}")
         self.att, self.dropout_rate = att, dropout_rate
         self.compute_dtype, self.rnn_cell = compute_dtype, rnn_cell
+        self.bn_group = bn_group  # sync-BN over a data-parallel group, or None
         layers = []
         c_in = 1
         for c in _CHANNELS:
@@ -351,22 +363,38 @@ class Conv2dBiRNN(_Backbone):
                 x = torch._VF.lstm(x, (h0, h0), weights, True, 1, 0.0, keep, True, True)[0]
         return x
 
+    def _moments(self, xf):
+        """Train-mode batch moments (mean, biased var) of f32 ``xf`` over (B,
+        H, W), flax's: E[x] and E[x^2] - E[x]^2; over every rank's rows with
+        a ``bn_group``."""
+        group = self.bn_group
+        if group is None:
+            mean = xf.mean((0, 2, 3))
+            return mean, torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * group.world_size
+        sums = group.sum(torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])) / n
+        return sums[0], torch.clamp(sums[1] - sums[0] * sums[0], min=0.0)
+
     def _conv_bn(self, x, conv, bn, train: bool, update_stats: bool):
         """Conv + BatchNorm of a block after the first.  In f32:
         ``F.conv2d`` and :meth:`_batch_norm`.  In bf16, as flax's ``nn.Conv``
         and ``nn.BatchNorm`` with that dtype (see the module docstring):
         moments and normalization in f32 ops, so that the backward is f32 too
         (``F.batch_norm`` on a bf16 input gives flax's forward but not its f32
-        backward), the output rounded."""
+        backward), the output rounded.  Sync-BN (``bn_group``) in train mode
+        takes the f32 ops in both dtypes."""
         cd = self.compute_dtype
-        if cd == torch.float32:
+        sync = train and self.bn_group is not None
+        if cd == torch.float32 and not sync:
             return self._batch_norm(tf.conv2d(x, conv.weight, conv.bias, padding=2), bn,
                                     train, update_stats)
-        x = tf.conv2d(x, conv.weight.to(cd), padding=2) + conv.bias.to(cd)[:, None, None]
+        if cd == torch.float32:
+            x = tf.conv2d(x, conv.weight, conv.bias, padding=2)
+        else:
+            x = tf.conv2d(x, conv.weight.to(cd), padding=2) + conv.bias.to(cd)[:, None, None]
         xf = x.float()
         if train:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            mean, var = self._moments(xf)
             if update_stats:
                 self._update_running(bn, mean.detach(), var.detach())
         else:
@@ -387,7 +415,7 @@ class Conv2dBiRNN(_Backbone):
         conv, bn = self.conv[0], self.conv[1]
         if train:
             x, mean, var = block1_train_forward(x, conv.weight, conv.bias, bn.weight,
-                                                bn.bias, bn.eps, cd)
+                                                bn.bias, bn.eps, cd, self.bn_group)
             if update_stats:
                 self._update_running(bn, mean, var)
         else:
@@ -433,9 +461,9 @@ class DeepConv2dBiRNN(Conv2dBiRNN):
                  pred: str = "emotion", att: Optional[str] = None,
                  attention_size: int = 128, num_rnn_layers: int = 2,
                  dropout_rate: float = 0.2, compute_dtype: torch.dtype = torch.float32,
-                 rnn_cell: str = "gru", global_dim: int = 0):
+                 rnn_cell: str = "gru", global_dim: int = 0, bn_group=None):
         super().__init__(hidden_size, feature_len, pred, att, attention_size, num_rnn_layers,
-                         dropout_rate, compute_dtype, rnn_cell, global_dim)
+                         dropout_rate, compute_dtype, rnn_cell, global_dim, bn_group)
         c = _CHANNELS[-1]
         self.conv.extend([nn.Conv2d(c, c, 5, padding=2), nn.BatchNorm2d(c), nn.ReLU(),
                           nn.Dropout2d(dropout_rate)])

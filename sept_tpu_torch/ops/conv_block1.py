@@ -28,7 +28,19 @@ wrapper counts its launches per mode: ``launches`` for float32,
 The backward launches K4 only when the weight or the bias needs a gradient,
 and K5 only when ``x`` does: a baseline step (x is data) never runs K5, and a
 frozen backbone (cloak) never runs K4, as XLA drops the unused TPU kernels.
-Mean and variance get no gradient.  Sync-BN (``axis_name``) is not ported.
+Mean and variance get no gradient.
+
+Sync-BN (the TPU kernels' ``axis_name``): :class:`Block1Train` takes a
+data-parallel group (:class:`sept_tpu_torch.parallel.DataGroup`).  The
+forward all-reduces K1's sums before the moments, which divide by the
+global count, so K2 normalizes with the moments of the whole batch; the
+backward all-reduces a copy of K3's sums before m1 and m2, so K4 and K5
+take the global ones.  dgamma and dbeta stay the rank's own sums, as the
+TPU kernel returns its shard's: the step's gradient all-reduce adds them
+once.  The all-reduced sums over the global count equal JAX's ``pmean``
+of per-shard means to float association, every shard holding the same
+number of rows.  The collectives run between the kernels, and the plain
+versions take the same path.
 """
 
 from __future__ import annotations
@@ -432,7 +444,11 @@ def _core_bwd(ctx, d_pooled, train: bool):
     dy, red = block1_route(conv_out, d_pooled.to(cd).contiguous(), ga, shift, mean, inv, cd)
     if train:
         n = conv_out.shape[0] * conv_out.shape[2] * conv_out.shape[3]
-        m1, m2 = red[0] / n, red[1] / n
+        total = red
+        if ctx.group is not None:  # sync-BN: the means over every rank's rows
+            total = ctx.group.sum_(red.clone())
+            n *= ctx.group.world_size
+        m1, m2 = total[0] / n, total[1] / n
     else:
         m1 = m2 = torch.zeros_like(mean)
     dx = dw = db = None
@@ -446,25 +462,31 @@ def _core_bwd(ctx, d_pooled, train: bool):
 
 class Block1Train(torch.autograd.Function):
     """Train-mode block (batch-stat BN): (x, weight, bias, gamma, beta, eps[,
-    compute_dtype]) -> (pooled, mean, var), pooled in ``compute_dtype`` and
-    the variance biased, as ``fused_block1_train``.  Mean and var are f32,
-    for the running-average update, and carry no gradient."""
+    compute_dtype[, group]]) -> (pooled, mean, var), pooled in
+    ``compute_dtype`` and the variance biased, as ``fused_block1_train``.
+    Mean and var are f32, for the running-average update, and carry no
+    gradient.  With a data-parallel ``group`` the moments are those of
+    every rank's rows (sync-BN; see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, gamma, beta, eps, compute_dtype=torch.float32):
+    def forward(ctx, x, weight, bias, gamma, beta, eps, compute_dtype=torch.float32,
+                group=None):
         conv_out, sums = block1_conv_stats(x, weight, bias, compute_dtype)
-        mean, var = _batch_moments(sums, conv_out.shape[0] * conv_out.shape[2]
-                                   * conv_out.shape[3])
+        n = conv_out.shape[0] * conv_out.shape[2] * conv_out.shape[3]
+        if group is not None:
+            group.sum_(sums)
+            n *= group.world_size
+        mean, var = _batch_moments(sums, n)
         pooled = block1_norm_pool(conv_out, *fold_bn(gamma, beta, mean, var, eps),
                                   compute_dtype=compute_dtype)
         ctx.save_for_backward(x, conv_out, weight, gamma, beta, mean, var)
-        ctx.eps, ctx.compute_dtype = eps, compute_dtype
+        ctx.eps, ctx.compute_dtype, ctx.group = eps, compute_dtype, group
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
     @staticmethod
     def backward(ctx, d_pooled, _d_mean, _d_var):
-        return _core_bwd(ctx, d_pooled, train=True) + (None, None)
+        return _core_bwd(ctx, d_pooled, train=True) + (None, None, None)
 
 
 class Block1Eval(torch.autograd.Function):
@@ -479,7 +501,7 @@ class Block1Eval(torch.autograd.Function):
         pooled = block1_norm_pool(conv_out, *fold_bn(gamma, beta, mean, var, eps),
                                   compute_dtype=compute_dtype)
         ctx.save_for_backward(x, conv_out, weight, gamma, beta, mean, var)
-        ctx.eps, ctx.compute_dtype = eps, compute_dtype
+        ctx.eps, ctx.compute_dtype, ctx.group = eps, compute_dtype, None
         return pooled
 
     @staticmethod
@@ -495,7 +517,8 @@ def block1_eval(x, weight, bias, gamma, beta, mean, var, eps: float = EPS,
 
 
 def block1_train_forward(x, weight, bias, gamma, beta, eps: float = EPS,
-                         compute_dtype: torch.dtype = torch.float32):
-    """Train-mode block: BN with the batch's own moments.  Returns
-    (pooled, mean, var) with the biased variance, as ``_train_fwd``."""
-    return Block1Train.apply(x, weight, bias, gamma, beta, eps, compute_dtype)
+                         compute_dtype: torch.dtype = torch.float32, group=None):
+    """Train-mode block: BN with the batch's own moments (every rank's rows
+    with a data-parallel ``group``).  Returns (pooled, mean, var) with the
+    biased variance, as ``_train_fwd``."""
+    return Block1Train.apply(x, weight, bias, gamma, beta, eps, compute_dtype, group)

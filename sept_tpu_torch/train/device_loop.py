@@ -19,8 +19,18 @@ state.  Shuffles come from ``np.random.default_rng(cfg.seed)``, one
 permutation of the real rows an epoch with the pad rows last, as in the JAX
 package.  With ``cfg.global_feature`` each split's 88-dim ``global_data``
 goes to the device beside its windows (:class:`DeviceSplit`) and to every
-forward.  Data parallelism (the JAX fold loops' ``mesh``) is ROADMAP.md §1
-item 9.
+forward.
+
+Data parallelism (the JAX fold loops' ``mesh``): with a ``group`` (a
+:class:`~sept_tpu_torch.parallel.DataGroup`) every rank runs the fold
+driver on its own device.  The splits are replicated, rank 0's state is
+broadcast first, each epoch runs through the DP runners of
+:mod:`sept_tpu_torch.parallel.epoch_dp` (the models should be built with
+``bn_group`` for equality with one device), and the validation pass and
+the test vote split each batch's rows over the ranks and all-reduce what
+they return.  Every decision of the epoch loop is taken from numbers that
+are the same on every rank, so no rank leaves the loop alone; rank 0 alone
+prints and writes the mid-fold checkpoints.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from sept_tpu_torch.data.pipeline import SplitArrays
 from sept_tpu_torch.device import resolve_device
 from sept_tpu_torch.eval import metrics as M
 from sept_tpu_torch.models import pooling_for
+from sept_tpu_torch.parallel import (broadcast_state, is_main, make_cloak_epoch_runner_dp,
+                                     make_epoch_runner_dp)
 from sept_tpu_torch.train.config import ExperimentConfig
 from sept_tpu_torch.train.loop import EarlyStopping, FitResult, first_head, run_test
 from sept_tpu_torch.train.midfold import MidFoldCheckpoint
@@ -43,6 +55,7 @@ from sept_tpu_torch.train.steps import (
     make_cloak_epoch_runner,
     make_epoch_runner,
     weighted_ce,
+    weighted_nll_sum,
 )
 from sept_tpu_torch.utils.logging import _jsonable
 
@@ -132,7 +145,7 @@ def _loop_restore(loop, early, plateau):
             loop["history"])
 
 
-def make_val_pass(apply_logits: Callable, use_global: bool = False):
+def make_val_pass(apply_logits: Callable, use_global: bool = False, group=None):
     """Whole-split validation pass, batch by batch, so peak activation memory
     stays bounded by the batch size.  ``apply_logits(windows (B, 1, T, D)[,
     g (B, 88)])`` is an eval forward
@@ -143,9 +156,16 @@ def make_val_pass(apply_logits: Callable, use_global: bool = False):
     is the MEAN OF PER-BATCH MEANS (each batch's
     weighted CE over its real rows), the statistic the reference feeds to the
     plateau scheduler and early stopping; one weighted mean over the split
-    would differ whenever it is not a multiple of the batch size."""
+    would differ whenever it is not a multiple of the batch size.
+
+    ``group``: each rank takes its rows of every batch (``batch_size``
+    divisible by the world size), and one all-reduce of each batch's NLL sum
+    and real-row count and of the zero-filled predictions gives every rank
+    the whole split's numbers."""
 
     def val(windows, labels, weights, *, n_batches: int, batch_size: int, globals_=None):
+        if group is not None:
+            return _val_dp(windows, labels, weights, n_batches, batch_size, globals_)
         losses, preds = [], []
         with torch.inference_mode():
             for i in range(n_batches):
@@ -156,20 +176,42 @@ def make_val_pass(apply_logits: Callable, use_global: bool = False):
                 preds.append(logits.argmax(-1))
         return torch.stack(losses).mean(), torch.cat(preds)
 
+    def _val_dp(windows, labels, weights, n_batches, batch_size, globals_):
+        if batch_size % group.world_size:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{group.world_size} devices")
+        k = batch_size // group.world_size
+        sums = torch.zeros((n_batches, 2), dtype=torch.float32, device=windows.device)
+        preds = torch.zeros(n_batches * batch_size, dtype=torch.float32, device=windows.device)
+        with torch.inference_mode():
+            for i in range(n_batches):
+                sl = slice(i * batch_size + group.rank * k, i * batch_size + (group.rank + 1) * k)
+                g = (globals_[sl],) if use_global else ()
+                logits = first_head(apply_logits(windows[sl][:, None], *g))
+                sums[i, 0] = weighted_nll_sum(logits, labels[sl], weights[sl])
+                sums[i, 1] = (weights[sl] > 0).sum()
+                preds[sl] = logits.argmax(-1).to(torch.float32)
+            flat = group.sum_(torch.cat([sums.reshape(-1), preds]))
+        sums = flat[:2 * n_batches].view(n_batches, 2)
+        return ((sums[:, 0] / torch.clamp(sums[:, 1], min=1.0)).mean(),
+                flat[2 * n_batches:].long())
+
     return val
 
 
 def _run_epoch_loop(state: TrainState, cfg: ExperimentConfig, *, train_epoch, val_epoch,
                     test_epoch, m_total: int, n_real: Optional[int] = None,
                     resume_path: Optional[str] = None, verbose: bool = False,
-                    epoch_callback=None) -> FitResult:
+                    epoch_callback=None, group=None) -> FitResult:
     """The epoch loop of both fold drivers.  ``train_epoch(state, epoch,
     order) -> (state, {'loss', 'acc'})``, ``val_epoch(state) -> {'loss',
     'acc', 'uar'}`` and ``test_epoch(state) -> run_test's dict`` close over
     the workload's splits; the best-state tracking, plateau scaling, early
     stopping, mid-fold save / restore with the shuffle replayed, and the
     FitResult live here once.  ``epoch_callback(state) -> dict`` adds
-    per-epoch observables to the history (the cloak's sigma statistics)."""
+    per-epoch observables to the history (the cloak's sigma statistics).
+    ``group``: rank 0 alone prints and writes the mid-fold checkpoints."""
+    verbose = verbose and is_main(group)
     rng = np.random.default_rng(cfg.seed)
     early = EarlyStopping(patience=cfg.early_stop_patience)
     plateau = PlateauScheduler(cfg.plateau_patience, cfg.plateau_factor)
@@ -184,7 +226,7 @@ def _run_epoch_loop(state: TrainState, cfg: ExperimentConfig, *, train_epoch, va
     final = {"acc": 0.0, "uar": 0.0, "conf": np.zeros((0, 0))}
     history = []
 
-    mid = MidFoldCheckpoint(resume_path) if resume_path else None
+    mid = MidFoldCheckpoint(resume_path, group) if resume_path else None
     start_epoch = 0
     if mid is not None and mid.exists():
         snap, best_loaded, loop = mid.restore(state.generator.device)
@@ -266,22 +308,28 @@ def _val_epoch(val_pass, ds: DeviceSplit):
 def fit_device(state: TrainState, train_split: SplitArrays, val_split: SplitArrays,
                test_split: SplitArrays, cfg: ExperimentConfig, logits_fn: Callable,
                spk_weights: Optional[dict] = None, verbose: bool = True,
-               resume_path: Optional[str] = None) -> FitResult:
+               resume_path: Optional[str] = None, group=None) -> FitResult:
     """One fold of baseline / adversary / multitask training on the state's
     device.  ``logits_fn`` is the model's eval forward
     (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`).
     ``resume_path``: mid-fold checkpoint directory (train.midfold): the whole
     state and the loop's bookkeeping persist after every epoch, an
     interrupted fold resumes at the next epoch with the same shuffle, and
-    the directory goes once the fold completes."""
+    the directory goes once the fold completes.  ``group``: run the fold
+    data-parallel (see the module docstring); every rank calls this with
+    the same arguments and gets the same FitResult."""
     dev = state.generator.device
     label_key = "labels_gen" if cfg.pred == "gender" else "labels_emo"
     train_ds = DeviceSplit(train_split, label_key, cfg.batch_size,
                            _spk_weight_vec(train_split, spk_weights), dev)
     val_ds = DeviceSplit(val_split, label_key, cfg.batch_size,
                          _spk_weight_vec(val_split, spk_weights), dev)
-    run_epoch = make_epoch_runner(pooling=pooling_for(cfg.model_type),
-                                  use_global=cfg.global_feature)
+    if group is None:
+        run_epoch = make_epoch_runner(pooling=pooling_for(cfg.model_type),
+                                      use_global=cfg.global_feature)
+    else:
+        run_epoch = make_epoch_runner_dp(group, pooling_for(cfg.model_type), cfg.global_feature)
+        broadcast_state(state, group)
     gkw = {"globals_": train_ds.globals} if cfg.global_feature else {}
     if cfg.pred == "multitask":
         gkw["labels_gen"] = train_ds.labels_gen
@@ -294,10 +342,10 @@ def fit_device(state: TrainState, train_split: SplitArrays, val_split: SplitArra
 
     return _run_epoch_loop(
         state, cfg, train_epoch=train_epoch,
-        val_epoch=_val_epoch(make_val_pass(logits_fn, cfg.global_feature), val_ds),
-        test_epoch=lambda st: run_test(logits_fn, test_split, cfg, device=dev),
+        val_epoch=_val_epoch(make_val_pass(logits_fn, cfg.global_feature, group), val_ds),
+        test_epoch=lambda st: run_test(logits_fn, test_split, cfg, device=dev, group=group),
         m_total=train_ds.n_batches * train_ds.batch_size, n_real=train_ds.n_real,
-        resume_path=resume_path, verbose=verbose)
+        resume_path=resume_path, verbose=verbose, group=group)
 
 
 def fit_device_cloak(state: TrainState, train_split: SplitArrays, val_split: SplitArrays,
@@ -305,25 +353,31 @@ def fit_device_cloak(state: TrainState, train_split: SplitArrays, val_split: Spl
                      eval_logits_fn: Callable, mask=None,
                      spk_weights: Optional[dict] = None, verbose: bool = True,
                      resume_path: Optional[str] = None, epoch_callback=None,
-                     eps: Optional[Sequence[torch.Tensor]] = None) -> FitResult:
+                     eps: Optional[Sequence[torch.Tensor]] = None, group=None) -> FitResult:
     """One fold of cloak / cloak + GRL training (``cfg.grl``) on the state's
     device.  ``eval_logits_fn`` runs the cloaked model's eval forward with
     one fixed epsilon draw (as the cloak's ``run_fold`` builds it).
     ``mask``: the suppression mask (win_len, n_feats), or None.  ``eps``:
     the training draws to inject, ``eps[epoch]`` of shape (n_batches, 1,
     win_len, n_feats) (the tests feed the JAX draws); else each step draws
-    from the state's generator.  ``resume_path``: see :func:`fit_device`."""
+    from the state's generator.  ``resume_path`` and ``group``: see
+    :func:`fit_device`."""
     dev = state.generator.device
     train_ds = DeviceSplit(train_split, "labels_emo", cfg.batch_size,
                            _spk_weight_vec(train_split, spk_weights), dev)
     val_ds = DeviceSplit(val_split, "labels_emo", cfg.batch_size,
                          _spk_weight_vec(val_split, spk_weights), dev)
     mask_t = None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
-    run_epoch = make_cloak_epoch_runner(
+    opts = dict(
         scale_lambda=cfg.scale_lambda, gender_lambda=cfg.gender_lambda, grl=cfg.grl,
         apply_scale_reg=cfg.suppression_ratio == 0, pooling=pooling_for(cfg.model_type),
         antithetic=cfg.antithetic_noise, saliency_align=cfg.saliency_align,
         use_global=cfg.global_feature)
+    if group is None:
+        run_epoch = make_cloak_epoch_runner(**opts)
+    else:
+        run_epoch = make_cloak_epoch_runner_dp(group, **opts)
+        broadcast_state(state, group)
 
     def train_epoch(st, epoch, order):
         st, losses, correct, counts = run_epoch(
@@ -335,7 +389,10 @@ def fit_device_cloak(state: TrainState, train_split: SplitArrays, val_split: Spl
 
     return _run_epoch_loop(
         state, cfg, train_epoch=train_epoch,
-        val_epoch=_val_epoch(make_val_pass(eval_logits_fn, cfg.global_feature), val_ds),
-        test_epoch=lambda st: run_test(eval_logits_fn, test_split, cfg, device=dev),
+        val_epoch=_val_epoch(make_val_pass(eval_logits_fn, cfg.global_feature, group),
+                             val_ds),
+        test_epoch=lambda st: run_test(eval_logits_fn, test_split, cfg, device=dev,
+                                       group=group),
         m_total=train_ds.n_batches * train_ds.batch_size, n_real=train_ds.n_real,
-        resume_path=resume_path, verbose=verbose, epoch_callback=epoch_callback)
+        resume_path=resume_path, verbose=verbose, epoch_callback=epoch_callback,
+        group=group)

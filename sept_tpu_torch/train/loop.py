@@ -66,19 +66,23 @@ def first_head(out):
 
 
 def run_test(logits_fn: Callable, test: SplitArrays, cfg: ExperimentConfig,
-             label_key: Optional[str] = None, batch_size: int = 16, device="cuda"):
+             label_key: Optional[str] = None, batch_size: int = 16, device="cuda",
+             group=None):
     """Sliding-window vote over whole test utterances, ``batch_size`` at a
     time; the last batch is padded with zero utterances of ``win_len``
     frames, whose results are cut.  ``logits_fn`` is an eval forward
     (:func:`sept_tpu_torch.train.steps.make_eval_logits_fn`) on ``device``;
     with ``cfg.global_feature`` it also takes each window's (88,) vector,
     its utterance's ``test.global_data`` row.  Combine mode (more than one
-    corpus tag) adds a ``per_dataset`` breakdown."""
+    corpus tag) adds a ``per_dataset`` breakdown.  ``group``: the ranks of a
+    data-parallel group vote their rows of each batch
+    (:func:`~sept_tpu_torch.eval.sliding.vote_split`) and return the same
+    result."""
     dev = resolve_device(device)
     label_key = label_key or ("labels_gen" if cfg.pred == "gender" else "labels_emo")
     vote = make_sliding_vote_fn(lambda wins, *g: first_head(logits_fn(wins, *g)),
                                 cfg.win_len, cfg.shift_len)
-    probs = vote_split(vote, test, cfg.win_len, batch_size, dev, cfg.global_feature)
+    probs = vote_split(vote, test, cfg.win_len, batch_size, dev, cfg.global_feature, group)
     preds = probs.argmax(-1) if len(probs) else np.zeros(0, np.int64)
     truth = getattr(test, label_key)
     return {**M.split_result(truth, preds, test.datasets, rec_key="uar"), "preds": preds,

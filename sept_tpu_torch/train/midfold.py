@@ -23,6 +23,11 @@ Layout under ``path``:
 
 The fold driver deletes the directory once the fold completes (the final
 artifact supersedes it).
+
+Under data parallelism (``group``) rank 0 alone writes and deletes, every
+rank then passes a barrier, and every rank restores from the directory (the
+ranks of one host share it; a multi-host run needs it on a shared
+filesystem), so they all continue from the same state.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Optional
 import torch
 
 from sept_tpu_torch.device import resolve_device
+from sept_tpu_torch.parallel.mesh import barrier, is_main
 
 __all__ = ["MidFoldCheckpoint"]
 
@@ -42,8 +48,9 @@ _FILE = "state.pt"
 
 
 class MidFoldCheckpoint:
-    def __init__(self, path: str):
+    def __init__(self, path: str, group=None):
         self.path = os.path.abspath(path)
+        self.group = group
 
     def _loop_path(self) -> str:
         return os.path.join(self.path, "loop.json")
@@ -63,6 +70,11 @@ class MidFoldCheckpoint:
     def save(self, state: dict, best_state: Optional[dict], loop: dict) -> None:
         """``state`` and ``best_state`` are snapshots (dicts of tensors and
         numbers); ``best_state=None`` keeps the best already on disk."""
+        if is_main(self.group):
+            self._save(state, best_state, loop)
+        barrier(self.group)
+
+    def _save(self, state: dict, best_state: Optional[dict], loop: dict) -> None:
         os.makedirs(self.path, exist_ok=True)
         epoch = int(loop.get("epoch", 0))
         state_dir = f"state_e{epoch}"
@@ -110,4 +122,6 @@ class MidFoldCheckpoint:
         return state, best, loop
 
     def delete(self) -> None:
-        shutil.rmtree(self.path, ignore_errors=True)
+        if is_main(self.group):
+            shutil.rmtree(self.path, ignore_errors=True)
+        barrier(self.group)

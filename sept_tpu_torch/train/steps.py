@@ -63,6 +63,10 @@ __all__ = [
     "make_eval_logits_fn",
     "cloak_scales",
     "saliency_alignment_loss",
+    "baseline_loss",
+    "cloak_loss",
+    "grl_loss",
+    "scale_reg",
 ]
 
 
@@ -149,9 +153,12 @@ def cloak_scales(model: nn.Module) -> torch.Tensor:
     return model.noise.scales()
 
 
-def _scale_reg(model, loss, scale_lambda, apply_scale_reg):
+def scale_reg(model, loss, scale_lambda, apply_scale_reg, share: float = 1.0):
+    """``loss - scale_lambda * log(mean(scales)) / share`` when the
+    regularizer applies: a data-parallel rank adds its 1/world share, so the
+    summed gradients carry it once."""
     if apply_scale_reg and scale_lambda:
-        return loss - scale_lambda * torch.log(cloak_scales(model).mean())
+        return loss - scale_lambda * torch.log(cloak_scales(model).mean()) / share
     return loss
 
 
@@ -200,14 +207,25 @@ def saliency_alignment_loss(model: nn.Module, spec: torch.Tensor, labels_emo: to
 # baseline / adversary / multitask
 
 
-def _baseline_update(state, spec, labels, weights, labels_gen, pooling, g=None):
-    model = state.model.train()
-    out = model(spec, pooling=pooling, dropout=DropoutDraws(state.generator), global_feature=g)
+def baseline_loss(model, spec, labels, weights, labels_gen, pooling, g, draws,
+                  ce=weighted_ce):
+    """(loss, logits) of a train-mode baseline / adversary / multitask
+    forward: ``ce(logits, labels, weights)``, the emotion and gender terms
+    summed for pred="multitask" (logits: the emotion head's).  ``ce`` is the
+    per-row CE's normalization: :func:`weighted_ce` on one device, the local
+    :func:`weighted_nll_sum` over the global real-row count under data
+    parallelism."""
+    out = model(spec, pooling=pooling, dropout=draws, global_feature=g)
     if model.pred == "multitask":
         out, gen_out = out
-        loss = weighted_ce(out, labels, weights) + weighted_ce(gen_out, labels_gen, weights)
-    else:
-        loss = weighted_ce(out, labels, weights)
+        return ce(out, labels, weights) + ce(gen_out, labels_gen, weights), out
+    return ce(out, labels, weights), out
+
+
+def _baseline_update(state, spec, labels, weights, labels_gen, pooling, g=None):
+    model = state.model.train()
+    loss, out = baseline_loss(model, spec, labels, weights, labels_gen, pooling, g,
+                              DropoutDraws(state.generator))
     _apply(state, loss)
     return _metrics(out.detach(), labels, weights, loss)
 
@@ -281,6 +299,42 @@ def make_eval_logits_fn(model: nn.Module, use_global: bool = False, **forward_kw
 # cloak and cloak + GRL
 
 
+def cloak_loss(model, spec, labels, weights, eps, mask, pooling, antithetic, g,
+               ce=weighted_ce):
+    """(loss, logits) of a ``CloakedModel`` forward with the draw ``eps``;
+    ``antithetic``: the mean of the +eps and -eps passes.  ``ce`` as in
+    :func:`baseline_loss`; no regularizer."""
+    def branch(sign):
+        return model(spec, eps, mask=mask, pooling=pooling, noise_sign=sign,
+                     global_feature=g)[0]
+
+    logits = branch(1.0)
+    loss = ce(logits, labels, weights)
+    if antithetic:
+        loss = 0.5 * (loss + ce(branch(-1.0), labels, weights))
+    return loss, logits
+
+
+def grl_loss(model, spec, labels_emo, labels_gen, weights, eps, mask, pooling, antithetic,
+             gender_lambda, draws, g, ce=weighted_ce):
+    """(loss, emotion logits, gender logits) of a ``CloakedModelGRL``
+    forward: ``ce(emo) + gender_lambda * ce(gen)``; ``antithetic``: the mean
+    with the -eps pass, which replays ``draws``' masks and leaves the running
+    statistics alone.  ``ce`` as in :func:`baseline_loss`; no regularizer."""
+    def pair_loss(emo_logits, gen_logits):
+        return ce(emo_logits, labels_emo, weights) + gender_lambda * ce(
+            gen_logits, labels_gen, weights)
+
+    emo, gen, _ = model(spec, eps, mask=mask, pooling=pooling, dropout=draws,
+                        global_feature=g)
+    loss = pair_loss(emo, gen)
+    if antithetic:
+        emo_m, gen_m, _ = model(spec, eps, mask=mask, pooling=pooling, noise_sign=-1.0,
+                                dropout=draws.replay(), update_stats=False, global_feature=g)
+        loss = 0.5 * (loss + pair_loss(emo_m, gen_m))
+    return loss, emo, gen
+
+
 def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
                     pooling: Optional[str] = "mean", antithetic: bool = False,
                     use_global: bool = False):
@@ -300,16 +354,9 @@ def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
         if eps is None:
             eps = model.noise.draw_eps(state.generator)
         g = batch["global"] if use_global else None
-
-        def branch(sign):
-            return model(batch["spec"], eps, mask=mask, pooling=pooling, noise_sign=sign,
-                         global_feature=g)[0]
-
-        logits = branch(1.0)
-        loss = weighted_ce(logits, labels, w)
-        if antithetic:
-            loss = 0.5 * (loss + weighted_ce(branch(-1.0), labels, w))
-        loss = _scale_reg(model, loss, scale_lambda, apply_scale_reg)
+        loss, logits = cloak_loss(model, batch["spec"], labels, w, eps, mask, pooling,
+                                  antithetic, g)
+        loss = scale_reg(model, loss, scale_lambda, apply_scale_reg)
         _apply(state, loss)
         return state, _metrics(logits.detach(), labels, w, loss)
 
@@ -340,22 +387,11 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
             eps = model.noise.draw_eps(state.generator)
         draws = DropoutDraws(state.generator)
         g = batch["global"] if use_global else None
-
-        def pair_loss(emo_logits, gen_logits):
-            return weighted_ce(emo_logits, le, w) + gender_lambda * weighted_ce(
-                gen_logits, lg, w)
-
         align = (saliency_alignment_loss(model, batch["spec"], le, lg, w, pooling, g)
                  if saliency_align else None)
-        emo, gen, _ = model(batch["spec"], eps, mask=mask, pooling=pooling, dropout=draws,
-                            global_feature=g)
-        loss = pair_loss(emo, gen)
-        if antithetic:
-            emo_m, gen_m, _ = model(batch["spec"], eps, mask=mask, pooling=pooling,
-                                    noise_sign=-1.0, dropout=draws.replay(),
-                                    update_stats=False, global_feature=g)
-            loss = 0.5 * (loss + pair_loss(emo_m, gen_m))
-        loss = _scale_reg(model, loss, scale_lambda, apply_scale_reg)
+        loss, emo, gen = grl_loss(model, batch["spec"], le, lg, w, eps, mask, pooling,
+                                  antithetic, gender_lambda, draws, g)
+        loss = scale_reg(model, loss, scale_lambda, apply_scale_reg)
         if align is not None:
             loss = loss + saliency_align * align
         _apply(state, loss)

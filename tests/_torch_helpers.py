@@ -138,3 +138,33 @@ def assert_folds_equal(a, b):
             x, y = getattr(sa, name), getattr(sb, name)
             assert x.dtype == y.dtype and x.shape == y.shape, (split, name)
             assert np.array_equal(x, y), (split, name)
+
+
+def start_ranks(fn, *args, deadline_s=120):
+    """Start ``fn(group, *args)`` on 2 gloo CPU ranks of one thread each
+    (``sept_tpu_torch.parallel.spawn``) in a background thread, so that the
+    test process computes its references meanwhile; returns a function that
+    waits for the ranks and returns their results (or raises their error)."""
+    import threading
+
+    from sept_tpu_torch.parallel import make_group, spawn
+
+    box = {}
+
+    def run():
+        try:
+            box["ranks"] = spawn(fn, make_group(2, "cpu"), *args, deadline_s=deadline_s,
+                                 threads=1)
+        except BaseException as e:  # noqa: BLE001 -- re-raised by the waiter
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["ranks"]
+
+    return wait

@@ -1,7 +1,8 @@
 """The port's command lines against the JAX package's: the option sets,
 featurize's store and manifest, preprocess's folds, run_all end to end on
-the CPU (artifact names, the sweep CSV, run.json), and the requests the
-port refuses."""
+the CPU (artifact names, the sweep CSV, run.json), the requests the port
+refuses, and data parallelism through the command lines (2 gloo CPU
+ranks)."""
 
 import argparse
 import dataclasses
@@ -10,6 +11,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from sept_tpu.cli import common as jcommon
 from sept_tpu.cli import evaluate as jevaluate
@@ -24,6 +26,7 @@ from sept_tpu.utils import logging as jlogging
 from sept_tpu_torch.cli import evaluate, featurize, preprocess, run_all, train_baseline
 from sept_tpu_torch.cli import train_cloak
 from sept_tpu_torch.data import store
+from sept_tpu_torch.parallel import visible_devices
 
 from _torch_helpers import assert_folds_equal
 
@@ -183,8 +186,11 @@ def test_run_json_has_the_jax_keys(run_all_cpu, tmp_path, artifact):
 @pytest.mark.parametrize("case", ["global_feature", "functionals", "n_devices", "coordinator",
                                   "import_opensmile", "run_all_n_devices"])
 def test_what_the_port_refuses(tmp_path, monkeypatch, case):
-    """Data parallelism raises ``NotImplementedError`` before any stage
-    runs.  The global feature, the functionals and the openSMILE import,
+    """A data-parallel request that cannot run raises ``SystemExit`` before
+    any stage runs: ``--n_devices`` above the visible devices, a
+    ``SEPT_COORDINATOR`` without ``SEPT_NUM_PROCESSES`` and
+    ``SEPT_PROCESS_ID``, and (run_all) a ``--batch_size`` the devices do not
+    divide.  The global feature, the functionals and the openSMILE import,
     once refused here, are now taken: ``run_all --global_feature 1`` gets
     past its checks to preprocess (which finds no store under
     ``--skip_featurize``), ``featurize`` writes gemaps and emobase by
@@ -197,11 +203,12 @@ def test_what_the_port_refuses(tmp_path, monkeypatch, case):
     call = {"global_feature": lambda: run_all.main(SMALL + dirs + ["--global_feature", "1",
                                                                   "--skip_featurize"]),
             "functionals": lambda: featurize.main(tiny + dirs),
-            "n_devices": lambda: train_baseline.main(SMALL + dirs + ["--n_devices", "2"]),
+            "n_devices": lambda: train_baseline.main(
+                SMALL + dirs + ["--n_devices", str(visible_devices("cpu") + 1)]),
             "coordinator": lambda: train_cloak.main(SMALL + dirs),
             "import_opensmile": lambda: featurize.main(
                 tiny + dirs + ["--functionals", "0", "--import_opensmile", "x.csv"]),
-            "run_all_n_devices": lambda: run_all.main(SMALL + dirs + ["--n_devices", "2"])}
+            "run_all_n_devices": lambda: run_all.main(SMALL + dirs + ["--n_devices", "3"])}
     if case == "functionals":
         call[case]()
         st = store.load_feature_store(str(tmp_path / "feature/mel_spec/synthetic/data_128.npz"))
@@ -209,9 +216,74 @@ def test_what_the_port_refuses(tmp_path, monkeypatch, case):
                                     for v in st.values())
         return
     raises = {"global_feature": FileNotFoundError,
-              "import_opensmile": FileNotFoundError}.get(case, NotImplementedError)
-    match = {"global_feature": "feature", "import_opensmile": "x.csv"}.get(
-        case, "data parallelism")
+              "import_opensmile": FileNotFoundError}.get(case, SystemExit)
+    match = {"global_feature": "feature", "import_opensmile": "x.csv", "n_devices": "visible",
+             "coordinator": "SEPT_NUM_PROCESSES", "run_all_n_devices": "divisible"}[case]
     with pytest.raises(raises, match=match):
         call[case]()
     assert not (tmp_path / "feature").exists()
+
+
+def _train_baseline(root, out, n_devices, extra=()):
+    train_baseline.main(SMALL + ["--work_dir", str(root / "work"), "--output_dir", str(out),
+                                 "--device", "cpu", "--n_devices", str(n_devices), *extra])
+    return out / "baseline_emotion"
+
+
+def test_train_baseline_on_two_cpu_ranks_writes_what_one_device_writes(run_all_cpu, tmp_path):
+    """``--device cpu --n_devices 2`` on run_all's fold: the artifact of one
+    device, written once by rank 0 (one metrics line an epoch), with the
+    same config, state_dict keys and shapes.  Dropout (0.2) draws per rank,
+    as in the JAX package, so the weights are not one device's (the DP
+    equality at dropout 0 is tests/test_torch_parallel.py's)."""
+    root, _ = run_all_cpu
+    two = _train_baseline(root, tmp_path / "two", 2)
+    one = _train_baseline(root, tmp_path / "one", 1)
+    assert sorted(p.name for p in two.iterdir()) == sorted(p.name for p in one.iterdir())
+    m2, m1 = (json.loads((d / "manifest_fold1.json").read_text()) for d in (two, one))
+    assert m2.keys() == m1.keys()
+    assert {**m2["config"], "output_dir": ""} == {**m1["config"], "output_dir": ""}
+    assert 0.0 <= m2["test_acc"] <= 1.0
+    sd2, sd1 = (torch.load(d / "fold1" / "state_dict.pt") for d in (two, one))
+    assert {k: v.shape for k, v in sd2.items()} == {k: v.shape for k, v in sd1.items()}
+    assert all(bool(torch.isfinite(v).all()) for v in sd2.values() if v.is_floating_point())
+    lines = (two / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 1 and np.isfinite(json.loads(lines[0])["train_loss"])
+    r2, r1 = (json.loads((d / "run.json").read_text()) for d in (two, one))
+    assert r2.keys() == r1.keys() and r2["results"]["folds"] == [1]
+
+
+def test_train_baseline_refuses_a_batch_the_ranks_do_not_divide(run_all_cpu, tmp_path):
+    root, _ = run_all_cpu
+    with pytest.raises(SystemExit, match="divisible"):
+        _train_baseline(root, tmp_path / "r", 2, ["--batch_size", "7"])
+    assert not (tmp_path / "r").exists()
+
+
+def test_evaluate_on_two_cpu_ranks_matches_one_device(run_all_cpu, tmp_path):
+    """The sweep data-parallel (eval mode: no dropout) writes one device's
+    CSV byte for byte, and returns its results."""
+    root, _ = run_all_cpu
+    shutil.copytree(root / "results", tmp_path / "results")
+    dirs = ["--work_dir", str(root / "work"), "--output_dir", str(tmp_path / "results")]
+    (tmp_path / "results" / "grl-0.1.csv").unlink()
+    per_ratio = evaluate.main(SMALL + RATIOS + dirs + ["--device", "cpu", "--n_devices", "2"])
+    assert (tmp_path / "results" / "grl-0.1.csv").read_text() == \
+        (root / "results" / "grl-0.1.csv").read_text()
+    ref = evaluate.main(SMALL + RATIOS + dirs + ["--device", "cpu"])
+    for ratio in (0, 20):
+        for got, want in zip(per_ratio[ratio][0], ref[ratio][0]):
+            assert got["acc"] == want["acc"] and got["rec"] == want["rec"]
+            np.testing.assert_allclose(got["probs"], want["probs"], atol=1e-6)
+
+
+def test_run_all_passes_n_devices_to_every_stage(tmp_path, monkeypatch):
+    seen = {}
+    for name, mod in (("featurize", featurize), ("preprocess", preprocess),
+                      ("train_baseline", train_baseline), ("train_cloak", train_cloak),
+                      ("evaluate", evaluate)):
+        monkeypatch.setattr(mod, "main", lambda argv, name=name: seen.setdefault(name, argv))
+    run_all.main(SMALL + ["--device", "cpu", "--n_devices", "2", "--work_dir", str(tmp_path)])
+    assert len(seen) == 5
+    for argv in seen.values():
+        assert argv[argv.index("--n_devices") + 1] == "2"

@@ -58,6 +58,7 @@ def test_port_imports_with_jax_blocked():
         "import sept_tpu_torch.cli.predict, sept_tpu_torch.cli.export_torch\n"
         "import sept_tpu_torch.cli.import_torch, sept_tpu_torch.compat.torch_io\n"
         "import sept_tpu_torch.ops.egemaps, sept_tpu_torch.ops.emobase\n"
+        "import sept_tpu_torch.parallel, sept_tpu_torch.parallel.epoch_dp\n"
         "import sept_tpu_torch.data.opensmile_import\n"
         "import chip_smoke\n"
         "assert not any(m.startswith(('jax', 'flax', 'orbax', 'sklearn')) for m in sys.modules\n"
