@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (f32 and bf16, and
 data-parallel), featurization, fold (training, checkpoints, the suppression
-sweep), command-line and artifact (load_predictor, serve / predict / export
-/ import, every model type) paths on one NVIDIA GPU and check its kernels.
+sweep, the host fold loop, mid-fold resume), command-line and artifact
+(load_predictor, serve / predict / export / import, every model type)
+paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -103,6 +104,27 @@ and read just after; each kernel the path must use has to have launched
                where the CPU's top two are more than 2e-4 apart.  Last a
                2-epoch bf16 baseline run_fold (baseline_emotion_bf16; K1-K4
                in their bf16 mode only).
+10b. host_loop the host fold loop (train.loop.fit) on another seeded
+               FoldData of the fold phase's shape, its training split cut
+               to 500 windows (the last batch of 32 padded), dropout 0,
+               combine mode: the baseline, 3 epochs, its first epoch under
+               fit's profile_dir (the trace must name K1-K4's CUDA symbols)
+               and a StepTimer around its steps (n = steps - 1) (K1-K4, no
+               K5); the GRL cloak at suppression 20 with its training mask,
+               lr 1e-2, 2 epochs (all five); the attention multitask model
+               (att="self_att", pred="multitask"), 2 epochs (K1-K4, no K5);
+               no bf16 mode, no mel or floor + DCT kernel in any.  The host
+               loop's and fit_device's walls per epoch on the same windows
+               (losses within 1e-4 of each other).  Each run again on the
+               card and on the CPU on a cut fold (14 training windows in
+               batches of 4, 8 validation windows, 8 test utterances; the
+               GRL's card draws injected on the CPU): per-epoch train and
+               validation loss and test accuracy within 1e-4, validation
+               accuracy and best epoch equal, the best state within 1e-4 *
+               max(|p|, 1).  Then fit_device on the 500 windows (Adam,
+               dropout 0.2) interrupted after epoch 1's mid-fold checkpoint
+               and resumed: history, best epoch, best and final state and
+               step equal to the uninterrupted fold's bit for bit.
 11. cli        the protocol through the port's command lines, in process on
                the card under build/cli_smoke: run_all on a synthetic corpus
                of 40 speakers x 16 utterances (640 of 1.2-3.5 s) at the CLI
@@ -214,11 +236,12 @@ and read just after; each kernel the path must use has to have launched
 
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
-...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}`` and
-``{"train_bf16": ...}``, ``{"dp": ...}``, ``{"fold": ...}``, ``{"cli": ...}``, ``{"artifacts": ...}``
-and ``{"global": ...}`` lines, the card's ``name, power.limit`` from
-nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in each
-mode), and last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
+...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}``,
+``{"train_bf16": ...}``, ``{"dp": ...}``, ``{"fold": ...}``, ``{"cli":
+...}``, ``{"artifacts": ...}``, ``{"global": ...}`` and ``{"host_loop":
+...}`` lines, the card's ``name, power.limit`` from nvidia-smi, a
+``{"kernels": [...]}`` line (every kernel, block 1's in each mode), and
+last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
 ``chiprun_out/chip_smoke.jsonl`` beside the script (git-ignored).
 """
@@ -334,6 +357,22 @@ FOLD_EPOCHS, FOLD_RATIOS, FOLD_CPU_UTTS, FOLD_CPU_RATIOS = 3, (0, 20, 40, 60, 80
 # rho = -2 (2.4e-7), so the scales would stay uniform and every percentile
 # mask would keep every cell
 FOLD_GRL_LR = 1e-2
+# the host fold loop (the host_loop phase): train.loop.fit on the fold
+# phase's data with the training split cut to HOST_TRAIN windows (so the last
+# batch of 32 is padded), HOST_EPOCHS epochs of the baseline and
+# HOST_SHORT_EPOCHS of the GRL cloak (at suppression HOST_SUPP, lr
+# FOLD_GRL_LR) and of the attention multitask model, dropout 0; each run held
+# to the same run on the CPU on a cut fold (HOST_CPU_TRAIN training windows
+# in batches of CPU_BATCH, the last padded, HOST_CPU_VAL validation windows,
+# HOST_CPU_TEST test utterances) within HOST_TOL (tests/test_torch_fold.py's
+# bounds); then fit_device on the HOST_TRAIN windows interrupted after
+# epoch HOST_STOP and resumed, dropout HOST_RESUME_DROPOUT, bit-equal to the
+# uninterrupted run
+HOST_TRAIN, HOST_EPOCHS, HOST_SHORT_EPOCHS, HOST_SUPP = 500, 3, 2, 20
+HOST_CPU_TRAIN, HOST_CPU_VAL, HOST_CPU_TEST, HOST_TOL = 3 * CPU_BATCH + 2, 8, 8, 1e-4
+HOST_STOP, HOST_RESUME_DROPOUT = 1, 0.2
+# the CUDA symbols of block 1's f32 kernels K1-K4, as a profiler trace names them
+BLOCK1_SYMBOLS = ("conv_stats", "norm_pool", "route", "weight_grads")
 # the protocol through its command lines (the cli phase): run_all on a
 # synthetic corpus of CLI_SPEAKERS x CLI_UTTS utterances of 1.2-3.5 s at the
 # CLI defaults (128 mels, windows 200 x 128 at shift 50, hidden 64), fold 1,
@@ -979,11 +1018,12 @@ def train_weights():
     return build_weights()[0], gender.state_dict()
 
 
-def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32, global_dim=0, group=None):
+def backbone(sd, pred="emotion", dropout=0.2, cd=torch.float32, global_dim=0, group=None,
+             att=None):
     from sept_tpu_torch.models import Conv2dBiRNN
 
     m = Conv2dBiRNN(hidden_size=HIDDEN, feature_len=N_MELS, pred=pred, dropout_rate=dropout,
-                    compute_dtype=cd, global_dim=global_dim, bn_group=group)
+                    compute_dtype=cd, global_dim=global_dim, bn_group=group, att=att)
     m.load_state_dict(sd)
     return m
 
@@ -1950,6 +1990,295 @@ def fold_sweep_cpu(fold, ckpt, cfg, eps, masks, probs, ratios=FOLD_CPU_RATIOS, w
                 f"{what} sweep ratio {r}: the card and the CPU disagree ({diff}, {decided})")
         out[f"max_abs_probs_diff_ratio_{r}"] = diff
     return out
+
+
+# ---------------------------------------------------------------------------
+# the host fold loop
+
+
+def cut_split(split, n):
+    """The first ``n`` rows of a SplitArrays."""
+    from sept_tpu_torch.data.pipeline import SplitArrays
+
+    return SplitArrays(**{f.name: getattr(split, f.name)[:n]
+                          for f in dataclasses.fields(SplitArrays)})
+
+
+def host_weights():
+    """Seeded CPU weights of the host_loop runs: the emotion backbone, the
+    attention multitask backbone, the GRL cloak's gender backbone, its noise
+    (rhos spread, so the suppression mask keeps a share of the cells) and
+    the cloak's fixed evaluation draw."""
+    from sept_tpu_torch.models import Conv2dBiRNN
+
+    torch.manual_seed(SEED + 31)
+    sds = {"baseline": Conv2dBiRNN(HIDDEN, N_MELS, "emotion").state_dict(),
+           "att_multitask": Conv2dBiRNN(HIDDEN, N_MELS, "multitask",
+                                        att="self_att").state_dict(),
+           "gender": Conv2dBiRNN(HIDDEN, N_MELS, "gender").state_dict()}
+    rng = np.random.default_rng(SEED + 32)
+    sds["noise"] = {"locs": torch.from_numpy((0.1 * rng.standard_normal((1, WIN, N_MELS)))
+                                             .astype(np.float32)),
+                    "rhos": torch.from_numpy((-2 + 0.5 * rng.standard_normal((1, WIN, N_MELS)))
+                                             .astype(np.float32))}
+    sds["eval_eps"] = torch.from_numpy(rng.standard_normal((1, WIN, N_MELS)).astype(np.float32))
+    return sds
+
+
+def host_run(name, sds, data, device, epochs, batch=32, eps=None, timer=None,
+             profile_dir=None):
+    """``train.loop.fit`` of one host_loop run ("baseline", "grl",
+    "att_multitask") on ``data`` = (train, val, test) on ``device``, combine
+    mode's speaker weights: (FitResult, state).  GRL: ``eps`` a list records
+    the card's draws, an iterator injects them.  ``timer``: a StepTimer
+    around every step."""
+    from sept_tpu_torch.eval.sweep import train_mask
+    from sept_tpu_torch.models import CloakedModelGRL
+    from sept_tpu_torch.train import (fit, init_state, make_baseline_step,
+                                      make_cloak_grl_step, make_cloak_optimizer,
+                                      make_eval_logits_fn, make_optimizer, preset,
+                                      speaker_weights)
+    from sept_tpu_torch.train.steps import cloak_scales
+
+    train, val, test = data
+    kw = dict(win_len=WIN, feature_len=N_MELS, hidden_size=HIDDEN, num_epochs=epochs,
+              batch_size=batch, dataset="combine", seed=SEED)
+    steps = -(-len(train) // batch)
+    mask, callback = None, None
+    if name == "grl":
+        cfg = preset("cloak_grl", learning_rate=FOLD_GRL_LR, suppression_ratio=HOST_SUPP, **kw)
+        model = CloakedModelGRL(backbone(sds["baseline"], dropout=0.0),
+                                backbone(sds["gender"], "gender", dropout=0.0), cfg.grl_lambda,
+                                WIN, N_MELS, cfg.noise_min_scale, cfg.noise_max_scale)
+        model.noise.load_state_dict(sds["noise"])
+        mask = train_mask(cloak_scales(model).detach()[0].numpy(), HOST_SUPP)
+        state = init_state(model, make_cloak_optimizer(cfg, steps, model,
+                                                       ("noise", "gender_backbone"),
+                                                       freeze_rhos=True), SEED + 2, device)
+        logits = make_eval_logits_fn(model, eps=sds["eval_eps"].to(device),
+                                     mask=torch.as_tensor(mask, device=device))
+        grl = make_cloak_grl_step(cfg.scale_lambda, cfg.gender_lambda,
+                                  apply_scale_reg=False, antithetic=cfg.antithetic_noise)
+        if isinstance(eps, list):
+            def step(st, b, mask=None):
+                e = st.model.noise.draw_eps(st.generator)
+                eps.append(e)
+                return grl(st, b, mask=mask, eps=e)
+        elif eps is not None:
+            def step(st, b, mask=None):
+                return grl(st, b, mask=mask, eps=next(eps).to(device))
+        else:
+            step = grl
+
+        def callback(st):
+            return {"sigma_mean": float(cloak_scales(st.model).mean())}
+    else:
+        pred, att = ("multitask", "self_att") if name == "att_multitask" else ("emotion", None)
+        cfg = preset("baseline", pred=pred, att=att, **kw)
+        model = backbone(sds[name], pred, dropout=0.0, att=att)
+        state = init_state(model, make_optimizer(cfg, steps, model), SEED, device)
+        step, logits = make_baseline_step(), make_eval_logits_fn(model)
+    if timer is not None:
+        inner = step
+
+        def step(st, b, **step_kw):
+            with timer:
+                return inner(st, b, **step_kw)
+    result = fit(state, step, logits, train, val, test, cfg, spk_weights=speaker_weights(train),
+                 mask=mask, verbose=False, profile_dir=profile_dir, epoch_callback=callback)
+    return result, state
+
+
+def hold_fit(what, got, want):
+    """The card's fit held to the CPU's: per-epoch train loss, validation
+    loss and test accuracy within HOST_TOL, validation accuracy, the epoch
+    count and the best epoch equal, the best state's parameters and running
+    statistics within HOST_TOL * max(|p|, 1).  Returns each deviation and
+    its share of its bound."""
+    hg, hc = got.history, want.history
+    require(len(hg) == len(hc) and got.best_epoch == want.best_epoch
+            and [h["validate"]["acc"] for h in hg] == [h["validate"]["acc"] for h in hc],
+            f"{what}: epochs, best epoch or validation accuracy differ "
+            f"({len(hg)}/{len(hc)}, {got.best_epoch}/{want.best_epoch})")
+    dev = {f"{part}_{key}": max(abs(g[part][key] - c[part][key]) for g, c in zip(hg, hc))
+           for part, key in (("train", "loss"), ("validate", "loss"), ("test", "acc"))}
+    diffs = state_diffs(got.best_state["model"], want.best_state["model"])
+    dev.update(best_param=diffs["param"], best_stats=diffs["stats"])
+    log(f"{what}: card vs CPU {dev}")
+    require(all(v <= HOST_TOL for v in dev.values()),
+            f"{what}: the card and the CPU disagree {dev}")
+    return {"epochs": len(hg), "best_epoch": got.best_epoch,
+            "val_acc": [h["validate"]["acc"] for h in hg], "max_abs_diff": dev,
+            "share_of_bound": {k: v / HOST_TOL for k, v in dev.items()}}
+
+
+class Interrupted(Exception):
+    pass
+
+
+def resume_check(sds, data):
+    """fit_device on the host_loop data (dropout HOST_RESUME_DROPOUT, so the
+    card's generator carries the dropout stream across the restart, Adam,
+    selection from epoch 1): uninterrupted, then interrupted after epoch
+    HOST_STOP's mid-fold checkpoint and resumed; the resumed fold must equal
+    the uninterrupted one bit for bit: history, best epoch, best state,
+    final state and step."""
+    import sept_tpu_torch.train.device_loop as DL
+    from sept_tpu_torch.train import init_state, make_eval_logits_fn, make_optimizer, preset
+    from sept_tpu_torch.train.midfold import MidFoldCheckpoint
+
+    train, val, test = data
+    cfg = preset("baseline", win_len=WIN, feature_len=N_MELS, hidden_size=HIDDEN,
+                 num_epochs=HOST_EPOCHS, dataset="combine", seed=SEED, optimizer="adam",
+                 learning_rate=1e-3, min_select_epoch=0)
+    mid = Path(__file__).resolve().parent / "build" / "host_loop_midfold"
+    shutil.rmtree(mid, ignore_errors=True)
+
+    def run(resume=False):
+        model = backbone(sds["baseline"], dropout=HOST_RESUME_DROPOUT)
+        state = init_state(model, make_optimizer(cfg, -(-len(train) // cfg.batch_size), model),
+                           SEED, DEV)
+        res = DL.fit_device(state, train, val, test, cfg, make_eval_logits_fn(model),
+                            verbose=False, resume_path=str(mid) if resume else None)
+        return res, state
+
+    class StopAfter(MidFoldCheckpoint):
+        def save(self, state, best_state, loop):
+            super().save(state, best_state, loop)
+            if loop["epoch"] == HOST_STOP:
+                raise Interrupted
+
+    ref, ref_state = run()
+    DL.MidFoldCheckpoint = StopAfter
+    try:
+        run(resume=True)
+        require(False, "resume: the interrupted fold ran to its end")
+    except Interrupted:
+        pass
+    finally:
+        DL.MidFoldCheckpoint = MidFoldCheckpoint
+    require(MidFoldCheckpoint(str(mid)).exists(), "resume: no mid-fold checkpoint left")
+    res, state = run(resume=True)
+    require(not mid.exists(), "resume: the mid-fold checkpoint outlived the fold")
+    same_hist = [(h["train"]["loss"], h["validate"]["loss"], h["test"]["acc"])
+                 for h in res.history] == [(h["train"]["loss"], h["validate"]["loss"],
+                                            h["test"]["acc"]) for h in ref.history]
+    same_best = all(torch.equal(res.best_state["model"][k], v)
+                    for k, v in ref.best_state["model"].items())
+    final, want = state.model.state_dict(), ref_state.model.state_dict()
+    same_final = all(torch.equal(final[k], v) for k, v in want.items())
+    out = {"epochs": len(res.history), "stopped_after_epoch": HOST_STOP,
+           "dropout": HOST_RESUME_DROPOUT, "history_equal": same_hist,
+           "best_epoch": [res.best_epoch, ref.best_epoch], "best_state_equal": same_best,
+           "final_state_equal": same_final, "step": [state.step, ref_state.step]}
+    log(f"resume: {out}")
+    require(same_hist and same_best and same_final and res.best_epoch == ref.best_epoch
+            and state.step == ref_state.step, f"resume: not bit-equal to the uninterrupted fold "
+            f"{out}")
+    return out
+
+
+def trace_kernels(trace_dir):
+    """(file bytes, names of the device kernels) of the one trace in
+    ``trace_dir``."""
+    files = list(Path(trace_dir).glob("*.pt.trace.json"))
+    require(len(files) == 1 and files[0].stat().st_size > 0, f"host_loop: traces {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return files[0].stat().st_size, {e.get("name", "") for e in events
+                                     if e.get("cat") == "kernel"}
+
+
+def host_loop_phase(rng):
+    """``train.loop.fit`` on the card (see HOST_TRAIN): the baseline with a
+    profiled first epoch and a StepTimer around its steps, the GRL cloak
+    (mask=), the attention multitask model; fit_device on the same windows
+    (the device loop's wall per epoch); each run held to the CPU on a cut
+    fold; the mid-fold resume.  Returns (info, launches by path)."""
+    from sept_tpu_torch.train import (init_state, make_eval_logits_fn, make_optimizer, preset,
+                                      speaker_weights)
+    from sept_tpu_torch.train.device_loop import fit_device
+    from sept_tpu_torch.utils import StepTimer
+
+    fold = fold_data(rng)
+    data = (cut_split(fold.training, HOST_TRAIN), fold.validation, fold.test)
+    sds = host_weights()
+    trace_dir = Path(__file__).resolve().parent / "build" / "host_loop_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    k1k4 = BLOCK1[:4]
+    never = BLOCK1_BF16 + NO_FRONTEND
+    runs = {"baseline": (HOST_EPOCHS, k1k4, never + ("block1_input_grad",)),
+            "grl": (HOST_SHORT_EPOCHS, BLOCK1, never),
+            "att_multitask": (HOST_SHORT_EPOCHS, k1k4, never + ("block1_input_grad",))}
+    info, launches = {"runs": {}}, {}
+    timer = StepTimer(DEV)
+    try:
+        for name, (epochs, must, absent) in runs.items():
+            extra = {"timer": timer, "profile_dir": str(trace_dir)} if name == "baseline" else {}
+            (result, state), launches[f"host_loop_{name}"], ms = drive(
+                lambda: host_run(name, sds, data, DEV, epochs, **extra), must, absent)
+            info["runs"][name] = stage_info(result, launches[f"host_loop_{name}"], ms)
+            info["runs"][name]["steps"] = state.step
+            log(f"host_loop {name}: {info['runs'][name]}")
+        steps = info["runs"]["baseline"]["steps"]
+        info["step_timer"] = timer.summary()
+        require(info["step_timer"]["n"] == steps - 1,
+                f"host_loop: StepTimer n {info['step_timer']['n']}, {steps} steps")
+        size, names = trace_kernels(trace_dir)
+        found = {sym: sorted(n for n in names if sym in n)[:2] for sym in BLOCK1_SYMBOLS}
+        info["trace"] = {"bytes": size, "device_kernels": len(names), "block1": found}
+        require(all(found.values()), f"host_loop: the trace names no block-1 kernel {found}")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+    # the two loops' walls on the same windows, weights and config, neither
+    # profiled nor timed by steps
+    def device_loop():
+        model = backbone(sds["baseline"], dropout=0.0)
+        cfg = preset("baseline", win_len=WIN, feature_len=N_MELS, hidden_size=HIDDEN,
+                     num_epochs=HOST_EPOCHS, dataset="combine", seed=SEED)
+        state = init_state(model, make_optimizer(cfg, -(-HOST_TRAIN // cfg.batch_size), model),
+                           SEED, DEV)
+        return fit_device(state, *data, cfg, make_eval_logits_fn(model),
+                          spk_weights=speaker_weights(data[0]), verbose=False)
+
+    (host, _), _, host_ms = drive(lambda: host_run("baseline", sds, data, DEV, HOST_EPOCHS),
+                                  k1k4, never)
+    dev_res, launches["host_loop_fit_device"], dev_ms = drive(device_loop, k1k4, never)
+    info["walls"] = {"host_loop_ms_per_epoch": host_ms / len(host.history),
+                     "fit_device_ms_per_epoch": dev_ms / len(dev_res.history),
+                     "host_over_device": (host_ms / len(host.history))
+                     / (dev_ms / len(dev_res.history)),
+                     # the same shuffle and pad rows: the two loops train alike
+                     "max_abs_loss_diff": max(
+                         abs(a[p]["loss"] - b[p]["loss"]) for a, b in zip(
+                             host.history, dev_res.history) for p in ("train", "validate"))}
+    log(f"host_loop walls: {info['walls']}")
+    require(len(host.history) == len(dev_res.history)
+            and info["walls"]["max_abs_loss_diff"] <= HOST_TOL,
+            f"host_loop: the host loop and the device loop train apart {info['walls']}")
+
+    cut = (cut_split(data[0], HOST_CPU_TRAIN), cut_split(data[1], HOST_CPU_VAL),
+           cut_split(data[2], HOST_CPU_TEST))
+    cudnn = torch.backends.cudnn
+    pinned = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    info["cpu"] = {"train_windows": HOST_CPU_TRAIN, "batch": CPU_BATCH,
+                   "val_windows": HOST_CPU_VAL, "test_utterances": HOST_CPU_TEST}
+    try:
+        for name, (epochs, _, _) in runs.items():
+            draws = [] if name == "grl" else None
+            card, _ = host_run(name, sds, cut, DEV, epochs, CPU_BATCH, eps=draws)
+            inject = None if draws is None else iter([e.cpu() for e in draws])
+            cpu, _ = host_run(name, sds, cut, "cpu", epochs, CPU_BATCH, eps=inject)
+            info["cpu"][name] = hold_fit(f"host_loop {name}", card, cpu)
+        info["resume"] = resume_check(sds, data)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = pinned
+    info.update(train_windows=HOST_TRAIN, val_windows=FOLD_VAL, test_utterances=FOLD_TEST,
+                batch=32, dropout=0.0, tolerance=HOST_TOL,
+                launches_per_run={k: {n: v for n, v in p.items() if v}
+                                  for k, p in launches.items()})
+    return info, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3391,6 +3720,11 @@ def main():
     fold, fold_launches, fold_csv = fold_phase(np.random.default_rng(SEED + 19))
     paths.update(fold_launches)
     log(f"fold done at {time.perf_counter() - t0:.1f} s")
+    t_host = time.perf_counter()
+    host, host_launches = host_loop_phase(np.random.default_rng(SEED + 29))
+    host["phase_s"] = time.perf_counter() - t_host
+    paths.update(host_launches)
+    log(f"host_loop done at {time.perf_counter() - t0:.1f} s")
     cli, cli_launches, artifacts, art_launches = cli_phase(np.random.default_rng(SEED + 23))
     paths.update(cli_launches)
     paths.update(art_launches)
@@ -3450,7 +3784,9 @@ def main():
              {"dp": {**dp, "launches_by_path": dp_launches, "card": smi}},
              {"fold": {**fold, "csv": fold_csv, "launches_by_path": fold_launches}},
              {"cli": {**cli, "card": smi}}, {"artifacts": {**artifacts, "card": smi}},
-             {"global": {**glob, "card": smi}}, {"card": smi}, {"kernels": kernels}]
+             {"global": {**glob, "card": smi}},
+             {"host_loop": {**host, "launches_by_path": host_launches, "card": smi}},
+             {"card": smi}, {"kernels": kernels}]
     # every result line also goes to a file, whole, where a caller that
     # keeps only the end of the output still finds them
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

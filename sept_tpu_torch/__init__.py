@@ -22,8 +22,15 @@ the openSMILE import, and ``--global_feature 1`` from featurize to the
 sweep; and data parallelism (``sept_tpu_torch.parallel``: process groups,
 sync-BN through block 1's kernels, the DP step and epoch runners, and
 ``--n_devices`` / ``SEPT_*`` through the fold drivers, the sweep and the
-CLIs).  The mel chain (f32
-and bf16), the MFCC's floor + DCT and the first conv block are hand-written
-CUDA kernels (``sept_tpu_torch/csrc``).  What is still to be ported is listed in
-ROADMAP.md.
+CLIs); and the last modules: the host fold loop (``train.fit``,
+``run_train_epoch``, ``run_eval_epoch``, a profiled first epoch with
+``profile_dir``), ``utils`` (``trace``, ``StepTimer``, ``KeySeq``,
+``fold_in_name``), one utterance's functionals and ``runtime.have_native``.
+Each subpackage exports the counterpart of every name in the JAX
+subpackage's ``__all__`` (``from sept_tpu_torch.train import fit,
+ExperimentConfig``); the few JAX names with no module-level counterpart
+are mapped in the README.  The mel chain (f32 and bf16), the MFCC's floor +
+DCT and the first conv block are hand-written CUDA kernels
+(``sept_tpu_torch/csrc``).  What only a benchmark or more cards can show is
+listed in ROADMAP.md.
 """

@@ -31,7 +31,9 @@ from sept_tpu_torch.ops import functionals as FN
 
 __all__ = [
     "N_GEMAPS",
+    "egemaps_functionals",
     "egemaps_functionals_batch",
+    "egemaps_functionals_reference",
     "corpus_vectors",
     "functionals_reference",
     "lpc_formants",
@@ -352,6 +354,12 @@ def egemaps_functionals_batch(waveforms: dict[str, np.ndarray], quantum: int = 8
     return out[0] if out else {}
 
 
+def egemaps_functionals(wave: np.ndarray, device="cuda") -> np.ndarray:
+    """(n_samples,) float32 waveform -> its (88,) vector on ``device``: the
+    batch entry's row for one utterance."""
+    return egemaps_functionals_batch({"_": np.asarray(wave, np.float32)}, device=device)["_"]
+
+
 # ---------------------------------------------------------------------------
 # numpy oracle of the reduction (the JAX package's round-1 implementation)
 
@@ -416,3 +424,15 @@ def functionals_reference(tracks: np.ndarray, n_samples: int) -> np.ndarray:
     out += [float(np.mean(ent)), float(np.std(ent))]
     assert len(out) == N_GEMAPS, len(out)
     return np.asarray(out, dtype=np.float32)
+
+
+def egemaps_functionals_reference(wave: np.ndarray) -> np.ndarray:
+    """The oracle of one utterance: :func:`_lld` on the CPU over the wave
+    zero-padded to a multiple of 8000 samples, cut to its frames, then
+    :func:`functionals_reference`."""
+    pad = -(-len(wave) // 8000) * 8000
+    padded = np.zeros(pad, np.float32)
+    padded[:len(wave)] = wave
+    with torch.no_grad():
+        tracks = _lld(torch.from_numpy(padded)[None])[0].numpy()
+    return functionals_reference(tracks[:FN.n_frames(len(wave))], len(wave))

@@ -29,7 +29,7 @@ from sept_tpu_torch.ops import frontend as F
 from sept_tpu_torch.ops import functionals as FN
 
 __all__ = ["N_EMOBASE", "N_LLD", "N_FUNCTIONALS", "combined_functionals_batch",
-           "emobase_functionals_batch", "f0_envelope"]
+           "emobase_functionals", "emobase_functionals_batch", "f0_envelope"]
 
 N_LLD = 52  # 26 tracks and their deltas
 N_FUNCTIONALS = 19
@@ -131,6 +131,12 @@ def emobase_functionals_batch(waveforms: dict[str, np.ndarray], quantum: int = 8
     out = EG.corpus_vectors(waveforms, quantum, batch_size, device,
                              lambda W, ts, ns: (_emobase_batch(W, ts),))
     return out[0] if out else {}
+
+
+def emobase_functionals(wave: np.ndarray, device="cuda") -> np.ndarray:
+    """(n_samples,) float32 waveform -> its (988,) vector on ``device``: the
+    batch entry's row for one utterance."""
+    return emobase_functionals_batch({"_": np.asarray(wave, np.float32)}, device=device)["_"]
 
 
 def combined_functionals_batch(waveforms: dict[str, np.ndarray], quantum: int = 8000,

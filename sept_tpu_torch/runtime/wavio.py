@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["build", "decode_wav", "decode_batch", "narrow_pcm16", "write_wav"]
+__all__ = ["build", "have_native", "decode_wav", "decode_batch", "narrow_pcm16", "write_wav"]
 
 _SRC = Path(__file__).resolve().parents[2] / "csrc" / "septio.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_septio"
@@ -93,6 +93,16 @@ def _load() -> ctypes.CDLL:
             ]
             _libs[path] = lib
         return lib
+
+
+def have_native() -> bool:
+    """Whether the native decoder builds and loads (a probe: the decoders
+    still raise without it)."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def decode_wav(path: str, target_sr: int = 16000, max_seconds: float = 120.0):

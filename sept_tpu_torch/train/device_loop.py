@@ -47,7 +47,8 @@ from sept_tpu_torch.models import pooling_for
 from sept_tpu_torch.parallel import (broadcast_state, is_main, make_cloak_epoch_runner_dp,
                                      make_epoch_runner_dp)
 from sept_tpu_torch.train.config import ExperimentConfig
-from sept_tpu_torch.train.loop import EarlyStopping, FitResult, first_head, run_test
+from sept_tpu_torch.train.loop import (EarlyStopping, FitResult, _row_weights, first_head,
+                                      run_test)
 from sept_tpu_torch.train.midfold import MidFoldCheckpoint
 from sept_tpu_torch.train.optim import PlateauScheduler, set_lr_scale
 from sept_tpu_torch.train.steps import (
@@ -103,12 +104,11 @@ class DeviceSplit:
 
 
 def _spk_weight_vec(split, spk_weights: Optional[dict]) -> Optional[np.ndarray]:
-    """Per-row combine-mode loss weights ``spk_weights["{speaker}_{dataset}"]``
-    (1 for a missing key), from ``split.speaker_ids`` and ``split.datasets``."""
+    """Per-row combine-mode loss weights of ``split`` (its ``speaker_ids``
+    and ``datasets``), or None without ``spk_weights``."""
     if spk_weights is None:
         return None
-    return np.array([spk_weights.get(f"{s}_{d}", 1.0)
-                     for s, d in zip(split.speaker_ids, split.datasets)], dtype=np.float32)
+    return _row_weights(split.speaker_ids, split.datasets, spk_weights)
 
 
 def _masked_uar(truth: np.ndarray, preds: np.ndarray, valid: np.ndarray):
@@ -201,16 +201,25 @@ def make_val_pass(apply_logits: Callable, use_global: bool = False, group=None):
 
 def _run_epoch_loop(state: TrainState, cfg: ExperimentConfig, *, train_epoch, val_epoch,
                     test_epoch, m_total: int, n_real: Optional[int] = None,
-                    resume_path: Optional[str] = None, verbose: bool = False,
-                    epoch_callback=None, group=None) -> FitResult:
-    """The epoch loop of both fold drivers.  ``train_epoch(state, epoch,
+                    needs_order: bool = True, resume_path: Optional[str] = None,
+                    verbose: bool = False, epoch_callback=None, group=None) -> FitResult:
+    """The epoch loop of every fold driver (both device drivers and
+    :func:`sept_tpu_torch.train.loop.fit`).  ``train_epoch(state, epoch,
     order) -> (state, {'loss', 'acc'})``, ``val_epoch(state) -> {'loss',
     'acc', 'uar'}`` and ``test_epoch(state) -> run_test's dict`` close over
     the workload's splits; the best-state tracking, plateau scaling, early
     stopping, mid-fold save / restore with the shuffle replayed, and the
     FitResult live here once.  ``epoch_callback(state) -> dict`` adds
     per-epoch observables to the history (the cloak's sigma statistics).
-    ``group``: rank 0 alone prints and writes the mid-fold checkpoints."""
+    ``needs_order=False``: the caller shuffles itself (``fit``'s
+    ``batch_iterator``), so no permutation is drawn and ``order`` is None;
+    such a caller cannot resume, since replay restores this loop's stream
+    only.  ``group``: rank 0 alone prints and writes the mid-fold
+    checkpoints."""
+    if not needs_order and resume_path is not None:
+        raise ValueError("resume requires the loop-owned shuffle stream (needs_order=True); a "
+                         "needs_order=False caller shuffles in its own generator, which "
+                         "replay cannot restore")
     verbose = verbose and is_main(group)
     rng = np.random.default_rng(cfg.seed)
     early = EarlyStopping(patience=cfg.early_stop_patience)
@@ -242,6 +251,8 @@ def _run_epoch_loop(state: TrainState, cfg: ExperimentConfig, *, train_epoch, va
             print(f"mid-fold resume: continuing at epoch {start_epoch}")
 
     def next_order():
+        if not needs_order:
+            return None
         # shuffle the real rows only; the pad rows stay in the last batch, so
         # they never enter train-mode BatchNorm statistics mid-epoch
         if n_real is None or n_real == m_total:

@@ -15,7 +15,10 @@ from a seed.  Tolerances, stage by stage:
   ``functionals_reference`` likewise;
 - the batch path against ``_gemaps_batch`` on three lengths in two length
   buckets: rtol = atol = 2e-3, ``tests/test_functionals.py``'s
-  device-vs-oracle bound.
+  device-vs-oracle bound;
+- one utterance's entries (``egemaps_functionals`` and the oracle
+  ``egemaps_functionals_reference``) against the JAX package's at 2e-3,
+  the first equal to the batch path's row of its wave.
 """
 
 import functools
@@ -140,3 +143,19 @@ def test_combined_path_equals_the_separate_paths_and_int16_staging():
         np.testing.assert_array_equal(emo[u], sep_e[u])
         np.testing.assert_array_equal(pcm_g[u], float_g[u])
         np.testing.assert_array_equal(pcm_e[u], float_e[u])
+
+
+@pytest.mark.parametrize("entry", ["egemaps_functionals", "egemaps_functionals_reference"])
+def test_single_utterance_entries_match_jax_and_the_batch_row(entry):
+    """The first wave (alone in its bucket in the batch path, so its chunk
+    is the batch path's) through one utterance's entry of each package."""
+    wave = _waves()["u0"]
+    row = TE.egemaps_functionals_batch(_waves(), device="cpu")["u0"]
+    if entry == "egemaps_functionals":
+        ours = TE.egemaps_functionals(wave, device="cpu")
+        np.testing.assert_array_equal(ours, row)
+    else:
+        ours = TE.egemaps_functionals_reference(wave)
+        np.testing.assert_allclose(ours, row, rtol=BATCH_TOL, atol=BATCH_TOL)
+    assert ours.shape == (TE.N_GEMAPS,) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, getattr(JE, entry)(wave), rtol=BATCH_TOL, atol=BATCH_TOL)

@@ -16,7 +16,9 @@ Inputs are ``speechlike`` waves made from a seed.  Tolerances:
   with std ~0.5, has an f32 mean uncertain by ~1e-7 |mean| sqrt(T), which
   the standardized moments see as up to ~5e-4; measured 2.4e-4);
 - the batch path against ``_emobase_batch``: rtol = atol = 2e-3,
-  ``tests/test_functionals.py``'s device-vs-oracle bound.
+  ``tests/test_functionals.py``'s device-vs-oracle bound; one utterance's
+  ``emobase_functionals`` against the JAX package's likewise, and equal to
+  the batch path's row of its wave where the wave is alone in its bucket.
 """
 
 import functools
@@ -102,3 +104,17 @@ def test_batch_path_matches_jax():
             assert ours[u].shape == (TM.N_EMOBASE,)
             np.testing.assert_allclose(ours[u], theirs[row], rtol=BATCH_TOL, atol=BATCH_TOL,
                                        err_msg=u)
+
+
+@pytest.mark.parametrize("i", range(len(LENGTHS)))
+def test_single_utterance_entry_matches_jax_and_the_batch_row(i):
+    wave = _waves()[f"u{i}"]
+    ours = TM.emobase_functionals(wave, device="cpu")
+    assert ours.shape == (TM.N_EMOBASE,) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, JM.emobase_functionals(wave), rtol=BATCH_TOL,
+                               atol=BATCH_TOL)
+    alone = TM.emobase_functionals_batch({f"u{i}": wave}, device="cpu")[f"u{i}"]
+    np.testing.assert_array_equal(ours, alone)
+    if i == 0:  # alone in its bucket in the batch path too
+        np.testing.assert_array_equal(
+            ours, TM.emobase_functionals_batch(_waves(), device="cpu")["u0"])

@@ -60,9 +60,17 @@ def test_port_imports_with_jax_blocked():
         "import sept_tpu_torch.ops.egemaps, sept_tpu_torch.ops.emobase\n"
         "import sept_tpu_torch.parallel, sept_tpu_torch.parallel.epoch_dp\n"
         "import sept_tpu_torch.data.opensmile_import\n"
+        "import sept_tpu_torch.utils.profiling, sept_tpu_torch.utils.prng\n"
+        "import sept_tpu_torch.data, sept_tpu_torch.ops, sept_tpu_torch.train\n"
+        "import sept_tpu_torch.eval, sept_tpu_torch.utils, sept_tpu_torch.runtime\n"
+        "import sept_tpu_torch.models, sept_tpu_torch.compat, sept_tpu_torch.cli\n"
+        "from sept_tpu_torch.train import fit, ExperimentConfig\n"
+        "from sept_tpu_torch.data import featurize_corpus, SplitArrays\n"
         "import chip_smoke\n"
         "assert not any(m.startswith(('jax', 'flax', 'orbax', 'sklearn')) for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
+        "from sept_tpu_torch.ops import cuda_lib\n"
+        "assert not cuda_lib._libs, 'a kernel was built on import'\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)

@@ -170,3 +170,14 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="building the WAV decoder failed.*exit 3"):
         wavio.decode_wav(str(tmp_path / "a.wav"))
     assert not list((tmp_path / "build").glob("*"))
+
+
+def test_have_native_probes_the_build(tmp_path, monkeypatch):
+    """True where the library builds and loads, as the JAX package's; False
+    without a compiler, where the decoders still raise (no fallback)."""
+    assert wavio.have_native() and jwavio.have_native()
+    monkeypatch.setattr(wavio, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(wavio.shutil, "which", lambda name: None)
+    assert wavio.have_native() is False
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        wavio.decode_batch([str(tmp_path / "a.wav")])
