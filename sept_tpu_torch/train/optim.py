@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from sept_tpu_torch.train.config import ExperimentConfig
+from sept_tpu_torch.utils.profiling import span
 
 __all__ = [
     "Optimizer",
@@ -81,11 +82,14 @@ class Optimizer:
         self.count = int(state["count"])
 
     def step(self):
-        lr = self.schedule(self.count) * self.lr_scale
-        for group in self.torch_opt.param_groups:
-            group["lr"] = lr
-        self.torch_opt.step()
-        self.count += 1
+        """One update at ``schedule(count) * lr_scale``, a ``train.optimizer``
+        span in a profiler session."""
+        with span("train.optimizer"):
+            lr = self.schedule(self.count) * self.lr_scale
+            for group in self.torch_opt.param_groups:
+                group["lr"] = lr
+            self.torch_opt.step()
+            self.count += 1
 
 
 def _torch_opt(cfg: ExperimentConfig, params) -> torch.optim.Optimizer:

@@ -28,6 +28,12 @@ The models carry their own ``compute_dtype`` (``Conv2dBiRNN``): a bf16
 model trains through the same steps, with logits, losses and metrics in f32.
 Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).
 
+In a ``torch.profiler`` session each training step is a ``train.step``
+span (:func:`~sept_tpu_torch.utils.profiling.span`) holding
+``train.forward`` (the draws through the loss), ``train.backward`` and the
+optimizer's ``train.optimizer``; ``zero_grad`` and the metrics stay in the
+step's own time, an epoch runner's row gather outside it.
+
 ``use_global``: the 88-dim global feature goes to the model beside the
 windows, ``batch["global"]`` (B, 88) in a step and ``globals_`` (M, 88) in
 an epoch runner, rows picked with the windows'.  The model must be built
@@ -48,6 +54,7 @@ from torch import nn
 from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.models.backbone import DropoutDraws
 from sept_tpu_torch.train.optim import Optimizer
+from sept_tpu_torch.utils.profiling import span
 
 __all__ = [
     "TrainState",
@@ -133,7 +140,8 @@ def _metrics(logits, labels, weights, loss):
 
 def _apply(state: TrainState, loss: torch.Tensor) -> None:
     state.optimizer.zero_grad()
-    loss.backward()
+    with span("train.backward"):
+        loss.backward()
     state.optimizer.step()
     state.step += 1
 
@@ -223,11 +231,13 @@ def baseline_loss(model, spec, labels, weights, labels_gen, pooling, g, draws,
 
 
 def _baseline_update(state, spec, labels, weights, labels_gen, pooling, g=None):
-    model = state.model.train()
-    loss, out = baseline_loss(model, spec, labels, weights, labels_gen, pooling, g,
-                              DropoutDraws(state.generator))
-    _apply(state, loss)
-    return _metrics(out.detach(), labels, weights, loss)
+    with span("train.step"):
+        model = state.model.train()
+        with span("train.forward"):
+            loss, out = baseline_loss(model, spec, labels, weights, labels_gen, pooling, g,
+                                      DropoutDraws(state.generator))
+        _apply(state, loss)
+        return _metrics(out.detach(), labels, weights, loss)
 
 
 def make_baseline_step(pooling: Optional[str] = "mean", use_global: bool = False):
@@ -348,17 +358,19 @@ def make_cloak_step(scale_lambda: float = 0.0, apply_scale_reg: bool = True,
     f32_precision()
 
     def step(state: TrainState, batch: dict, mask=None, eps=None):
-        model = state.model.train()
-        key = "labels_emo" if model.backbone.pred == "emotion" else "labels_gen"
-        labels, w = batch[key], batch["weight"]
-        if eps is None:
-            eps = model.noise.draw_eps(state.generator)
-        g = batch["global"] if use_global else None
-        loss, logits = cloak_loss(model, batch["spec"], labels, w, eps, mask, pooling,
-                                  antithetic, g)
-        loss = scale_reg(model, loss, scale_lambda, apply_scale_reg)
-        _apply(state, loss)
-        return state, _metrics(logits.detach(), labels, w, loss)
+        with span("train.step"):
+            model = state.model.train()
+            key = "labels_emo" if model.backbone.pred == "emotion" else "labels_gen"
+            labels, w = batch[key], batch["weight"]
+            with span("train.forward"):
+                if eps is None:
+                    eps = model.noise.draw_eps(state.generator)
+                g = batch["global"] if use_global else None
+                loss, logits = cloak_loss(model, batch["spec"], labels, w, eps, mask, pooling,
+                                          antithetic, g)
+                loss = scale_reg(model, loss, scale_lambda, apply_scale_reg)
+            _apply(state, loss)
+            return state, _metrics(logits.detach(), labels, w, loss)
 
     return step
 
@@ -381,23 +393,25 @@ def make_cloak_grl_step(scale_lambda: float = 0.0, gender_lambda: float = 0.1,
     f32_precision()
 
     def step(state: TrainState, batch: dict, mask=None, eps=None):
-        model = state.model.train()
-        le, lg, w = batch["labels_emo"], batch["labels_gen"], batch["weight"]
-        if eps is None:
-            eps = model.noise.draw_eps(state.generator)
-        draws = DropoutDraws(state.generator)
-        g = batch["global"] if use_global else None
-        align = (saliency_alignment_loss(model, batch["spec"], le, lg, w, pooling, g)
-                 if saliency_align else None)
-        loss, emo, gen = grl_loss(model, batch["spec"], le, lg, w, eps, mask, pooling,
-                                  antithetic, gender_lambda, draws, g)
-        loss = scale_reg(model, loss, scale_lambda, apply_scale_reg)
-        if align is not None:
-            loss = loss + saliency_align * align
-        _apply(state, loss)
-        m = _metrics(emo.detach(), le, w, loss)
-        m["gender_correct"] = ((gen.detach().argmax(-1) == lg) * (w > 0)).sum()
-        return state, m
+        with span("train.step"):
+            model = state.model.train()
+            le, lg, w = batch["labels_emo"], batch["labels_gen"], batch["weight"]
+            with span("train.forward"):
+                if eps is None:
+                    eps = model.noise.draw_eps(state.generator)
+                draws = DropoutDraws(state.generator)
+                g = batch["global"] if use_global else None
+                align = (saliency_alignment_loss(model, batch["spec"], le, lg, w, pooling, g)
+                         if saliency_align else None)
+                loss, emo, gen = grl_loss(model, batch["spec"], le, lg, w, eps, mask, pooling,
+                                          antithetic, gender_lambda, draws, g)
+                loss = scale_reg(model, loss, scale_lambda, apply_scale_reg)
+                if align is not None:
+                    loss = loss + saliency_align * align
+            _apply(state, loss)
+            m = _metrics(emo.detach(), le, w, loss)
+            m["gender_correct"] = ((gen.detach().argmax(-1) == lg) * (w > 0)).sum()
+            return state, m
 
     return step
 

@@ -2,7 +2,7 @@
 logging (the counterparts of ``sept_tpu.utils``)."""
 
 from sept_tpu_torch.utils.logging import MetricsLogger, RunManifest
-from sept_tpu_torch.utils.profiling import StepTimer, trace
+from sept_tpu_torch.utils.profiling import StepTimer, span, trace
 from sept_tpu_torch.utils.prng import KeySeq, fold_in_name
 
 __all__ = [
@@ -11,5 +11,6 @@ __all__ = [
     "RunManifest",
     "StepTimer",
     "fold_in_name",
+    "span",
     "trace",
 ]

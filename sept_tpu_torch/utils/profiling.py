@@ -1,10 +1,14 @@
-"""Profiling hooks: a profiler trace of a block, and a per-step wall timer.
+"""Profiling hooks: a profiler trace of a block, named spans inside it, and a
+per-step wall timer.
 
 Counterpart of ``sept_tpu/utils/profiling.py``:
 
 - :func:`trace` wraps a block in a ``torch.profiler`` session (host
   activity, and the card's kernels and copies when a card is present) and
   writes a TensorBoard-loadable ``*.pt.trace.json`` into a directory;
+- :func:`span` names a phase of the program in whatever ``torch.profiler``
+  session is open (:func:`trace`'s or a caller's own), and costs one check
+  when none is;
 - :class:`StepTimer` measures per-step wall time, reporting n, mean, p50,
   p90 and total.  With a CUDA device it synchronizes that device on enter
   and on exit, so each sample is the step's whole time on the card, not its
@@ -21,7 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["trace", "StepTimer"]
+__all__ = ["trace", "span", "StepTimer"]
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -40,6 +46,21 @@ def trace(log_dir: Optional[str] = None, enabled: bool = True):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
+
+
+def span(name: str):
+    """``with span("train.step"): ...`` marks the block as a range named
+    ``name`` in the open ``torch.profiler`` session.
+
+    In a trace the range is a host event of the session that records the
+    card's kernels and copies, on its clock: ranges nest by time on the
+    thread that opened them, and a device operation belongs to the range
+    that holds its launch (the runtime call with the same correlation id).
+    Outside a session it returns one shared no-op context: the cost is the
+    check alone, and nothing is recorded."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

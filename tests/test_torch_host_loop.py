@@ -139,7 +139,8 @@ def test_fit_matches_jax(pred, att):
 
 
 def test_fit_profiles_its_first_epoch(tmp_path):
-    """``profile_dir`` writes one trace, of the first training epoch."""
+    """``profile_dir`` writes one trace, of the first training epoch, with
+    the steps' spans in it."""
     _, (tr, va, te) = _splits()
     cfg = ExperimentConfig(**_cfg_kw(num_epochs=2))
     params, stats = _weights("emotion")
@@ -148,7 +149,11 @@ def test_fit_profiles_its_first_epoch(tmp_path):
     fit(state, make_baseline_step(), make_eval_logits_fn(model), tr, va, te, cfg,
         verbose=False, profile_dir=str(tmp_path / "prof"))
     traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
-    assert len(traces) == 1 and "aten::convolution" in traces[0].read_text()
+    assert len(traces) == 1
+    text = traces[0].read_text()
+    assert "aten::convolution" in text
+    for name in ("train.step", "train.forward", "train.backward", "train.optimizer"):
+        assert f'"name": "{name}"' in text, name
 
 
 def test_fit_cloak_grl_matches_jax():
