@@ -81,11 +81,15 @@ class Optimizer:
         self.lr_scale = float(state["lr_scale"])
         self.count = int(state["count"])
 
+    def lr(self) -> float:
+        """The learning rate of the next update: ``schedule(count) * lr_scale``."""
+        return self.schedule(self.count) * self.lr_scale
+
     def step(self):
-        """One update at ``schedule(count) * lr_scale``, a ``train.optimizer``
-        span in a profiler session."""
+        """One update at :meth:`lr`, a ``train.optimizer`` span in a profiler
+        session."""
         with span("train.optimizer"):
-            lr = self.schedule(self.count) * self.lr_scale
+            lr = self.lr()
             for group in self.torch_opt.param_groups:
                 group["lr"] = lr
             self.torch_opt.step()

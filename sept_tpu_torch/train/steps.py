@@ -28,11 +28,26 @@ The models carry their own ``compute_dtype`` (``Conv2dBiRNN``): a bf16
 model trains through the same steps, with logits, losses and metrics in f32.
 Factories switch TF32 off (``sept_tpu_torch.device.f32_precision``).
 
+On a card the epoch runners replay the whole training step as one CUDA
+graph (:class:`_StepGraph`): the row gather, the epsilon and dropout draws,
+the forward through every backbone, the loss, ``loss.backward()`` and the
+SGD update, the same kernels an eager step launches, with the host out from
+between them.  A runner's first full batch runs eagerly on the capture
+stream (the warm-up: SGD's momentum buffers, cuDNN's and autograd's lazy
+state), the next is captured and replayed, and every later one with the
+same batch shape, learning rate and tensors is replayed.  It decides from
+what it sees: CPU tensors, an injected ``eps``, an optimizer other than
+SGD and a short batch run eagerly as before.  The step closures that
+:func:`~sept_tpu_torch.train.loop.fit` drives and the data-parallel runners
+always run eagerly.  Each runner counts its steps in ``graph_captures``,
+``graph_replays`` and ``eager_steps``.
+
 In a ``torch.profiler`` session each training step is a ``train.step``
-span (:func:`~sept_tpu_torch.utils.profiling.span`) holding
-``train.forward`` (the draws through the loss), ``train.backward`` and the
-optimizer's ``train.optimizer``; ``zero_grad`` and the metrics stay in the
-step's own time, an epoch runner's row gather outside it.
+span (:func:`~sept_tpu_torch.utils.profiling.span`); an eager or captured
+step holds ``train.forward`` (the draws through the loss),
+``train.backward`` and the optimizer's ``train.optimizer``, a replayed one
+``train.replay``.  ``zero_grad`` and the metrics stay in the step's own
+time, an eager step's row gather outside it.
 
 ``use_global``: the 88-dim global feature goes to the model beside the
 windows, ``batch["global"]`` (B, 88) in a step and ``globals_`` (M, 88) in
@@ -46,6 +61,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 from typing import Optional
 
 import torch
@@ -154,6 +170,189 @@ def _batches(order, n_batches, batch_size, device):
 
 def _stack(metrics):
     return tuple(torch.stack([m[k] for m in metrics]) for k in ("loss", "correct", "count"))
+
+
+def _packed(m):
+    """A step's (loss, correct, count) as one (3,) f32 tensor."""
+    return torch.stack([m["loss"], m["correct"], m["count"]])
+
+
+def _launch_counters():
+    """Block 1's launch counters: ``(wrapper, attribute)`` pairs."""
+    from sept_tpu_torch.ops import conv_block1 as k
+
+    return [(f, attr) for f in (k.block1_conv_stats, k.block1_norm_pool, k.block1_route,
+                                k.block1_weight_grads, k.block1_input_grad)
+            for attr in ("launches", "launches_bf16")]
+
+
+def _tensor_key(t):
+    """Where and how a tensor lies: what a captured kernel baked in."""
+    return None if t is None else (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+
+
+def _graph_key(state: TrainState, batch_size: int, inputs) -> Optional[tuple]:
+    """Everything a captured step bakes in but the learning rate, or None
+    where the step cannot be captured (an optimizer other than SGD, whose
+    host-side state a replay would not advance): the model, optimizer and
+    generator objects, the batch size, the runner's input tensors, every
+    parameter (and whether it trains), buffer and optimizer-state tensor,
+    and the optimizer's other hyperparameters."""
+    opt = state.optimizer.torch_opt
+    if type(opt) is not torch.optim.SGD:
+        return None
+    model = state.model
+    return (model, state.optimizer, state.generator, batch_size,
+            tuple(_tensor_key(t) for t in inputs),
+            tuple((_tensor_key(p), p.requires_grad) for p in model.parameters()),
+            tuple(_tensor_key(b) for b in model.buffers()),
+            tuple(tuple((k, _tensor_key(v) if torch.is_tensor(v) else v)
+                        for k, v in opt.state.get(p, {}).items())
+                  for g in opt.param_groups for p in g["params"]),
+            tuple(tuple((k, v) for k, v in g.items() if k not in ("params", "lr"))
+                  for g in opt.param_groups))
+
+
+class _StepGraph:
+    """One epoch runner's training step as a captured CUDA graph, kept
+    across the runner's calls.
+
+    ``update(state, i, idx)`` is the eager step on the rows ``idx`` of the
+    runner's inputs (the gather included); it returns the step's metrics.
+    The graph captures ``update`` on a static index buffer, with
+    ``zero_grad(set_to_none=True)`` before its backward, so the gradients
+    live in the graph's memory pool, and with ``state.generator`` registered,
+    so that each replay draws what an eager step would and advances the
+    generator as far.  A replay is one index copy, the graph and one copy of
+    its (loss, correct, count) out; the host advances ``state.step`` and the
+    optimizer's count, and adds to block 1's launch counters what the
+    capture counted.
+
+    A replay needs the key (:func:`_graph_key`) and the learning rate the
+    graph was captured at.  A new learning rate recaptures at once, in the
+    same pool; any other change (a loaded optimizer state, a new mask or
+    batch shape) first takes one eager step on the capture stream, which
+    makes whatever the step creates lazily, and captures at the next."""
+
+    def __init__(self):
+        self.graph = None
+        self.key = self.lr = None  # what the graph baked in
+        self.warm = None  # the key after the last full-batch eager step
+        self.stream = self.pool = self.idx = self.packed = None
+        self.launches = {}  # block 1's launches a replay
+
+    def plan(self, key, lr, whole: bool) -> str:
+        """What a step with ``key`` at ``lr`` does: "replay", "capture" or
+        "eager"; ``whole``: the batch has the runner's batch size."""
+        if not whole:
+            return "eager"
+        if key == self.key and lr == self.lr:
+            return "replay"
+        return "capture" if key == self.warm else "eager"
+
+    def eager(self, state, update, i, idx) -> torch.Tensor:
+        """One eager step on the capture stream; its packed metrics."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(idx.device)
+        here = torch.cuda.current_stream(idx.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            packed = _packed(update(state, i, idx))
+        here.wait_stream(self.stream)
+        return packed
+
+    def capture(self, state, update, key, lr, batch_size: int) -> None:
+        """Capture ``update`` on the index buffer.  The capture's host side
+        advances the state as one step does; its kernels run at the
+        replay after it."""
+        if self.idx is None or self.idx.shape[0] != batch_size:
+            self.idx = torch.empty(batch_size, dtype=torch.long,
+                                   device=state.generator.device)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        counters = _launch_counters()
+        before = [getattr(f, a) for f, a in counters]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        # no collection inside the capture: garbage that holds another
+        # graph would free it there, which the capture does not permit
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                packed = _packed(update(state, None, self.idx))
+        finally:
+            if collecting:
+                gc.enable()
+        self.launches = {}
+        for (f, a), n in zip(counters, before):
+            if getattr(f, a) != n:
+                self.launches[f, a] = getattr(f, a) - n
+            setattr(f, a, n)
+        self.graph, self.packed, self.key, self.lr = graph, packed, key, lr
+
+    def replay(self, state, idx, out, advance: bool = True) -> None:
+        """Run the captured step on the rows ``idx``; its metrics into ``out``."""
+        self.idx.copy_(idx)
+        with span("train.step"), span("train.replay"):
+            self.graph.replay()
+            out.copy_(self.packed)
+        if advance:
+            state.step += 1
+            state.optimizer.count += 1
+        for (f, a), n in self.launches.items():
+            setattr(f, a, getattr(f, a) + n)
+
+
+class _EpochRunner:
+    """An epoch runner: ``fn(runner, state, ...)`` with the runner's captured
+    step and its counters ``graph_captures``, ``graph_replays`` and
+    ``eager_steps``, in the idiom of the kernel wrappers' ``launches``.  A
+    class and not a closure, so that a runner (and its graph's memory pool)
+    goes with its last reference and never waits for the cyclic garbage
+    collector, which could run during another runner's capture."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph = _StepGraph()
+        self.graph_captures = self.graph_replays = self.eager_steps = 0
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(self, *args, **kwargs)
+
+    def steps(self, state: TrainState, update, inputs, order, n_batches: int,
+              batch_size: int, graphed: bool):
+        """``n_batches`` steps of ``update`` over ``order``: (losses,
+        correct, counts).  ``graphed``: replay the captured step where it
+        applies (CUDA inputs, an SGD optimizer, a whole batch, the captured
+        key and learning rate); else every step is eager, as on the CPU."""
+        device = inputs[0].device
+        key = (_graph_key(state, batch_size, inputs) if graphed and device.type == "cuda"
+               else None)
+        if key is None:
+            self.eager_steps += n_batches
+            return _stack([update(state, i, idx) for i, idx in
+                           enumerate(_batches(order, n_batches, batch_size, device))])
+        graph = self.graph
+        out = torch.empty((3, n_batches), dtype=torch.float32, device=device)
+        for i, idx in enumerate(_batches(order, n_batches, batch_size, device)):
+            whole = idx.shape[0] == batch_size
+            lr = state.optimizer.lr()
+            todo = graph.plan(key, lr, whole)
+            if todo == "replay":
+                graph.replay(state, idx, out[:, i])
+                self.graph_replays += 1
+            elif todo == "capture":
+                graph.capture(state, update, key, lr, batch_size)
+                graph.replay(state, idx, out[:, i], advance=False)
+                self.graph_captures += 1
+            else:
+                out[:, i] = graph.eager(state, update, i, idx)
+                self.eager_steps += 1
+                key = _graph_key(state, batch_size, inputs)
+                if whole:
+                    graph.warm = key
+        return out[0], out[1], out[2]
 
 
 def cloak_scales(model: nn.Module) -> torch.Tensor:
@@ -267,17 +466,19 @@ def make_epoch_runner(pooling: Optional[str] = "mean", use_global: bool = False)
     and ``globals_`` (M, 88) with ``use_global``."""
     f32_precision()
 
-    def run(state, windows, labels, weights, order, *, n_batches: int,
+    def run(runner, state, windows, labels, weights, order, *, n_batches: int,
             batch_size: int, globals_=None, labels_gen=None):
-        metrics = []
-        for idx in _batches(order, n_batches, batch_size, windows.device):
-            metrics.append(_baseline_update(
-                state, windows[idx][:, None], labels[idx], weights[idx],
-                None if labels_gen is None else labels_gen[idx], pooling,
-                globals_[idx] if use_global else None))
-        return (state, *_stack(metrics))
+        g = globals_ if use_global else None
 
-    return run
+        def update(st, i, idx):
+            return _baseline_update(st, windows[idx][:, None], labels[idx], weights[idx],
+                                    None if labels_gen is None else labels_gen[idx],
+                                    pooling, None if g is None else g[idx])
+
+        return (state, *runner.steps(state, update, (windows, labels, weights, labels_gen, g),
+                                     order, n_batches, batch_size, graphed=True))
+
+    return _EpochRunner(run)
 
 
 def make_eval_logits_fn(model: nn.Module, use_global: bool = False, **forward_kwargs):
@@ -430,15 +631,19 @@ def make_cloak_epoch_runner(scale_lambda: float = 0.0, gender_lambda: float = 0.
                                 antithetic, saliency_align, use_global) if grl else
             make_cloak_step(scale_lambda, apply_scale_reg, pooling, antithetic, use_global))
 
-    def run(state, windows, labels_emo, labels_gen, weights, order, mask, *,
+    def run(runner, state, windows, labels_emo, labels_gen, weights, order, mask, *,
             n_batches: int, batch_size: int, eps=None, globals_=None):
-        metrics = []
-        for i, idx in enumerate(_batches(order, n_batches, batch_size, windows.device)):
+        g = globals_ if use_global else None
+
+        def update(st, i, idx):
             batch = {"spec": windows[idx][:, None], "labels_emo": labels_emo[idx],
                      "labels_gen": labels_gen[idx], "weight": weights[idx]}
-            if use_global:
-                batch["global"] = globals_[idx]
-            metrics.append(step(state, batch, mask, None if eps is None else eps[i])[1])
-        return (state, *_stack(metrics))
+            if g is not None:
+                batch["global"] = g[idx]
+            return step(st, batch, mask, None if eps is None else eps[i])[1]
 
-    return run
+        return (state, *runner.steps(state, update,
+                                     (windows, labels_emo, labels_gen, weights, g, mask),
+                                     order, n_batches, batch_size, graphed=eps is None))
+
+    return _EpochRunner(run)
