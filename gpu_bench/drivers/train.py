@@ -17,6 +17,15 @@ them.  The window closes at the end of the first epoch that ends after
 ``--trace 1`` runs the same window untraced, then profiles
 ``trace_steps`` steps of one more epoch: the profiler's start, stop and
 reduction, and whatever it leaves behind, stay out of the window's rate.
+Then, in a second session, it profiles the traffic's ``span_steps`` (0
+without the key) steps of the library's eager step, the one ``fit``'s host
+loop runs, whose spans the epoch runners' replayed step does not open:
+``Record.spans``.  Neither profile counts in the rate or in ``attempted``.
+
+Everything that belongs to one model family (its leaves and their initial
+values, the program's backbone and ingest arguments, the reference's
+windows, losses and optimizer step, its FLOPs, its launch counters) comes
+from the configuration's family module (``harness/cell.py::family``).
 
 After the window the plain reference repeats the checked steps from the
 same weights, windows worked out again from the same waves, and the same
@@ -30,18 +39,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import statistics
 import time
 
 import numpy as np
 import torch
 
-from gpu_bench.harness import counts
-from gpu_bench.harness.cell import Cell, Record
+from gpu_bench.harness.cell import Cell, Record, family
+from gpu_bench.harness.spans import reduce_spans
 from gpu_bench.harness.trace import MARKER, summarize
-from gpu_bench.harness.weights import grl_leaves, make_weights
-from gpu_bench.reference import model as R
-from gpu_bench.reference.features import ingest_windows
+from gpu_bench.harness.weights import make_weights
 
 MEDIAN_FLOOR_RULE = 1e-3  # a leaf whose reference gradient is under this share
 #                           of the median leaf's moves by round-off alone
@@ -77,6 +85,8 @@ class Job:
     state: object
     model: object
     epoch: object  # epoch(state, order, n_batches) -> (state, losses, correct, counts)
+    step: object  # step(state, batch) -> (state, metrics): the library's eager step
+    batch: object  # batch(rows) -> the eager step's batch of training rows
     val: object  # val() -> (loss, preds)
     trainable: dict  # name -> parameter the optimizer updates
     weights: object  # the training split's row weights the steps read
@@ -88,7 +98,8 @@ def build_job(cfg: dict, tr: dict, weights: dict, gen_seed: int, eval_seed: int,
     from sept_tpu_torch.train.config import preset
     from sept_tpu_torch.train.device_loop import make_val_pass
     from sept_tpu_torch.train.optim import make_cloak_optimizer, make_optimizer
-    from sept_tpu_torch.train.steps import (init_state, make_cloak_epoch_runner,
+    from sept_tpu_torch.train.steps import (init_state, make_baseline_step,
+                                            make_cloak_epoch_runner, make_cloak_grl_step,
                                             make_epoch_runner, make_eval_logits_fn)
 
     opt = cfg["optimizer"]
@@ -98,10 +109,10 @@ def build_job(cfg: dict, tr: dict, weights: dict, gen_seed: int, eval_seed: int,
     bs = tr["batch_size"]
     spe = n_train // bs
 
+    fam = family(cfg)
+
     def backbone(pred):
-        return build_backbone(cfg["model_type"], hidden_size=cfg["hidden_size"],
-                              feature_len=cfg["feature_len"], win_len=cfg["win_len"],
-                              pred=pred, compute_dtype=cd, dropout_rate=cfg["dropout_rate"])
+        return build_backbone(pred=pred, compute_dtype=cd, **fam.backbone_kwargs(cfg))
 
     tw, vw = ds.windows[:n_train], ds.windows[n_train:]
     t_emo, v_emo = ds.labels_emo[:n_train], ds.labels_emo[n_train:]
@@ -117,11 +128,13 @@ def build_job(cfg: dict, tr: dict, weights: dict, gen_seed: int, eval_seed: int,
         def epoch(st, order, n_batches):
             return runner(st, tw, t_emo, t_w, order, n_batches=n_batches, batch_size=bs)
 
+        step = make_baseline_step(pooling=cfg["pooling"])
         logits_fn = make_eval_logits_fn(model, pooling=cfg["pooling"])
     else:
+        _, win, feats = fam.noise_shape(cfg)
         model = CloakedModelGRL(backbone("emotion"), backbone("gender"),
-                                grl_lambda=cfg["grl_lambda"], win_len=cfg["win_len"],
-                                n_feats=cfg["feature_len"], min_scale=cfg["noise_min_scale"],
+                                grl_lambda=cfg["grl_lambda"], win_len=win, n_feats=feats,
+                                min_scale=cfg["noise_min_scale"],
                                 max_scale=cfg["noise_max_scale"])
         model.load_state_dict(weights)
         optimizer = make_cloak_optimizer(exp, spe, model, tuple(cfg["trainable"]))
@@ -133,6 +146,9 @@ def build_job(cfg: dict, tr: dict, weights: dict, gen_seed: int, eval_seed: int,
             return runner(st, tw, t_emo, t_gen, t_w, order, None, n_batches=n_batches,
                           batch_size=bs)
 
+        step = make_cloak_grl_step(cfg["scale_lambda"], cfg["gender_lambda"],
+                                   pooling=cfg["pooling"])
+
         eps0 = model.noise.draw_eps(torch.Generator(device=device).manual_seed(eval_seed))
         logits_fn = make_eval_logits_fn(model, eps=eps0, pooling=cfg["pooling"])
     val_pass = make_val_pass(logits_fn)
@@ -140,8 +156,13 @@ def build_job(cfg: dict, tr: dict, weights: dict, gen_seed: int, eval_seed: int,
     def val():
         return val_pass(vw, v_emo, v_w, n_batches=n_val, batch_size=bs)
 
+    def batch(rows):
+        idx = torch.as_tensor(rows, dtype=torch.long, device=tw.device)
+        return {"spec": tw[idx][:, None], "labels_emo": t_emo[idx], "labels_gen": t_gen[idx],
+                "weight": t_w[idx]}
+
     trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
-    return Job(state, model, epoch, val, trainable, t_w)
+    return Job(state, model, epoch, step, batch, val, trainable, t_w)
 
 
 def _momentum(job: Job) -> dict:
@@ -159,41 +180,40 @@ def _norms(d: dict) -> dict:
     return {k: float(torch.linalg.vector_norm(v.double())) for k, v in d.items()}
 
 
-def reference_steps(cfg: dict, w0: dict, batches: list, gen_seed: int, device,
-                    prec: R.Precision = R.F32) -> dict:
-    """The plain reference over the checked steps: losses, the first
-    gradient's and first momentum buffer's norms per trainable leaf, and
-    each leaf's change, from the benchmark's weights ``w0``."""
-    R.f32_off()
-    trainable = {k for k in w0 if (cfg["task"] == "baseline" or
-                                   k.split(".")[0] in cfg["trainable"])
-                 and w0[k].is_floating_point() and not k.endswith(("running_mean",
-                                                                   "running_var"))}
+def reference_steps(cfg: dict, w0: dict, batches: list, gen_seed: int, device, prec) -> dict:
+    """The plain reference over the checked steps in the family's precision
+    ``prec``: losses, the first gradient's and first momentum buffer's norms
+    per trainable leaf, and each leaf's change, from the benchmark's weights
+    ``w0``."""
+    fam = family(cfg)
+    fam.f32_off()
+    kinds = {k: kind for k, (_, kind) in fam.leaves(cfg).items()}
+    params = [k for k in w0 if w0[k].is_floating_point() and kinds[k] not in fam.STATE_KINDS]
+    trainable = {k for k in params if cfg["task"] == "baseline"
+                 or k.split(".")[0] in cfg["trainable"]}
     p = {k: v.clone().requires_grad_(k in trainable) if v.is_floating_point() else v
          for k, v in w0.items()}
     g = torch.Generator(device=torch.device(device)).manual_seed(gen_seed)
-    draws = R.Draws(g)
+    draws = fam.Draws(g)
     bufs, losses, first_grad = {}, [], None
     names = sorted(trainable)
     for x, le, lg, wts in batches:
         if cfg["task"] == "baseline":
-            loss = R.baseline_loss(p, x, le, wts, cfg, draws, prec)
+            loss = fam.baseline_loss(p, x, le, wts, cfg, draws, prec)
         else:
-            eps = cfg["eps_std"] * draws.normal((1, cfg["win_len"], cfg["feature_len"]))
-            loss = R.grl_loss(p, x, le, lg, wts, cfg, eps, draws, prec)
+            eps = cfg["eps_std"] * draws.normal(fam.noise_shape(cfg))
+            loss = fam.grl_loss(p, x, le, lg, wts, cfg, eps, draws, prec)
         grads = dict(zip(names, torch.autograd.grad(loss, [p[k] for k in names])))
         if first_grad is None:
             first_grad = {k: v.clone() for k, v in grads.items()}
-            for k, rows in ((k, R.pinned_rows(k, cfg["hidden_size"])) for k in names):
+            for k, rows in ((k, fam.pinned_rows(k, cfg)) for k in names):
                 if rows is not None:
                     first_grad[k][rows] = 0.0
-        R.sgd_step(p, grads, bufs, cfg["optimizer"], cfg["hidden_size"])
+        fam.sgd_step(p, grads, bufs, cfg["optimizer"], cfg)
         losses.append(float(loss.detach()))
         if len(losses) == 1:
             buf1 = _norms(bufs)
-    change = _norms({k: p[k].detach() - w0[k] for k in w0
-                     if w0[k].is_floating_point() and not k.endswith(("running_mean",
-                                                                      "running_var"))})
+    change = _norms({k: p[k].detach() - w0[k] for k in params})
     return {"losses": losses, "grad": _norms(first_grad), "buf1": buf1, "change": change,
             "trainable": sorted(trainable)}
 
@@ -240,17 +260,15 @@ class Setup:
         self.stages = {"start": time.perf_counter()}
         self.waves, self.spk, emo, gen = make_waves(tr, cfg, data_seed, device)
         self.stages["waves"] = time.perf_counter()
-        ds = device_ingest(list(self.waves), self.spk, emo, gen, n_fft=cfg["n_fft"],
-                           n_mels=cfg["feature_len"], win_len=cfg["win_len"],
-                           shift_len=cfg["shift_len"], frontend=tr["frontend"], device=device)
+        self.family = family(cfg)
+        ds = device_ingest(list(self.waves), self.spk, emo, gen, frontend=tr["frontend"],
+                           device=device, **self.family.ingest_kwargs(cfg))
         self.stages["ingest"] = time.perf_counter()
         self.n_train = tr["train_windows"]
         if len(ds) != self.n_train + tr["val_windows"] or not bool((ds.weight > 0).all()):
             raise RuntimeError(f"ingest gave {len(ds)} windows, some padding; expected "
                                f"{self.n_train + tr['val_windows']} whole ones")
-        leaves = (R.leaf_shapes(cfg, cfg["pred"]) if cfg["task"] == "baseline"
-                  else grl_leaves(cfg))
-        self.w0 = make_weights(leaves, weight_seed, device, cfg["hidden_size"])
+        self.w0 = make_weights(cfg, self.family, weight_seed, device)
         self.job = build_job(cfg, tr, self.w0, self.gen_seed, eval_seed, ds, self.n_train,
                              device)
         self.ds = ds
@@ -277,13 +295,14 @@ class Setup:
     def reference(self, control: bool = False) -> dict:
         """The reference's readings over the checked steps, windows worked
         out again from the waves; ``control``: computed in the precision
-        below the cell's (:data:`R.PRECISIONS`)."""
-        prec = R.PRECISIONS[self.tr["compute_dtype"]][int(control)]
+        below the cell's (the family's ``PRECISIONS``)."""
+        fam = self.family
+        prec = fam.PRECISIONS[self.tr["compute_dtype"]][int(control)]
         dev, cfg, bs = self.device, self.cfg, self.tr["batch_size"]
-        R.f32_off()
+        fam.f32_off()
         waves = torch.as_tensor(self.waves, device=dev)
         spk = torch.as_tensor(self.spk, device=dev)
-        wins = ingest_windows(waves, spk, self.check_rows, cfg).to(torch.float32)
+        wins = fam.windows(waves, spk, self.check_rows, cfg).to(torch.float32)
         n_win = self.tr["windows_per_utterance"]
         utt = torch.as_tensor(self.check_rows // n_win, device=dev)
         emo = torch.as_tensor(self.labels[0], device=dev)[utt]
@@ -295,11 +314,10 @@ class Setup:
         return reference_steps(cfg, self.w0, batches, self.gen_seed, dev, prec)
 
 
-def _launch_counters():
-    from sept_tpu_torch.ops import conv_block1 as K
-
-    return {(name, mode): (getattr(K, name), attr) for name in counts.BLOCK1_KERNELS
-            for mode, attr in (("float32", "launches"), ("bfloat16", "launches_bf16"))}
+def _launch_counters(cfg: dict) -> dict:
+    """The family's launch counters: ``{key: (function, attribute)}``."""
+    return {key: (getattr(importlib.import_module(mod), fn), attr)
+            for key, (mod, fn, attr) in family(cfg).counters().items()}
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: float,
@@ -348,11 +366,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
     if trace:
         rec.slice_steps = min(tr["trace_steps"], n_batches)
         order = setup.rng.permutation(setup.n_train)
-        with _profiled(rec, cuda):
+        with _profiled(rec, cuda, _launch_counters(setup.cfg)):
             losses = job.epoch(job.state, order[:rec.slice_steps * bs], rec.slice_steps)[1]
             sync()
         bad += int((~torch.isfinite(losses)).sum())
         steps += rec.slice_steps
+        rec.spans = _span_steps(job, setup.rng.permutation(setup.n_train), tr, cuda, sync)
+        if rec.spans is not None and rec.spans.steps:
+            rec.extra["span_steps_ms"] = rec.spans.per_step_ms()
     rec.attempted, rec.failed = steps, bad
     del job, setup.job, setup.ds
     if cuda:
@@ -366,17 +387,40 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
 
 
 @contextlib.contextmanager
-def _profiled(rec: Record, cuda: bool):
-    """Profile the block inside it: the trace summary and block 1's
-    launches by kernel and mode."""
+def _session(cuda: bool):
+    """A profiler session around the block, the block inside the marker."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    counters = _launch_counters()
-    for f, attr in counters.values():
-        setattr(f, attr, 0)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         with record_function(MARKER):
-            yield
+            yield prof
+
+
+@contextlib.contextmanager
+def _profiled(rec: Record, cuda: bool, counters: dict):
+    """Profile the block inside it: the trace summary and the family's
+    launch counters, zeroed at its start."""
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    with _session(cuda) as prof:
+        yield
     rec.launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
     rec.trace = summarize(prof)
+
+
+def _span_steps(job: Job, order, tr: dict, cuda: bool, sync):
+    """``span_steps`` eager steps of the library's step on rows of ``order``,
+    their batches gathered before the session and one warm step before it:
+    the spans of the profiled steps, or None without the key."""
+    n, bs = tr.get("span_steps", 0), tr["batch_size"]
+    if not n:
+        return None
+    batches = [job.batch(order[i * bs:(i + 1) * bs]) for i in range(n + 1)]
+    job.step(job.state, batches[0])
+    sync()
+    with _session(cuda) as prof:
+        for b in batches[1:]:
+            job.step(job.state, b)
+        sync()
+    return reduce_spans(prof)

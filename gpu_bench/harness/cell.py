@@ -9,6 +9,9 @@ file of its own, found by the name ``BENCHMARK.json`` gives it:
   ``drivers/<kind>.py``, named by the file's ``kind``;
 - ``limits/<workload>.json``: the limit of each number that decides
   ``correct``;
+- the configuration's model family: the module that its ``reference`` key
+  names below the ``gpu_bench`` package (``reference/<family>.py``,
+  ``"reference.<family>"``), ``reference/cnn_bigru.py`` without the key;
 - ``metrics/<metric>.py``: ``read(record, cell) -> float | None`` for every
   end-to-end and per-layer metric.  ``None`` leaves the metric out.
 """
@@ -23,6 +26,7 @@ from pathlib import Path
 from typing import Optional
 
 HERE = Path(__file__).resolve().parents[1]  # gpu_bench/
+DEFAULT_FAMILY = "reference.cnn_bigru"
 
 
 @dataclasses.dataclass
@@ -51,6 +55,8 @@ class Record:
     trace: Optional[object] = None  # trace.Summary
     slice_steps: int = 0
     launches: dict = dataclasses.field(default_factory=dict)  # kernel counter -> launches
+    # the program's eager steps, profiled after the slice
+    spans: Optional[object] = None  # spans.Spans
     extra: dict = dataclasses.field(default_factory=dict)
 
 
@@ -73,6 +79,12 @@ def load_cell(root: Path, workload: str) -> Cell:
                 json.loads((HERE / "traffic" / f"{entry['traffic']}.json").read_text()),
                 json.loads((HERE / "limits" / f"{workload}.json").read_text()),
                 e2e, layer, entry["chips"])
+
+
+def family(config: dict):
+    """The model family's module of a configuration (``reference/cnn_bigru.py``
+    documents what it provides)."""
+    return importlib.import_module(f"gpu_bench.{config.get('reference', DEFAULT_FAMILY)}")
 
 
 def driver(cell: Cell):

@@ -1,12 +1,8 @@
-"""The yardstick's arithmetic: the chip's peaks, the work the algorithms
-need, counted from the published shapes, and each kernel's least time.
-
-FLOPs count the multiply-adds (2 each) of the convolutions, the GRU's
-input and hidden projections, dense1 and the head.  Elementwise work
-(BatchNorm, ReLU, pooling, the gates' nonlinearities, dropout, the noise)
-is left out, so a model-FLOP share reads a little low.  The counts are the
-algorithm's, not what an implementation launches: a later change that fuses
-or removes a kernel reads against the same work.
+"""The yardstick's arithmetic: the chip's peaks and each kernel's least
+time.  A model family's FLOPs are its family module's
+(``reference/<family>.py``, ``train_flops_per_window``): the algorithm's
+work from the published shapes, not what an implementation launches, so a
+later change that fuses or removes a kernel reads against the same work.
 
 A kernel's least time is the larger of its operations over the peak rate
 and its bytes over the memory bandwidth (each input read once, each output
@@ -26,48 +22,6 @@ PEAKS = {"float32": PEAK_F32_FLOPS, "bfloat16": PEAK_BF16_FLOPS}
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> float:
     """Least seconds of a kernel: max(operations / peak, bytes / bandwidth)."""
     return max(flops / peak, nbytes / PEAK_BYTES)
-
-
-def backbone_layers(cfg: dict) -> dict:
-    """FLOPs of one forward of a ``cnn_bigru_ser`` backbone on one window,
-    by layer."""
-    k2 = cfg["kernel_size"] ** 2
-    h_px, w_px, c_in = cfg["win_len"], cfg["feature_len"], 1
-    out = {}
-    for i, c in enumerate(cfg["channels"]):
-        out[f"block{i + 1}"] = 2.0 * h_px * w_px * c * c_in * k2
-        h_px, w_px, c_in = h_px // 2, w_px // 2, c
-    hidden, steps = cfg["hidden_size"], h_px
-    f_in = c_in * w_px
-    for layer in range(cfg["num_rnn_layers"]):
-        out[f"gru{layer + 1}"] = 2.0 * 2 * steps * 3 * hidden * (f_in + hidden)
-        f_in = 2 * hidden
-    n_cls = cfg["classes"][cfg.get("pred", "emotion")]
-    out["heads"] = 2.0 * (2 * hidden * cfg["dense_size"] + cfg["dense_size"] * n_cls)
-    return out
-
-
-def forward_flops(cfg: dict) -> float:
-    """F: one eval or train forward of a backbone on one window."""
-    return sum(backbone_layers(cfg).values())
-
-
-def train_flops_per_window(cfg: dict) -> float:
-    """One training step's FLOPs per window.  A backward is a weight
-    gradient and an input gradient, each the forward's products again.
-
-    - ``baseline``: forward + weight gradients + input gradients, less block
-      1's input gradient (the windows are data): 3F - block1.
-    - ``cloak_grl``: the frozen emotion backbone's forward and input
-      gradient (2F, into the noise) and the gender backbone's forward,
-      weight and input gradients (3F): 5F.
-    """
-    f = forward_flops(cfg)
-    if cfg["task"] == "baseline":
-        return 3.0 * f - backbone_layers(cfg)["block1"]
-    if cfg["task"] == "cloak_grl":
-        return 5.0 * f
-    raise ValueError(f"unknown task {cfg['task']!r}")
 
 
 # block 1's kernels, K1-K5, one launch on (batch, 1, H, W) windows and C

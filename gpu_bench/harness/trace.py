@@ -39,19 +39,32 @@ def _ns(evt, what):
     return getattr(evt, f"{what}_us")() * 1000
 
 
+def _annotation(evt) -> bool:
+    return getattr(evt, "is_user_annotation", lambda: False)()
+
+
+def _device_op(evt) -> bool:
+    """A kernel, copy or set on the device; the marker's own range and the
+    spans' ranges show on the device timeline too, as annotations."""
+    return (evt.device_type() == torch.autograd.DeviceType.CUDA and evt.name() != MARKER
+            and not _annotation(evt))
+
+
+def _item(evt):
+    """(start ns, end ns, name, thread)."""
+    start = _ns(evt, "start")
+    return (start, start + _ns(evt, "duration"), evt.name(),
+            getattr(evt, "start_thread_id", lambda: 0)())
+
+
 def _events(prof):
     """(device events, host events) as (start ns, end ns, name, thread)."""
     dev, host = [], []
     for e in prof.profiler.kineto_results.events():
-        start = _ns(e, "start")
-        item = (start, start + _ns(e, "duration"), e.name(),
-                getattr(e, "start_thread_id", lambda: 0)())
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            # the marker's own range shows on the device timeline too
-            if e.name() != MARKER and not getattr(e, "is_user_annotation", lambda: False)():
-                dev.append(item)
-        else:
-            host.append(item)
+        if _device_op(e):
+            dev.append(_item(e))
+        elif e.device_type() != torch.autograd.DeviceType.CUDA:
+            host.append(_item(e))
     return dev, host
 
 

@@ -48,12 +48,13 @@ def test_cell_finds_its_files(workload):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(config):
+    """Each configuration keeps its family's published widths but the keys
+    it lists in ``reduced``."""
     data = json.loads((ROOT / config["file"]).read_text())
     assert data["name"] == config["name"] and data["source"] == config["source"]
-    assert config["reduced"] == []
-    assert (data["hidden_size"], data["feature_len"], data["win_len"], data["shift_len"],
-            data["n_fft"], data["channels"], data["dense_size"]) == (
-        64, 128, 200, 50, 800, [32, 64, 128], 128)
+    published = C.family(data).PUBLISHED
+    for key, value in published.items():
+        assert key in config["reduced"] or data[key] == value, key
 
 
 def test_every_metric_has_a_reader():

@@ -1,8 +1,8 @@
 """``harness/spans.py``: the device-idle time under the program's phase
-spans, from hand-made device and host intervals fed through the profiler
-object's interface, and from a CPU traced run of each training cell;
-``summarize`` reads the same events as it did before the program had
-spans."""
+spans and the device time by the spans of each operation's launch, from
+hand-made device and host intervals fed through the profiler object's
+interface, and from a CPU traced run of each training cell; ``summarize``
+reads the same events as it did before the program had spans."""
 
 import time
 from types import SimpleNamespace
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from gpu_bench.drivers import train as train_job
-from gpu_bench.harness.spans import PHASES, STEP, reduce_spans
+from gpu_bench.harness.spans import PHASES, STEP, device_ms_per_step, reduce_spans
 from gpu_bench.harness.trace import MARKER, summarize
 from tiny import train_cell, train_workloads
 
@@ -19,9 +19,11 @@ from tiny import train_cell, train_workloads
 class _Event:
     """The part of a kineto event that the reductions read."""
 
-    def __init__(self, start, end, name, cuda=False, annotation=False, thread=1):
+    def __init__(self, start, end, name, cuda=False, annotation=False, thread=1,
+                 correlation=0):
         self._start, self._end, self._name = start, end, name
         self._cuda, self._annotation, self._thread = cuda, annotation, thread
+        self._correlation = correlation
 
     def start_ns(self):
         return self._start
@@ -41,6 +43,9 @@ class _Event:
     def device_type(self):
         return torch.autograd.DeviceType.CUDA if self._cuda else torch.autograd.DeviceType.CPU
 
+    def correlation_id(self):
+        return self._correlation
+
 
 def _prof(events):
     results = SimpleNamespace(events=lambda: list(events))
@@ -51,13 +56,27 @@ def _kernel(start, end, name="k"):
     return _Event(start, end, name, cuda=True)
 
 
-def _host(start, end, name):
-    return _Event(start, end, name)
+def _host(start, end, name, thread=1):
+    return _Event(start, end, name, thread=thread)
+
+
+def _span(start, end, name, thread=1):
+    return _Event(start, end, name, annotation=True, thread=thread)
 
 
 def _annotated(start, end, name):
     """A host span and its range on the device timeline."""
-    return [_host(start, end, name), _Event(start, end, name, cuda=True, annotation=True)]
+    return [_span(start, end, name), _Event(start, end, name, cuda=True, annotation=True)]
+
+
+def _launch(at, correlation, thread=1):
+    """A runtime call that launches the device operation of ``correlation``."""
+    return _Event(at, at + 5, "cudaLaunchKernel", thread=thread, correlation=correlation)
+
+
+def _launched(start, end, at, correlation, thread=1):
+    return [_Event(start, end, "k", cuda=True, correlation=correlation),
+            _launch(at, correlation, thread)]
 
 
 # a 1,000 ns slice: kernels [100, 200], [300, 600], [800, 900]; idle [0, 100],
@@ -119,6 +138,42 @@ def test_a_span_over_many_host_events_is_not_lost():
     assert dict(summary.idle_gaps)["train.backward"] < 0.1 * got.idle_under["train.backward"]
 
 
+def test_device_time_goes_to_the_spans_of_its_launch():
+    """Each device operation counts under the innermost span open at its
+    launch (``device_self``) and under every open one (``device_under``),
+    whichever thread launched it: a span's time is where its operations
+    run, not where its host range lies."""
+    events = ([_host(0, 10_000, MARKER), _span(0, 10_000, MARKER)]
+              # a step holding a forward and a backward; an optimizer that
+              # begins at the backward's end, and one inner range inside it
+              + [_span(100, 9_000, STEP), _span(200, 3_000, "train.forward"),
+                 _span(3_000, 6_000, "train.backward"), _span(6_000, 8_800, "train.optimizer"),
+                 _span(6_000, 7_000, "Optimizer.step#SGD.step")]
+              # kernels run late, after their launches' spans have ended
+              + _launched(1_000, 1_400, 250, 1)  # forward: 400
+              + _launched(3_500, 4_500, 2_999, 2)  # forward, at its last ns: 1,000
+              + _launched(4_500, 4_600, 3_000, 3)  # backward, from its first ns: 100
+              + _launched(7_000, 7_300, 6_000, 4)  # the optimizer's inner range: 300
+              + _launched(7_300, 7_500, 8_000, 5)  # the optimizer itself: 200
+              + _launched(8_950, 9_100, 8_900, 6)  # the step's own time: 150
+              + _launched(9_500, 9_600, 9_200, 7)  # outside any span: 100
+              # the autograd engine's thread, in the backward: 300
+              + _launched(9_600, 9_900, 4_000, 8, thread=2)
+              + _launched(9_900, 10_400, 1_500, 9))  # past the slice's end: 100 inside
+    got = reduce_spans(_prof(events))
+    assert got.steps == 1
+    assert got.device_s == pytest.approx(2_650e-9, rel=1e-12)
+    assert got.device_self == pytest.approx(
+        {"train.forward": 1_500e-9, "train.backward": 400e-9, "train.optimizer": 200e-9,
+         "Optimizer.step#SGD.step": 300e-9, STEP: 150e-9}, rel=1e-12)
+    assert got.device_under == pytest.approx(
+        {"train.forward": 1_500e-9, "train.backward": 400e-9, "train.optimizer": 500e-9,
+         "Optimizer.step#SGD.step": 300e-9, STEP: 2_550e-9}, rel=1e-12)
+    assert device_ms_per_step(got, STEP) == pytest.approx(2_550e-6, rel=1e-12)
+    assert device_ms_per_step(got, "train.replay") is None
+    assert device_ms_per_step(None, STEP) is None
+
+
 def test_no_device_events_and_no_marker_read_nothing():
     got = reduce_spans(_prof([_host(0, 10, STEP)]))
     assert (got.window_s, got.idle_s, got.idle_under, got.steps) == (0.0, 0.0, {}, 0)
@@ -145,6 +200,22 @@ def test_summarize_reads_the_events_as_before():
     assert dict(without.idle_gaps) == pytest.approx(
         {"no traced host op": 300e-9, "aten::conv": 100e-9, "cudaLaunchKernel": 100e-9},
         rel=1e-12)
+
+
+@pytest.mark.parametrize("workload", train_workloads())
+def test_span_steps_carry_their_spans(workload):
+    """A training cell's traced run profiles its span steps, the library's
+    eager step, apart from the slice: one ``train.step`` span a step, every
+    device operation launched inside one (none on the CPU), each phase
+    present, and the phases' idle within the steps' idle."""
+    cell = train_cell(workload)
+    rec = train_job.run(cell, 2**31 + 11, 0.0, True, "cpu", time.perf_counter())
+    got = rec.spans
+    assert rec.correct and got is not None
+    assert got.steps == cell.traffic["span_steps"] == 2
+    assert got.device_under.get(STEP, 0.0) == got.device_s
+    assert set(got.idle_under) == set(PHASES)
+    assert 0 < sum(got.idle_under.values()) <= got.idle_s <= got.window_s
 
 
 @pytest.mark.parametrize("workload", train_workloads())
