@@ -1,5 +1,6 @@
 """On-device ingest: waveforms -> log-mel -> per-speaker z-norm -> training
-windows, every intermediate on the device.
+windows, every intermediate on the device; or, for waveform models
+(``frontend="wave"``), waveforms -> normalized wave windows.
 
 Counterpart of ``sept_tpu/data/device_pipeline.py`` (``_ingest``,
 ``device_ingest`` and ``DeviceDataset``).  The mel goes through
@@ -12,6 +13,13 @@ centred two-pass variance: dB features make E[x^2] - E[x]^2 cancel badly in
 float32); for utterances longer than one window they differ on purpose from
 the host pipeline's, which counts overlapping window rows, as in the JAX
 package.
+
+The ``"wave"`` frontend (the port's own: the JAX package has no waveform
+model) cuts (win_len * HOP)-sample windows every shift_len * HOP samples of
+the int16 / 32768 wave, each normalized to zero mean and unit variance
+(``(x - mean) / sqrt(var + 1e-7)``, the input normalization the WavLM
+release applies to its Large model) and laid out as (win_len, HOP): the
+windows of the mel path, frame for frame.
 """
 
 from __future__ import annotations
@@ -23,10 +31,12 @@ from sept_tpu_torch.data.prep import HOP, prepare_waves
 from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.ops.mel import mel_db
 
-__all__ = ["DeviceDataset", "device_ingest", "FRONTENDS"]
+__all__ = ["DeviceDataset", "device_ingest", "FRONTENDS", "WAVE"]
 
 # the JAX package's frontend names -> the mel kernel's bf16 flag
 FRONTENDS = {"xla": False, "pallas_bf16": True}
+WAVE = "wave"  # wave windows for waveform models, no mel
+_WAVE_EPS = 1e-7
 
 
 class DeviceDataset:
@@ -79,6 +89,25 @@ def _ingest(padded, n_frames, speaker_idx, labels_emo, labels_gen, *, n_fft, n_m
             wvalid.reshape(m).to(torch.float32))
 
 
+def _wave_ingest(waves, lengths, labels_emo, labels_gen, *, win_len, shift_len):
+    """(N, L) int16 waves of ``lengths`` samples (zero past them) -> (windows
+    (N * max_windows, win_len, HOP) f32, labels, labels, weights)."""
+    size, stride = win_len * HOP, shift_len * HOP
+    n = waves.shape[0]
+    if waves.shape[1] < size:  # short corpus: zeros up to one window
+        waves = torch.nn.functional.pad(waves, (0, size - waves.shape[1]))
+    x = waves.unfold(1, size, stride).to(torch.float32) / 32768.0  # (N, W, size)
+    max_windows = x.shape[1]
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).pow(2).mean(-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + _WAVE_EPS)
+    n_valid = torch.clamp((lengths - size) // stride, min=0) + 1
+    wvalid = torch.arange(max_windows, device=waves.device)[None, :] < n_valid[:, None]
+    m = n * max_windows
+    return (x.reshape(m, win_len, HOP), labels_emo.repeat_interleave(max_windows),
+            labels_gen.repeat_interleave(max_windows), wvalid.reshape(m).to(torch.float32))
+
+
 def device_ingest(waveforms: list[np.ndarray], speaker_idx: np.ndarray,
                   labels_emo: np.ndarray, labels_gen: np.ndarray, n_fft: int = 800,
                   n_mels: int = 128, win_len: int = 200, shift_len: int = 50,
@@ -90,18 +119,34 @@ def device_ingest(waveforms: list[np.ndarray], speaker_idx: np.ndarray,
     ``frontend`` keeps the JAX package's names, so callers of both packages
     agree: ``"xla"`` (the parity default) runs the f32 mel kernel;
     ``"pallas_bf16"`` (the throughput mode) runs the bf16 mel kernel, bf16
-    operands with f32 accumulation.  An unknown name raises ``ValueError``
-    (the JAX package runs the parity mode for it).
+    operands with f32 accumulation.  ``"wave"`` (for ``wavlm-large``) makes
+    (N * max_windows, win_len, HOP) windows of the normalized wave (the
+    module's docstring), int16 input only; ``n_fft`` and ``n_mels`` are not
+    read.  An unknown name raises ``ValueError`` (the JAX package runs the
+    parity mode for it).
     """
-    if frontend not in FRONTENDS:
-        raise ValueError(f"unknown frontend {frontend!r}; expected one of {sorted(FRONTENDS)}")
+    if frontend not in FRONTENDS and frontend != WAVE:
+        raise ValueError(f"unknown frontend {frontend!r}; expected one of "
+                         f"{sorted([*FRONTENDS, WAVE])}")
     dev = resolve_device(device)
     f32_precision()
+    as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)  # noqa: E731
+    if frontend == WAVE:
+        if any(np.asarray(w).dtype != np.int16 for w in waveforms):
+            raise ValueError("the wave frontend takes int16 PCM")
+        lengths = np.asarray([len(w) for w in waveforms])
+        waves = np.zeros((len(waveforms), int(lengths.max())), dtype=np.int16)
+        for i, w in enumerate(waveforms):
+            waves[i, :len(w)] = w
+        with torch.no_grad():
+            out = _wave_ingest(torch.from_numpy(waves).to(dev), as_long(lengths),
+                               as_long(labels_emo), as_long(labels_gen), win_len=win_len,
+                               shift_len=shift_len)
+        return DeviceDataset(*out)
     padded, n_frames = prepare_waves(waveforms, n_fft)
     tmax = int(n_frames.max())
     max_windows = max(0, (tmax - win_len) // shift_len) + 1
     n_speakers = int(np.max(speaker_idx)) + 1
-    as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)  # noqa: E731
     with torch.no_grad():
         windows, le, lg, wv = _ingest(
             torch.from_numpy(padded).to(dev), as_long(n_frames), as_long(speaker_idx),

@@ -1,5 +1,6 @@
 """PyTorch models of the port: the model zoo (every ``--model_type`` of the
-JAX package) and the cloak (noise layer and the cloaked training models)."""
+JAX package, and ``wavlm-large``, which the JAX package does not have) and
+the cloak (noise layer and the cloaked training models)."""
 
 import inspect
 
@@ -15,6 +16,7 @@ from sept_tpu_torch.models.backbone import (
     PlainConv2d,
 )
 from sept_tpu_torch.models.cloak import CloakedModel, CloakedModelGRL, CloakNoise
+from sept_tpu_torch.models.wavlm import WavLM
 
 __all__ = [
     "N_GLOBAL",
@@ -27,6 +29,7 @@ __all__ = [
     "DeepConv2dBiRNN",
     "OneDConvNet",
     "PlainConv2d",
+    "WavLM",
     "build_backbone",
     "compute_dtype",
     "pooling_for",
@@ -38,6 +41,7 @@ _CLASSES = {
     "deep-2d-cnn-lstm": DeepConv2dBiRNN,
     "1d-cnn-lstm-att": OneDConvNet,
     "2d-cnn": PlainConv2d,
+    "wavlm-large": WavLM,
 }
 # Knobs that only some model types take: build_backbone drops these (and
 # only these) for a type whose class lacks them, so that the trainers can
