@@ -224,15 +224,24 @@ and read just after; each kernel the path must use has to have launched
                beside their plain versions, one bf16 PyTorch call and the
                bound, then at the edge shapes; K2 in both modes bit-equal
                to its plain version at K2_EDGES (odd H and W, widths off
-               16, three column tiles, a misaligned conv output).
+               16, three column tiles, a misaligned conv output); the bf16
+               GRU's forward and backward recurrence kernels (bigru_lowp,
+               bigru_lowp_bwd) at both layers' shapes: the op's output
+               equal to the loop's (bigru_layer_lowp) on the card, its 9
+               gradients within GRU_GRAD_GAPS of the loop's on the CPU, the
+               backward kernel's rows against the plain backward on the
+               CPU from the same saved tensors (each direction's first step
+               and bf16(h_{t-1}) equal, the rest within GRU_ROWS_GAP), each
+               kernel timed alone beside its plain version and its bound.
 14. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
 15. profile    device time by kernel over predict calls of 1 and of 8
                utterances and over 3 baseline and 3 cloak + GRL steps in each
                dtype, the device's busy share of the wall time
                (torch.profiler), the f32 rate of the blocks 2-3 convolutions
-               when serving, and the bf16 GRU's step loop beside cuDNN's bf16
-               GRU (a yardstick: it keeps a bf16 hidden state).
+               when serving, and the bf16 GRU op beside the step loop it
+               replaces and cuDNN's bf16 GRU (a yardstick: it keeps a bf16
+               hidden state).
 
 Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
@@ -240,7 +249,8 @@ Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ``{"train_bf16": ...}``, ``{"dp": ...}``, ``{"fold": ...}``, ``{"cli":
 ...}``, ``{"artifacts": ...}``, ``{"global": ...}`` and ``{"host_loop":
 ...}`` lines, the card's ``name, power.limit`` from nvidia-smi, a
-``{"kernels": [...]}`` line (every kernel, block 1's in each mode), and
+``{"kernels": [...]}`` line (every kernel, block 1's in each mode, the
+GRU's two), and
 last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
 ``chiprun_out/chip_smoke.jsonl`` beside the script (git-ignored).
@@ -287,6 +297,19 @@ WIDE_EDGE = (1, 27, 264)
 BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
 BLOCK1 = ("block1_conv_stats", "block1_norm_pool") + BACKWARD
 BLOCK1_BF16 = tuple(f"{k}_bf16" for k in BLOCK1)  # the kernels' bf16 mode, counted apart
+GRU_LOWP = ("bigru_lowp", "bigru_lowp_bwd")  # the bf16 GRU's recurrences, forward and backward
+# the bf16 GRU op's gradients against autograd through the loop on the CPU,
+# relative to its norm (tests/test_torch_gru_lowp.py's GAP_ONE_ROUNDING for
+# dx, dW_ih, db_ih, GAP_STEP_SUMS for dW_hh, db_hh: [False], [True]); the
+# backward kernel's dgi and dgh rows against the plain backward's on the CPU
+# from the same saved tensors, relative to its norm: the kernel keeps the
+# CPU's roundings (each direction's first step, before any dgh W_hh product,
+# is equal), and the products' sums move single units after it, which the
+# chain of roundings spreads (2.5e-6 and 1.3e-5 at the two layers' shapes
+# here, up to 1.4e-3 at H 128 on an H100; torch's elementwise kernels on the
+# card read 3e-3 to 1.1e-2 from the kernel)
+GRU_GRAD_GAPS = (1e-2, 2e-2)
+GRU_ROWS_GAP = 1e-3
 # bf16 training: the saliency-alignment weight of its GRL game, and GPU vs
 # CPU over 3 steps held to the bounds tests/test_torch_train_bf16.py holds
 # the port to the JAX package with (losses relative; trained parameters and
@@ -955,13 +978,17 @@ def profile_phase(predictor, rng, n=8, reps=3):
 def kernel_counters():
     """Every kernel launch counter of the port, by kernel name: (wrapper,
     attribute).  Block 1's wrappers count each mode apart: its bf16 mode is
-    the row <kernel>_bf16."""
+    the row <kernel>_bf16.  The bf16 GRU's forward and backward recurrences
+    are bigru_lowp and bigru_lowp_bwd."""
     from sept_tpu_torch.ops import conv_block1 as K
+    from sept_tpu_torch.ops import gru_lowp as G
     from sept_tpu_torch.ops import mel as M
     from sept_tpu_torch.ops import mfcc as MF
 
     counters = {"mel_db": (M.mel_db, "launches"), "mel_db_bf16": (M.mel_db_bf16, "launches"),
-                "floor_dct": (MF.floor_dct, "launches")}
+                "floor_dct": (MF.floor_dct, "launches"),
+                "bigru_lowp": (G.bigru_lowp, "launches"),
+                "bigru_lowp_bwd": (G.bigru_lowp, "launches_bwd")}
     for name in BLOCK1:
         counters[name] = (getattr(K, name), "launches")
         counters[f"{name}_bf16"] = (getattr(K, name), "launches_bf16")
@@ -1467,8 +1494,9 @@ def train_bf16_phase(ds, order, sds):
     """One epoch of T_BATCHES batches of T_BATCH of each workload with
     ``compute_dtype="bfloat16"`` on the bf16 ingest's windows, full width:
     baseline (K1-K4 in bf16, no K5), plain cloak (K1-K3 and K5, no K4), cloak
-    + GRL with the antithetic pair and the saliency term (all five); no
-    block-1 launch in the f32 mode.  Returns (per-path info, launches)."""
+    + GRL with the antithetic pair and the saliency term (all five); the
+    bf16 GRU's forward and backward kernels in each; no block-1 launch in
+    the f32 mode.  Returns (per-path info, launches)."""
     from sept_tpu_torch.train.steps import make_cloak_epoch_runner, make_epoch_runner
 
     base, (cloak, cloak_kw), (grl, grl_kw) = train_states(sds, DEV, dtype="bfloat16",
@@ -1490,7 +1518,8 @@ def train_bf16_phase(ds, order, sds):
         before = snapshot(state.model)
         key = f"train_bf16_{name}"
         out, launches[key], ms = drive(
-            run, must=tuple(k for k in BLOCK1_BF16 if k not in absent), must_not=absent + BLOCK1)
+            run, must=tuple(k for k in BLOCK1_BF16 if k not in absent) + GRU_LOWP,
+            must_not=absent + BLOCK1)
         _, losses, correct, counts = out
         losses = losses.cpu().numpy()
         require(np.isfinite(losses).all(), f"bf16 {name}: non-finite losses {losses}")
@@ -1692,8 +1721,10 @@ def train_bf16_edge_phase(device):
     return worst
 
 
-def device_launches(fn):
-    """Device activities (kernels, copies) of one run of ``fn``, by torch.profiler."""
+def device_activities(fn):
+    """(summed device ms, count) of the device activities (kernels, copies)
+    of one run of ``fn``, by torch.profiler: the device's busy time without
+    the host's gaps between launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1701,51 +1732,192 @@ def device_launches(fn):
         fn()
         torch.cuda.synchronize()
     rows, _ = profile_rows(prof, 1)
-    return sum(c for _, _, c in rows) if rows else "not measured"
+    if not rows:
+        return "not measured", "not measured"
+    return sum(ms for _, ms, _ in rows), sum(c for _, _, c in rows)
 
 
-def gru_phase(sd):
-    """Layer 0 of the bf16 BiGRU as the port runs it (bigru_layer_lowp: one
-    matmul for the input projections, then a loop over the WIN // 8 steps)
-    beside cuDNN's bf16 GRU on the same bf16 weights and input, a yardstick
-    that keeps a bf16 hidden state where flax keeps an f32 one: max
-    |difference| of the outputs, forward and forward + backward ms (batch
-    T_BATCH), and device launches of one forward + backward."""
+def rel_gap(a, b):
+    """||a - b|| / ||b|| in float64 (0 where both are 0)."""
+    nb = float(b.double().norm())
+    d = float((a.double() - b.double()).norm())
+    return d / nb if nb else (0.0 if d == 0.0 else float("inf"))
+
+
+def gru_phase(sd, launches):
+    """Both layers of the bf16 BiGRU as the port runs them (``bigru_lowp``:
+    the input projection, then ``csrc/gru_lowp.cu``'s recurrence kernels)
+    beside the loop they replace (``bigru_layer_lowp``) and cuDNN's bf16 GRU
+    on the same bf16 weights, a yardstick that keeps a bf16 hidden state
+    where flax keeps an f32 one; batch T_BATCH, WIN // 8 steps.
+
+    Checked at each layer's shapes: the op's output equals the loop's on
+    the card; its gradients (x and the 8 tensors) are within
+    tests/test_torch_gru_lowp.py's gaps (GRU_GRAD_GAPS) of autograd through
+    the loop on the CPU (the loop's own autograd on the card sums its
+    products in cuBLAS's order); the backward kernel's rows, from the
+    forward kernel's output and gates, against the plain backward's on the
+    CPU from the same tensors: each direction's first step (no carry yet)
+    and bf16(h_{t-1}) equal, the rest within GRU_ROWS_GAP.
+
+    Returns ``(rows, kernels)``: a row a layer (the output's max |difference|
+    to the loop, the op's and cuDNN's; the gradients' and the rows' gaps;
+    the op's forward (no gates saved) and its backward recurrence's device
+    ms; forward and forward + backward device ms of the op, the loop and
+    cuDNN (``"not measured"`` where the host cannot queue ahead of the
+    device); of the loop and cuDNN the summed device time of the activities
+    of a forward and of a forward + backward (busy ms) and the latter's
+    count), and the ``kernels`` line's rows of the two recurrence kernels at
+    layer 1's shapes, timed beside their plain versions with their bound."""
     from sept_tpu_torch.models.backbone import bigru_layer_lowp
+    from sept_tpu_torch.ops import gru_lowp
 
     bf = torch.bfloat16
     rnn = backbone(sd).to(DEV).rnn
-    ws = [getattr(rnn, f"{k}_l0{sfx}").detach() for sfx in ("", "_reverse")
-          for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
-    # cuDNN's bf16 GRU on the same weights, held in one flat buffer as
-    # nn.GRU keeps them (else cuDNN compacts them at every call)
-    gru = torch.nn.GRU(rnn.input_size, rnn.hidden_size, batch_first=True,
-                       bidirectional=True).to(DEV)
-    gru.load_state_dict({f"{k}_l0{sfx}": getattr(rnn, f"{k}_l0{sfx}") for sfx in ("", "_reverse")
-                         for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")})
-    gru = gru.to(bf)
-    gru.flatten_parameters()
     g = torch.Generator(device=DEV).manual_seed(SEED + 17)
-    x = torch.randn(T_BATCH, WIN // 8, rnn.input_size, device=DEV, generator=g)
-    xr = x.clone().requires_grad_()
-    xb = x.to(bf).requires_grad_()
+    rows, kernels = [], []
+    for layer in range(rnn.num_layers):
+        names = [f"{k}_l{layer}{sfx}" for sfx in ("", "_reverse")
+                 for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        ws = [getattr(rnn, n).detach() for n in names]
+        f_in = ws[0].shape[1]
+        # cuDNN's bf16 GRU on the same weights, held in one flat buffer as
+        # nn.GRU keeps them (else cuDNN compacts them at every call)
+        gru = torch.nn.GRU(f_in, rnn.hidden_size, batch_first=True,
+                           bidirectional=True).to(DEV)
+        gru.load_state_dict({n.replace(f"_l{layer}", "_l0"): w for n, w in zip(names, ws)})
+        gru = gru.to(bf)
+        gru.flatten_parameters()
+        x = torch.randn(T_BATCH, WIN // 8, f_in, device=DEV, generator=g)
+        dout = torch.randn(T_BATCH, WIN // 8, 2 * rnn.hidden_size, device=DEV, generator=g)
+        xr, xb = x.clone().requires_grad_(), x.to(bf).requires_grad_()
 
-    def lowp_fb():
-        return torch.autograd.grad(bigru_layer_lowp(xr, ws, bf).sum(), xr)
+        def grads(fn, xin, wsin):
+            leaves = [xin.detach().clone().requires_grad_()] + [
+                w.detach().clone().requires_grad_() for w in wsin]
+            return torch.autograd.grad(fn(leaves[0], leaves[1:], bf), leaves, dout.to(xin.device))
 
-    def cudnn_fb():
-        return torch.autograd.grad(gru(xb)[0].float().sum(), xb)
+        g_op = grads(gru_lowp.bigru_lowp, x, ws)
+        g_cpu = grads(bigru_layer_lowp, x.cpu(), [w.cpu() for w in ws])
+        grad_gaps = {n: rel_gap(a.cpu(), b) for n, a, b in zip(["x"] + names, g_op, g_cpu)}
+        for n, gap in grad_gaps.items():
+            tol = GRU_GRAD_GAPS[n.startswith(("weight_hh", "bias_hh"))]
+            require(gap <= tol, f"bigru_lowp layer {layer + 1}: d{n} is {gap:.3g} from the "
+                                f"loop's on the CPU (limit {tol})")
 
-    with torch.no_grad():
-        lowp = bigru_layer_lowp(x, ws, bf)
-        out = {"shape": list(x.shape), "hidden": rnn.hidden_size,
-               "cudnn_bf16_max_abs_diff": float((gru(x.to(bf))[0].float() - lowp).abs().max()),
-               "lowp_fwd_ms": cuda_ms(lambda: bigru_layer_lowp(x, ws, bf)),
-               "cudnn_bf16_fwd_ms": cuda_ms(lambda: gru(x.to(bf)))}
-    out.update(lowp_fwd_bwd_ms=cuda_ms(lowp_fb), cudnn_bf16_fwd_bwd_ms=cuda_ms(cudnn_fb),
-               lowp_fwd_bwd_device_launches=device_launches(lowp_fb),
-               cudnn_bf16_fwd_bwd_device_launches=device_launches(cudnn_fb))
-    return out
+        def fb(fn, xin):
+            return lambda: torch.autograd.grad(fn(xin), xin, dout)
+
+        op_fb = fb(lambda v: gru_lowp.bigru_lowp(v, ws, bf), xr)
+        loop_fb = fb(lambda v: bigru_layer_lowp(v, ws, bf), xr)
+        cudnn_fb = fb(lambda v: gru(v)[0].float(), xb)
+        with torch.no_grad():
+            want = bigru_layer_lowp(x, ws, bf)
+            row = {"layer": layer + 1, "shape": list(x.shape), "hidden": rnn.hidden_size,
+                   "op_max_abs_diff": float((gru_lowp.bigru_lowp(x, ws, bf) - want)
+                                            .abs().max()),
+                   "cudnn_bf16_max_abs_diff": float((gru(x.to(bf))[0].float() - want)
+                                                    .abs().max()),
+                   "op_grad_gaps_to_cpu_loop": grad_gaps}
+            require(row["op_max_abs_diff"] == 0.0,
+                    f"bigru_lowp layer {layer + 1}: output differs from the loop's by "
+                    f"{row['op_max_abs_diff']}")
+            out, saved = gru_lowp._forward_kernel(x, ws, save=True)
+            gates = saved[2]
+            got = gru_lowp._backward_kernel(dout, out, gates, ws)
+            plain_gates = gru_lowp._gates_in_step_order(gates)
+            plain = gru_lowp.bigru_lowp_backward_plain(dout.cpu(), out.cpu(), plain_gates.cpu(),
+                                                       [w.cpu() for w in ws])
+            got_cpu = [r.cpu() for r in got]
+            row["bwd_rows_gap_to_cpu_plain"] = {n: rel_gap(a.float(), b.float()) for n, a, b in
+                                                zip(("dgi", "dgh", "hb"), got_cpu, plain)}
+            row["bwd_first_step_equal"] = torch.equal(gru_first_rows(*got_cpu[:2]),
+                                                      gru_first_rows(*plain[:2]))
+            require(row["bwd_first_step_equal"], f"bigru_lowp_bwd layer {layer + 1}: the first "
+                                                 f"step's rows differ from the plain backward's")
+            for n, gap in row["bwd_rows_gap_to_cpu_plain"].items():
+                require(gap <= (0.0 if n == "hb" else GRU_ROWS_GAP),
+                        f"bigru_lowp_bwd layer {layer + 1}: {n} is {gap:.3g} from the "
+                        f"plain backward's")
+            row["bwd_kernel_device_ms"] = device_ms(
+                lambda: gru_lowp._backward_kernel(dout, out, gates, ws))
+            fwd = {"op": lambda: gru_lowp.bigru_lowp(x, ws, bf),
+                   "loop": lambda: bigru_layer_lowp(x, ws, bf),
+                   "cudnn_bf16": lambda: gru(x.to(bf))}
+            for name, fn in fwd.items():
+                row[f"{name}_fwd_device_ms"] = device_ms(fn)
+            # the summed device time of the loop's and cuDNN's activities: the
+            # host cannot queue the loop ahead of the device (device_ms reads
+            # "not measured"); torch.profiler's averages showed no device rows
+            # for the op's calls on the H100, whose device_ms is measured
+            for name in ("loop", "cudnn_bf16"):
+                row[f"{name}_fwd_busy_ms"] = device_activities(fwd[name])[0]
+            if layer == 0:
+                kernels += gru_kernel_rows(x, ws, dout, out, gates, plain_gates, gru, got,
+                                           plain, row["op_max_abs_diff"], launches)
+        for name, fn in (("op", op_fb), ("loop", loop_fb), ("cudnn_bf16", cudnn_fb)):
+            row[f"{name}_fwd_bwd_device_ms"] = device_ms(fn)
+            if name != "op":
+                (row[f"{name}_fwd_bwd_busy_ms"],
+                 row[f"{name}_fwd_bwd_device_launches"]) = device_activities(fn)
+        rows.append(row)
+    return rows, kernels
+
+
+def gru_first_rows(dgi, dgh):
+    """The backward rows of each direction's first step (the forward
+    direction's last time, the reverse one's first), which no dgh W_hh
+    product has reached yet."""
+    h = dgh.shape[-1] // 3
+    return torch.cat([dgi[:, -1, :3 * h], dgi[:, 0, 3 * h:], dgh[0][:, -1], dgh[1][:, 0]], -1)
+
+
+def gru_kernel_rows(x, ws, dout, out, gates, plain_gates, gru, got, plain, fwd_err, launches):
+    """The ``kernels`` line's rows of the bf16 GRU's forward and backward
+    recurrence kernels at one layer's shapes: each launch alone (the
+    forward from the input projection computed once, gates saved) beside
+    its plain version on the card, with the bound of its bytes and its
+    products at the bf16 peak (the chain of T dependent steps bounds it)."""
+    from sept_tpu_torch.ops import gru_lowp
+
+    b, t, f = x.shape
+    h = ws[1].shape[1]
+    xs = x.to(torch.bfloat16)
+    w_ih = torch.cat([ws[0], ws[4]]).to(torch.bfloat16)
+    gi = torch.matmul(xs.view(b * t, f), w_ih.t())
+    flops = 2 * t * 2.0 * b * h * 3 * h  # both directions' h W_hh^T (dgh W_hh backward)
+    w_bytes = 2 * (3 * h * h + 6 * h) * 4.0
+    fwd_bytes = b * t * 6 * h * 2.0 + b * t * 2 * h * 4.0 + 2 * b * t * 4 * h * 2.0 + w_bytes
+    bwd_bytes = (2 * b * t * 2 * h * 4.0 + 2 * b * t * 4 * h * 2.0 + w_bytes
+                 + b * t * 6 * h * 2.0 + 2 * b * t * 3 * h * 2.0 + 2 * b * t * h * 2.0)
+    src, replaces = "sept_tpu_torch/csrc/gru_lowp.cu", \
+        "none: flax nn.RNN(GRUCell(dtype=bf16)), sept_tpu/models/backbone.py:78"
+    rows = [
+        ("bigru_lowp", lambda: gru_lowp._forward_recurrence(gi, ws, b, t, True),
+         lambda: gru_lowp.bigru_lowp_forward_plain(x, ws, save=True),
+         lambda: gru(xs), fwd_err, bound(flops, fwd_bytes, PEAK_BF16_FLOPS),
+         "cuDNN bf16 GRU forward (a bf16 carry; the input projection included)"),
+        ("bigru_lowp_bwd", lambda: gru_lowp._backward_kernel(dout, out, gates, ws),
+         lambda: gru_lowp.bigru_lowp_backward_plain(dout, out, plain_gates, ws),
+         None, float((got[0].cpu().float() - plain[0].float()).abs().max()),
+         bound(flops, bwd_bytes, PEAK_BF16_FLOPS), None),
+    ]
+    kernels = []
+    for name, kern, plain_fn, lib, err, (bound_ms, bound_by), lib_name in rows:
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "shape": [b, t, f, h], "launches": sum(p.get(name, 0) for p in launches.values()),
+            "launches_by_path": {k: p.get(name, 0) for k, p in launches.items()},
+            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain_fn),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if lib is None else cuda_ms(lib),
+            "device_ms": device_ms(kern),
+            "library_device_ms": None if lib is None else device_ms(lib)})
+        if lib_name is not None:
+            kernels[-1]["library"] = lib_name
+    kernels[0]["max_abs_err_vs"] = "the loop (bigru_layer_lowp) on the card, the op's output"
+    kernels[1]["max_abs_err_vs"] = "the plain backward's dgi on the CPU, the same saved tensors"
+    return kernels
 
 
 def path_profile(fn, top=10):
@@ -3742,6 +3914,8 @@ def main():
     bf16_kernels, block1_bf16 = train_bf16_kernel_phase(
         capture_block1(ds_bf16, order_bf16, sds, "bfloat16"), paths)
     kernels += bf16_kernels
+    gru, gru_kernels = gru_phase(sds[0], paths)
+    kernels += gru_kernels
     for k in kernels:
         if isinstance(k["device_ms"], float):
             k["bound_share_of_device_ms"] = k["bound_ms"] / k["device_ms"]
@@ -3763,7 +3937,6 @@ def main():
     train_prof = train_profile_phase(ds, order, sds)
     bf16_prof = train_profile_phase(ds_bf16, order_bf16, sds, dtype="bfloat16",
                                     saliency=SALIENCY_ALIGN)
-    gru = gru_phase(sds[0])
     log(f"profile done at {time.perf_counter() - t0:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

@@ -53,8 +53,11 @@ running statistics stay f32 in both.  In bf16, as flax with
   round their inputs, kernels and biases to bf16 and return bf16, the carry
   stays f32 and its update is promoted to f32 (:func:`bigru_layer_lowp`,
   :func:`bilstm_layer_lowp`; cuDNN's bf16 RNNs would keep a bf16 hidden
-  state).  One matmul gives the input projections of all steps, then a loop
-  over the steps runs the recurrence, both directions at once;
+  state).  One matmul gives the input projections of all steps, then the
+  recurrence runs both directions at once: the GRU through
+  :func:`~sept_tpu_torch.ops.gru_lowp.bigru_lowp` (one forward and one
+  backward kernel a layer on a card; :func:`bigru_layer_lowp`, a loop over
+  the steps, is its reference), the LSTM as a loop over the steps;
 - ``encode`` returns f32, and pooling, attention, ``dense1`` and the heads
   are f32.
 
@@ -110,6 +113,7 @@ import torch.nn.functional as tf
 from torch import nn
 
 from sept_tpu_torch.ops.conv_block1 import block1_eval, block1_train_forward
+from sept_tpu_torch.ops.gru_lowp import bigru_gi_lowp, bigru_lowp, bigru_steps_lowp
 
 __all__ = ["Conv2dBiRNN", "DeepConv2dBiRNN", "OneDConvNet", "PlainConv2d", "DropoutDraws",
            "NUM_EMO_CLASSES", "NUM_GENDER_CLASSES", "N_GLOBAL", "bigru_layer_lowp",
@@ -176,27 +180,12 @@ def bigru_layer_lowp(x: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tens
     n).  Each gate's Dense rounds input, kernel and bias to ``dtype`` and
     returns ``dtype`` (the product rounded, then the bias added and rounded);
     the sums, sigmoid and tanh of the gates are in ``dtype``; the carry h is
-    f32 and ``h' = (1 - z) * n + z * h`` is f32 because ``z * h`` promotes."""
-    hidden = weights[1].shape[1]
-    w_ih = torch.stack([weights[0], weights[4]]).to(dtype)          # (2, 3H, F)
-    w_hh = torch.stack([weights[1], weights[5]]).to(dtype).transpose(1, 2)  # (2, H, 3H)
-    b_ih = torch.stack([weights[2], weights[6]]).to(dtype)[:, None, None]
-    b_hh = torch.stack([weights[3], weights[7]]).to(dtype)[:, None]
-    xs = x.to(dtype)
-    # input projections of every step, both directions: (2, B, T, 3H)
-    gi = torch.stack([xs, xs.flip(1)]) @ w_ih.transpose(1, 2)[:, None] + b_ih
-    h = x.new_zeros((2, x.shape[0], hidden), dtype=torch.float32)
-    outs = []
-    for t in range(x.shape[1]):
-        g = gi[:, :, t]
-        gh = torch.bmm(h.to(dtype), w_hh) + b_hh  # the r, z rows of b_hh are 0
-        rz = torch.sigmoid(g[..., :2 * hidden] + gh[..., :2 * hidden])
-        r, z = rz[..., :hidden], rz[..., hidden:]
-        n = torch.tanh(g[..., 2 * hidden:] + r * gh[..., 2 * hidden:])
-        h = (1.0 - z) * n + z * h
-        outs.append(h)
-    out = torch.stack(outs, 2)  # (2, B, T, H)
-    return torch.cat([out[0], out[1].flip(1)], -1)
+    f32 and ``h' = (1 - z) * n + z * h`` is f32 because ``z * h`` promotes.
+    One matmul gives the input projections of every step
+    (:func:`~sept_tpu_torch.ops.gru_lowp.bigru_gi_lowp`), then a loop over
+    the steps runs the recurrence
+    (:func:`~sept_tpu_torch.ops.gru_lowp.bigru_steps_lowp`)."""
+    return bigru_steps_lowp(bigru_gi_lowp(x, weights, dtype), weights, dtype)[0]
 
 
 def bilstm_layer_lowp(x: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
@@ -344,8 +333,10 @@ class Conv2dBiRNN(_Backbone):
         """One single-layer BiRNN call per layer, our own masks between.  In
         f32, ``train`` asks cuDNN to keep what its backward needs: in training
         and whenever a gradient flows (the eval-mode cloak backbone); serving
-        runs without it.  In bf16 each layer is :func:`bigru_layer_lowp` or
-        :func:`bilstm_layer_lowp`."""
+        runs without it.  In bf16 a GRU layer is
+        :func:`~sept_tpu_torch.ops.gru_lowp.bigru_lowp` (the kernels of
+        ``csrc/gru_lowp.cu`` on a card; :func:`bigru_layer_lowp`'s function)
+        and an LSTM layer :func:`bilstm_layer_lowp`."""
         rnn = self.rnn
         keep = self.training or torch.is_grad_enabled()
         for layer in range(rnn.num_layers):
@@ -355,7 +346,7 @@ class Conv2dBiRNN(_Backbone):
                        for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
             h0 = x.new_zeros(2, x.shape[0], rnn.hidden_size, dtype=torch.float32)
             if self.compute_dtype != torch.float32:
-                lowp = bigru_layer_lowp if self.rnn_cell == "gru" else bilstm_layer_lowp
+                lowp = bigru_lowp if self.rnn_cell == "gru" else bilstm_layer_lowp
                 x = lowp(x, weights, self.compute_dtype)
             elif self.rnn_cell == "gru":
                 x = torch._VF.gru(x, h0, weights, True, 1, 0.0, keep, True, True)[0]

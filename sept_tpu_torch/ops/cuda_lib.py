@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_of",
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mel", "conv_block1", "mfcc")
+SOURCES = ("mel", "conv_block1", "mfcc", "gru_lowp")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -46,6 +46,11 @@ _SIGNATURES = {
     },
     "mfcc": {
         "sept_floor_dct": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    },
+    "gru_lowp": {
+        "sept_gru_lowp_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        "sept_gru_lowp_bwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        "sept_gru_lowp_tile_elems": ([_I] * 3, _LL),
     },
     "conv_block1": {
         "sept_conv_stats": ([_P] * 6 + [_I] * 4 + [_P], _I),

@@ -178,12 +178,15 @@ def _packed(m):
 
 
 def _launch_counters():
-    """Block 1's launch counters: ``(wrapper, attribute)`` pairs."""
+    """The launch counters of the kernels a step runs, block 1's and the
+    bf16 GRU's: ``(wrapper, attribute)`` pairs."""
     from sept_tpu_torch.ops import conv_block1 as k
+    from sept_tpu_torch.ops.gru_lowp import bigru_lowp
 
     return [(f, attr) for f in (k.block1_conv_stats, k.block1_norm_pool, k.block1_route,
                                 k.block1_weight_grads, k.block1_input_grad)
-            for attr in ("launches", "launches_bf16")]
+            for attr in ("launches", "launches_bf16")] + [
+        (bigru_lowp, "launches"), (bigru_lowp, "launches_bwd")]
 
 
 def _tensor_key(t):
@@ -239,7 +242,7 @@ class _StepGraph:
         self.key = self.lr = None  # what the graph baked in
         self.warm = None  # the key after the last full-batch eager step
         self.stream = self.pool = self.idx = self.packed = None
-        self.launches = {}  # block 1's launches a replay
+        self.launches = {}  # the counted kernels' launches a replay
 
     def plan(self, key, lr, whole: bool) -> str:
         """What a step with ``key`` at ``lr`` does: "replay", "capture" or

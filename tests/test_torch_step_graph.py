@@ -10,7 +10,8 @@ never engages the graph).
 The tests marked ``card`` drive a graphed runner on the H100 for 6 steps
 against the eager step closures from one state, at the benchmark's widths:
 losses, metrics, parameters and momentum buffers within the benchmark's
-limits, the generator's state and block 1's launch counters exactly equal.
+limits, the generator's state and the kernels' launch counters (block 1's,
+the bf16 GRU's) exactly equal.
 They decide inside themselves whether there is a card and skip without one.
 On the card: ``python -m pytest tests/test_torch_step_graph.py --noconftest -m card -q``
 (``--noconftest``: the suite's conftest imports JAX, which the card's
@@ -391,6 +392,9 @@ def test_card_graphed_runner_agrees_with_eager_steps(card, kind):
     run, launches, _ = _drive(_full(kind, card), [1, 1, 1, 3])
     assert (run.eager_steps, run.graph_captures, run.graph_replays) == (1, 1, 4)
     assert sum(launches.values()) > 0
+    # the bf16 baseline's GRU: one forward and one backward kernel a layer a step
+    gru = 2 * 6 if KINDS[kind][2] == torch.bfloat16 else 0
+    assert launches[("bigru_lowp", "launches")] == launches[("bigru_lowp", "launches_bwd")] == gru
 
 
 @pytest.mark.card
