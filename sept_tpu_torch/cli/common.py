@@ -112,10 +112,7 @@ def spawn_ranks(main, argv, args) -> Optional[list]:
     if n <= 1:
         return None
     argv = list(sys.argv[1:] if argv is None else argv)
-    devices = make_group(n, args.device)
-    # CPU ranks share the cores
-    threads = 0 if devices[0].type == "cuda" else max(1, visible_devices("cpu") // n)
-    return spawn(_run_main, devices, main, argv, threads=threads)
+    return spawn(_run_main, make_group(n, args.device), main, argv)
 
 
 def resolve_group(args) -> Optional[DataGroup]:

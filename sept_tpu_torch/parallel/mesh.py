@@ -191,15 +191,16 @@ def make_group(n_devices: Optional[int] = None, device="cuda") -> tuple[torch.de
     return (torch.device("cpu"),) * n
 
 
-def _rank_main(fn, args, rank, devices, port, backend, timeout_s, threads, out):
-    """One spawned rank: join the group, run ``fn(group, *args)``, report."""
+def _rank_main(fn, args, rank, devices, port, backend, timeout_s, parent_threads, out):
+    """One spawned rank: join the group, run ``fn(group, *args)``, report.
+    A CPU rank takes its share of the spawning process's threads."""
     global _current
     try:
         dev = devices[rank]
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        if threads:
-            torch.set_num_threads(threads)
+        else:
+            torch.set_num_threads(max(1, parent_threads // len(devices)))
         f32_precision()
         store = dist.TCPStore(_HOST, port, len(devices), False, timeout=_timeout(timeout_s))
         dist.init_process_group(backend, store=store, rank=rank, world_size=len(devices),
@@ -221,8 +222,7 @@ def _rank_main(fn, args, rank, devices, port, backend, timeout_s, threads, out):
 
 
 def spawn(fn: Callable, devices: Sequence, *args, backend: Optional[str] = None,
-          timeout_s: float = TIMEOUT_S, deadline_s: Optional[float] = None,
-          threads: int = 0) -> list:
+          timeout_s: float = TIMEOUT_S, deadline_s: Optional[float] = None) -> list:
     """Run ``fn(group, *args)`` in ``len(devices)`` new processes, rank r on
     ``devices[r]`` (:func:`make_group`; two ranks may share a card), and
     return their return values by rank.  ``fn`` and its arguments must be
@@ -231,9 +231,10 @@ def spawn(fn: Callable, devices: Sequence, *args, backend: Optional[str] = None,
     the CPU; ``timeout_s`` bounds each collective; ``deadline_s`` bounds the
     whole run, past which every rank is killed (None: a training run takes
     as long as it takes, and a hang surfaces as a collective's timeout).
-    ``threads`` > 0 sets each rank's torch threads.  A rank that raises
-    makes this raise its exception (the rank's traceback in a note) once
-    the others are stopped."""
+    CPU ranks divide this process's torch threads among them; CUDA ranks
+    keep torch's default.  A rank that raises makes this raise its
+    exception (the rank's traceback in a note) once the others are
+    stopped."""
     devices = tuple(torch.device(d) for d in devices)
     backend = _backend(devices[0], backend)
     ctx = torch.multiprocessing.get_context("spawn")
@@ -243,7 +244,7 @@ def spawn(fn: Callable, devices: Sequence, *args, backend: Optional[str] = None,
     out = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, args, r, devices, store.port, backend, timeout_s,
-                               threads, out))
+                               torch.get_num_threads(), out))
              for r in range(len(devices))]
     for p in procs:
         p.start()

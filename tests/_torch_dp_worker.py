@@ -262,3 +262,7 @@ def sleep(group, seconds):
     import time
 
     time.sleep(seconds)
+
+
+def num_threads(group):
+    return torch.get_num_threads()

@@ -141,10 +141,11 @@ def assert_folds_equal(a, b):
 
 
 def start_ranks(fn, *args, deadline_s=120):
-    """Start ``fn(group, *args)`` on 2 gloo CPU ranks of one thread each
-    (``sept_tpu_torch.parallel.spawn``) in a background thread, so that the
-    test process computes its references meanwhile; returns a function that
-    waits for the ranks and returns their results (or raises their error)."""
+    """Start ``fn(group, *args)`` on 2 gloo CPU ranks, which share this
+    process's threads (``sept_tpu_torch.parallel.spawn``), in a background
+    thread, so that the test process computes its references meanwhile;
+    returns a function that waits for the ranks and returns their results
+    (or raises their error)."""
     import threading
 
     from sept_tpu_torch.parallel import make_group, spawn
@@ -153,8 +154,7 @@ def start_ranks(fn, *args, deadline_s=120):
 
     def run():
         try:
-            box["ranks"] = spawn(fn, make_group(2, "cpu"), *args, deadline_s=deadline_s,
-                                 threads=1)
+            box["ranks"] = spawn(fn, make_group(2, "cpu"), *args, deadline_s=deadline_s)
         except BaseException as e:  # noqa: BLE001 -- re-raised by the waiter
             box["error"] = e
 

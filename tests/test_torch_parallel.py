@@ -1,5 +1,6 @@
 """Data parallelism in the port (``sept_tpu_torch.parallel``) on the CPU: 2
-gloo ranks (``--device cpu``, the plain versions, one thread a rank) against
+gloo ranks (``--device cpu``, the plain versions, sharing the test
+process's threads: one each in the xdist lane) against
 the port on one device and against the JAX package's ``epoch_dp`` on a
 2-device mesh, hidden 8, windows 20 x 16, batches of 8, 2 batches, dropout
 0, sync-BN.
@@ -16,6 +17,9 @@ only: both take the saliency per shard, which one device does not.
 
 import argparse
 import functools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -441,8 +445,35 @@ def test_spawn_surfaces_a_failing_or_hanging_rank(case):
     devices = make_group(2, "cpu")
     if case == "raises":
         with pytest.raises(ValueError, match="rank 1 failed") as e:
-            spawn(W.fail_on_rank_1, devices, deadline_s=60, threads=1)
+            spawn(W.fail_on_rank_1, devices, deadline_s=60)
         assert any("fail_on_rank_1" in n for n in e.value.__notes__)
     else:
         with pytest.raises(TimeoutError, match="deadline"):
-            spawn(W.sleep, devices, 600, deadline_s=3, threads=1)
+            spawn(W.sleep, devices, 600, deadline_s=3)
+
+
+@pytest.mark.parametrize("parent_threads", [1, 5])
+def test_spawn_divides_its_callers_threads_among_cpu_ranks(parent_threads):
+    """Two CPU ranks started from a process of N torch threads take
+    max(1, N // 2) each."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(parent_threads)
+    try:
+        got = spawn(W.num_threads, make_group(2, "cpu"), deadline_s=60)
+    finally:
+        torch.set_num_threads(before)
+    assert got == [max(1, parent_threads // 2)] * 2
+
+
+def test_an_xdist_worker_takes_its_share_of_the_cores():
+    """The root conftest.py: a worker of N on C cores runs torch on
+    max(1, C // N) threads, and a child process inherits the share through
+    OMP_NUM_THREADS."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        pytest.skip("not an xdist worker: the thread share applies to the xdist lane only")
+    share = max(1, len(os.sched_getaffinity(0)) // int(workers))
+    assert torch.get_num_threads() == share
+    child = subprocess.run([sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+                           capture_output=True, text=True, timeout=120, check=True)
+    assert int(child.stdout) == share
