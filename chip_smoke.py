@@ -232,7 +232,16 @@ and read just after; each kernel the path must use has to have launched
                backward kernel's rows against the plain backward on the
                CPU from the same saved tensors (each direction's first step
                and bf16(h_{t-1}) equal, the rest within GRU_ROWS_GAP), each
-               kernel timed alone beside its plain version and its bound.
+               kernel timed alone beside its plain version and its bound;
+               WavLM's attention core (gated_bias_attention,
+               gated_bias_attention_bwd) at wavlm_grl_train_bf16's shape in
+               train mode, the masks from DropoutDraws: the context and the
+               gradients of qkv, the gate and the bias within ATTN_GAPS of
+               the plain version (the composition it replaced) on the card,
+               each kernel timed beside the composition and its bound by
+               bytes, and one bf16 GRL step of two 2-layer WavLMs at the
+               published widths launching each kernel once a layer in each
+               backbone (the path wavlm_bf16_step).
 14. latency    /predict round trips at 1 and 8 utterances (pcm16), beside the
                server's device-call time.
 15. profile    device time by kernel over predict calls of 1 and of 8
@@ -247,10 +256,10 @@ Output: ``{"block1_eval": ...}``, ``{"latency_ms": ...}``, ``{"profile":
 ...}``, ``{"train": ...}``, ``{"block1_train": ...}``, ``{"train_profile":
 ...}``, ``{"featurize": ...}``, ``{"ingest_bf16": ...}``,
 ``{"train_bf16": ...}``, ``{"dp": ...}``, ``{"fold": ...}``, ``{"cli":
-...}``, ``{"artifacts": ...}``, ``{"global": ...}`` and ``{"host_loop":
-...}`` lines, the card's ``name, power.limit`` from nvidia-smi, a
-``{"kernels": [...]}`` line (every kernel, block 1's in each mode, the
-GRU's two), and
+...}``, ``{"artifacts": ...}``, ``{"global": ...}``, ``{"host_loop":
+...}`` and ``{"attention": ...}`` lines, the card's ``name, power.limit``
+from nvidia-smi, a ``{"kernels": [...]}`` line (every kernel, block 1's in
+each mode, the GRU's two, the attention's two), and
 last ``{"ok": true, "device": {...}}``.  Progress goes to stderr.
 The result lines (with the card's) are also written whole to
 ``chiprun_out/chip_smoke.jsonl`` beside the script (git-ignored).
@@ -298,6 +307,7 @@ BACKWARD = ("block1_route", "block1_weight_grads", "block1_input_grad")
 BLOCK1 = ("block1_conv_stats", "block1_norm_pool") + BACKWARD
 BLOCK1_BF16 = tuple(f"{k}_bf16" for k in BLOCK1)  # the kernels' bf16 mode, counted apart
 GRU_LOWP = ("bigru_lowp", "bigru_lowp_bwd")  # the bf16 GRU's recurrences, forward and backward
+ATTENTION = ("gated_bias_attention", "gated_bias_attention_bwd")  # WavLM's attention core
 # the bf16 GRU op's gradients against autograd through the loop on the CPU,
 # relative to its norm (tests/test_torch_gru_lowp.py's GAP_ONE_ROUNDING for
 # dx, dW_ih, db_ih, GAP_STEP_SUMS for dW_hh, db_hh: [False], [True]); the
@@ -980,6 +990,7 @@ def kernel_counters():
     attribute).  Block 1's wrappers count each mode apart: its bf16 mode is
     the row <kernel>_bf16.  The bf16 GRU's forward and backward recurrences
     are bigru_lowp and bigru_lowp_bwd."""
+    from sept_tpu_torch.ops import attention as A
     from sept_tpu_torch.ops import conv_block1 as K
     from sept_tpu_torch.ops import gru_lowp as G
     from sept_tpu_torch.ops import mel as M
@@ -988,7 +999,9 @@ def kernel_counters():
     counters = {"mel_db": (M.mel_db, "launches"), "mel_db_bf16": (M.mel_db_bf16, "launches"),
                 "floor_dct": (MF.floor_dct, "launches"),
                 "bigru_lowp": (G.bigru_lowp, "launches"),
-                "bigru_lowp_bwd": (G.bigru_lowp, "launches_bwd")}
+                "bigru_lowp_bwd": (G.bigru_lowp, "launches_bwd"),
+                "gated_bias_attention": (A.gated_bias_attention, "launches"),
+                "gated_bias_attention_bwd": (A.gated_bias_attention, "launches_bwd")}
     for name in BLOCK1:
         counters[name] = (getattr(K, name), "launches")
         counters[f"{name}_bf16"] = (getattr(K, name), "launches_bf16")
@@ -1918,6 +1931,123 @@ def gru_kernel_rows(x, ws, dout, out, gates, plain_gates, gru, got, plain, fwd_e
     kernels[0]["max_abs_err_vs"] = "the loop (bigru_layer_lowp) on the card, the op's output"
     kernels[1]["max_abs_err_vs"] = "the plain backward's dgi on the CPU, the same saved tensors"
     return kernels
+
+
+# WavLM's attention core at wavlm_grl_train_bf16's shape (B, heads, T, hd),
+# train mode (attention dropout 0.1)
+ATTN_SHAPE, ATTN_RATE = (32, 16, 99, 64), 0.1
+# the attention kernels against the plain version on the card, ||a - b|| /
+# ||b|| (tests/test_torch_attention.py's CTX_GAP, DQKV_GAP, DGATE_GAP and
+# DBIAS_GAP, whose comment gives the reasons)
+ATTN_GAPS = {"ctx": 5e-4, "dqkv": 7e-4, "dgate": 5e-5, "dbias": 1e-4}
+
+
+def attention_phase(launches):
+    """WavLM's gated-bias attention core (``ops/attention.py`` ->
+    ``csrc/attention.cu``) at the benchmark's shape in train mode, the
+    keep-mask from ``DropoutDraws``: the op's context and gradients (qkv,
+    gate, bias) against the plain version's (the composition it replaced)
+    on the card within ATTN_GAPS; each kernel timed alone beside the
+    composition and its bound by bytes; then one bf16 GRL step of two
+    2-layer WavLMs at the published widths (99 frames), which has to launch
+    each kernel once a layer in each backbone (the path
+    ``wavlm_bf16_step`` in ``launches``).
+
+    Returns ``(row, kernels)``: the gaps and max |differences|, device ms of
+    the op's and the composition's forward and forward + backward (and the
+    composition's summed device activities and their count), and the
+    ``kernels`` line's rows of the forward and backward kernels."""
+    from sept_tpu_torch.models import CloakedModelGRL, build_backbone
+    from sept_tpu_torch.models.backbone import DropoutDraws
+    from sept_tpu_torch.ops import attention as A
+    from sept_tpu_torch.train.config import preset
+    from sept_tpu_torch.train.optim import make_cloak_optimizer
+    from sept_tpu_torch.train.steps import init_state, make_cloak_grl_step
+
+    bf = torch.bfloat16
+    b, heads, t, hd = ATTN_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    qkv = torch.randn(b, t, 3 * heads * hd, device=DEV, generator=g).to(bf)
+    gate = 1.0 + 2.0 * torch.rand(b, t, heads, device=DEV, generator=g)
+    bias = torch.randn(heads, t, t, device=DEV, generator=g)
+    dctx = torch.randn(b, t, heads * hd, device=DEV, generator=g).to(bf)
+    mask = DropoutDraws(g).keep((b, heads, t, t), ATTN_RATE)
+    keep = torch.tensor(1.0 - ATTN_RATE, dtype=torch.float32).item()
+    leaves = [x.clone().requires_grad_() for x in (qkv, gate, bias)]
+
+    def fb(fn):
+        def run():
+            out = fn(*leaves, heads, mask, keep)
+            return (out,) + torch.autograd.grad(out, leaves, dctx)
+        return run
+
+    op_fb, plain_fb = fb(A.gated_bias_attention), fb(A.gated_bias_attention_plain)
+    got, want = op_fb(), plain_fb()
+    row = {"shape": list(ATTN_SHAPE), "rate": ATTN_RATE,
+           "gaps_to_plain": {n: rel_gap(a.detach().float(), w.detach().float())
+                             for n, a, w in zip(ATTN_GAPS, got, want)},
+           "max_abs_diff": {n: float((a.detach().float() - w.detach().float()).abs().max())
+                            for n, a, w in zip(ATTN_GAPS, got, want)}}
+    for n, gap in row["gaps_to_plain"].items():
+        require(gap <= ATTN_GAPS[n], f"gated_bias_attention: {n} is {gap:.3g} from the plain "
+                                     f"version's on the card (limit {ATTN_GAPS[n]})")
+    fwd = lambda: A._forward_kernel(qkv, gate, bias, heads, mask, keep)  # noqa: E731
+    bwd = lambda: A._backward_kernel(dctx, qkv, gate, bias, heads, mask, keep, True)  # noqa: E731
+    plain = lambda: A.gated_bias_attention_plain(qkv, gate, bias, heads, mask, keep)  # noqa: E731
+    with torch.no_grad():
+        row["op_fwd_device_ms"] = device_ms(fwd)
+        row["plain_fwd_device_ms"] = device_ms(plain)
+        row["plain_fwd_busy_ms"], row["plain_fwd_device_launches"] = device_activities(plain)
+        row["bwd_frozen_bias_device_ms"] = device_ms(
+            lambda: A._backward_kernel(dctx, qkv, gate, bias, heads, mask, keep, False))
+    row["op_fwd_bwd_device_ms"] = device_ms(op_fb)
+    row["plain_fwd_bwd_device_ms"] = device_ms(plain_fb)
+    row["plain_fwd_bwd_busy_ms"], row["plain_fwd_bwd_device_launches"] = device_activities(
+        plain_fb)
+
+    # the main path: one bf16 GRL step of two 2-layer WavLMs, published widths
+    torch.manual_seed(SEED + 32)
+    model = CloakedModelGRL(*(build_backbone("wavlm-large", pred=p, compute_dtype=bf,
+                                             num_hidden_layers=2) for p in ("emotion", "gender")),
+                            win_len=WIN, n_feats=HOP)
+    opt = make_cloak_optimizer(preset("cloak_grl", batch_size=4), 8, model,
+                               ("noise", "gender_backbone"))
+    state = init_state(model, opt, SEED + 33, DEV)
+    wave = torch.randn((4, 1, WIN, HOP), device=DEV, generator=g)
+    batch = {"spec": wave, "labels_emo": torch.arange(4, device=DEV) % 4,
+             "labels_gen": torch.arange(4, device=DEV) % 2, "weight": torch.ones(4, device=DEV)}
+    _, launches["wavlm_bf16_step"], _ = drive(lambda: make_cloak_grl_step(0.1, 0.1)(state, batch),
+                                              must=ATTENTION)
+    for name in ATTENTION:
+        require(launches["wavlm_bf16_step"][name] == 4,
+                f"{name}: {launches['wavlm_bf16_step'][name]} launches in a GRL step of two "
+                f"2-layer WavLMs, not 4")
+
+    flops = 2 * 2.0 * b * heads * t * t * hd  # q k^T and P v
+    io = b * t * 3 * heads * hd * 2.0 + b * t * heads * 4.0 + heads * t * t * 4.0 + b * heads * t * t
+    fwd_bytes = io + b * t * heads * hd * 2.0  # ctx
+    bwd_bytes = io + b * t * heads * hd * 2.0 + b * t * 3 * heads * hd * 2.0 + (
+        b * t * heads * 4.0 + heads * t * t * 4.0)  # dctx in; dqkv, dgate, dbias out
+    src, replaces = "sept_tpu_torch/csrc/attention.cu", "none: the JAX package has no WavLM"
+    kernels = []
+    for name, kern, plain_fn, grad, err, (bound_ms, bound_by) in (
+            ("gated_bias_attention", fwd, plain, False, row["max_abs_diff"]["ctx"],
+             bound(flops, fwd_bytes, PEAK_BF16_FLOPS)),
+            ("gated_bias_attention_bwd", bwd, plain_fb, True, row["max_abs_diff"]["dqkv"],
+             bound(2.5 * flops, bwd_bytes, PEAK_BF16_FLOPS))):
+        with torch.set_grad_enabled(grad):
+            kernels.append({
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "shape": list(ATTN_SHAPE),
+                "launches": sum(p.get(name, 0) for p in launches.values()),
+                "launches_by_path": {k: p.get(name, 0) for k, p in launches.items()},
+                "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain_fn),
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "device_ms": device_ms(kern), "library_device_ms": None})
+    kernels[0]["max_abs_err_vs"] = "the plain version's context on the card"
+    kernels[1]["max_abs_err_vs"] = "the plain version's dqkv on the card"
+    kernels[1]["plain_ms_of"] = "the plain version's forward and backward (autograd)"
+    return row, kernels
 
 
 def path_profile(fn, top=10):
@@ -3916,6 +4046,9 @@ def main():
     kernels += bf16_kernels
     gru, gru_kernels = gru_phase(sds[0], paths)
     kernels += gru_kernels
+    attention, attention_kernels = attention_phase(paths)
+    kernels += attention_kernels
+    log(f"attention done at {time.perf_counter() - t0:.1f} s: {attention}")
     for k in kernels:
         if isinstance(k["device_ms"], float):
             k["bound_share_of_device_ms"] = k["bound_ms"] / k["device_ms"]
@@ -3959,7 +4092,7 @@ def main():
              {"cli": {**cli, "card": smi}}, {"artifacts": {**artifacts, "card": smi}},
              {"global": {**glob, "card": smi}},
              {"host_loop": {**host, "launches_by_path": host_launches, "card": smi}},
-             {"card": smi}, {"kernels": kernels}]
+             {"attention": {**attention, "card": smi}}, {"card": smi}, {"kernels": kernels}]
     # every result line also goes to a file, whole, where a caller that
     # keeps only the end of the output still finds them
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

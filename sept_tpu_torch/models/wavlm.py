@@ -56,6 +56,14 @@ stream, every LayerNorm, GELU, the softmax, the position bias and its gate
 are f32, and a value goes to bf16 only as an operand of the next product.  ``projector`` and ``classifier`` are f32.  In
 ``torch.float32`` everything is f32 (TF32 is off in the steps).
 
+The attention core, from the QKV product's (B, T, 3 hidden) output to the
+context (scores, the gated bias, softmax, dropout, P v), is
+:func:`~sept_tpu_torch.ops.attention.gated_bias_attention` in bf16: on a
+card one kernel forward and one backward (``csrc/attention.cu``) that read
+q, k and v where the product left them and keep the scores on chip; on the
+CPU its plain version, the composition of torch ops it replaced.  In f32 that
+composition runs as it is (``gated_bias_attention_plain``).
+
 Train mode draws every dropout mask from the :class:`DropoutDraws` passed as
 ``dropout``, in this order: the feature projection's (B, T, hidden), the
 positional embedding's (B, T, hidden), then in each layer the attention
@@ -79,6 +87,7 @@ import torch.nn.functional as tf
 from torch import nn
 
 from sept_tpu_torch.models.backbone import NUM_EMO_CLASSES, NUM_GENDER_CLASSES, DropoutDraws
+from sept_tpu_torch.ops.attention import gated_bias_attention, gated_bias_attention_plain
 from sept_tpu_torch.utils.profiling import span
 
 __all__ = ["WavLM", "relative_position_bucket"]
@@ -104,14 +113,23 @@ def relative_position_bucket(rel: torch.Tensor, num_buckets: int,
     return out + torch.where(rel < exact, rel, large)
 
 
-def _drop(x: torch.Tensor, draws: Optional[DropoutDraws], rate: float, training: bool):
-    """Dropout of ``x`` with a mask from ``draws``: x / (1 - rate) where kept."""
+def _keep_mask(draws: Optional[DropoutDraws], shape, rate: float, training: bool,
+               dtype: torch.dtype = torch.float32):
+    """A dropout's keep-mask over ``shape`` from ``draws`` and its keep factor
+    1 - rate (in ``dtype``), or ``(None, 1.0)`` where nothing is dropped."""
     if not training or rate == 0.0:
-        return x
+        return None, 1.0
     if draws is None:
         raise ValueError("a train-mode forward with dropout needs DropoutDraws")
-    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
-    return torch.where(draws.keep(x.shape, rate), x / keep, torch.zeros_like(x))
+    return draws.keep(shape, rate), torch.tensor(1.0 - rate, dtype=dtype).item()
+
+
+def _drop(x: torch.Tensor, draws: Optional[DropoutDraws], rate: float, training: bool):
+    """Dropout of ``x`` with a mask from ``draws``: x / (1 - rate) where kept."""
+    mask, keep = _keep_mask(draws, x.shape, rate, training, x.dtype)
+    if mask is None:
+        return x
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear, cd: torch.dtype) -> torch.Tensor:
@@ -375,17 +393,15 @@ class WavLM(nn.Module):
         hd = hidden // heads
         w = torch.cat([att.q_proj.weight, att.k_proj.weight, att.v_proj.weight]).to(cd)
         bias = torch.cat([att.q_proj.bias, att.k_proj.bias, att.v_proj.bias]).to(cd)
-        qkv = tf.linear(u.to(cd), w, bias).view(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, heads, T, hd)
+        qkv = tf.linear(u.to(cd), w, bias)  # (B, T, 3 hidden): q, k, v, each (heads, hd)
         # the gate, per head and query, from u's heads (f32)
         g = tf.linear(u.view(b, t, heads, hd), att.gru_rel_pos_linear.weight,
                       att.gru_rel_pos_linear.bias)
         g = torch.sigmoid(g.view(b, t, heads, 2, _GATE_WIDTH // 2).sum(-1))
         gate = g[..., 0] * (g[..., 1] * att.gru_rel_pos_const.view(heads) - 1.0) + 2.0
-        scores = (torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(hd))
-                  + gate.transpose(1, 2)[..., None] * pos_bias)
-        p = _drop(torch.softmax(scores, -1), draws, self.attention_dropout, self.training)
-        ctx = torch.matmul(p.to(cd), v).transpose(1, 2).reshape(b, t, hidden)
+        mask, keep = _keep_mask(draws, (b, heads, t, t), self.attention_dropout, self.training)
+        core = gated_bias_attention if cd == torch.bfloat16 else gated_bias_attention_plain
+        ctx = core(qkv, gate, pos_bias, heads, mask, keep)
         return _linear(ctx, att.out_proj, cd).float()
 
     def _ffn(self, v: torch.Tensor, ff: _FeedForward, draws) -> torch.Tensor:
@@ -402,6 +418,8 @@ class WavLM(nn.Module):
         enc = self.wavlm.encoder
         h = _drop(h + self._pos_embed(h), dropout, self.hidden_dropout, self.training)
         pos_bias = self._position_bias(h.shape[1], h.device)
+        if self.compute_dtype == torch.bfloat16:
+            pos_bias = pos_bias.contiguous()  # the attention kernel reads it so, once a forward
         for layer in enc.layers:
             with span("wavlm.attention"):
                 ln = layer.layer_norm

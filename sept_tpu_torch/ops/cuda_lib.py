@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_of",
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("mel", "conv_block1", "mfcc", "gru_lowp")
+SOURCES = ("mel", "conv_block1", "mfcc", "gru_lowp", "attention")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -35,7 +35,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 # C signatures: (argtypes, restype) per exported function
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "mel": {
         "sept_mel_db": ([_P] * 6 + [_I] * 7 + [_P, _I, _P], _I),
@@ -51,6 +51,11 @@ _SIGNATURES = {
         "sept_gru_lowp_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
         "sept_gru_lowp_bwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
         "sept_gru_lowp_tile_elems": ([_I] * 3, _LL),
+    },
+    "attention": {
+        "sept_attn_stats_floats": ([_I] * 4, _LL),
+        "sept_attn_fwd": ([_P] * 5 + [_I] * 4 + [_F] * 2 + [_P], _I),
+        "sept_attn_bwd": ([_P] * 10 + [_I] * 4 + [_F] * 2 + [_P], _I),
     },
     "conv_block1": {
         "sept_conv_stats": ([_P] * 6 + [_I] * 4 + [_P], _I),

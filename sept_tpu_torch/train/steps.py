@@ -178,15 +178,17 @@ def _packed(m):
 
 
 def _launch_counters():
-    """The launch counters of the kernels a step runs, block 1's and the
-    bf16 GRU's: ``(wrapper, attribute)`` pairs."""
+    """The launch counters of the kernels a step runs, block 1's, the bf16
+    GRU's and WavLM's attention core's: ``(wrapper, attribute)`` pairs."""
     from sept_tpu_torch.ops import conv_block1 as k
+    from sept_tpu_torch.ops.attention import gated_bias_attention
     from sept_tpu_torch.ops.gru_lowp import bigru_lowp
 
     return [(f, attr) for f in (k.block1_conv_stats, k.block1_norm_pool, k.block1_route,
                                 k.block1_weight_grads, k.block1_input_grad)
             for attr in ("launches", "launches_bf16")] + [
-        (bigru_lowp, "launches"), (bigru_lowp, "launches_bwd")]
+        (f, attr) for f in (bigru_lowp, gated_bias_attention)
+        for attr in ("launches", "launches_bwd")]
 
 
 def _tensor_key(t):
