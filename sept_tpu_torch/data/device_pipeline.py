@@ -1,6 +1,7 @@
 """On-device ingest: waveforms -> log-mel -> per-speaker z-norm -> training
 windows, every intermediate on the device; or, for waveform models
-(``frontend="wave"``), waveforms -> normalized wave windows.
+(``frontend="wave"``), waveforms -> normalized wave windows; or, for
+Whisper (``frontend="whisper"``), waveforms -> Whisper's log-mel features.
 
 Counterpart of ``sept_tpu/data/device_pipeline.py`` (``_ingest``,
 ``device_ingest`` and ``DeviceDataset``).  The mel goes through
@@ -20,6 +21,16 @@ the int16 / 32768 wave, each normalized to zero mean and unit variance
 (``(x - mean) / sqrt(var + 1e-7)``, the input normalization the WavLM
 release applies to its Large model) and laid out as (win_len, HOP): the
 windows of the mel path, frame for frame.
+
+The ``"whisper"`` frontend (the port's own) computes the input features of
+Hugging Face's ``WhisperFeatureExtractor``, one window of win_len frames a
+clip: the int16 / 32768 wave cut or zero-padded to win_len * HOP samples
+(480,000 for 3,000 frames: 30 s), reflect-padded by n_fft // 2 each side
+(``center=True``), then the f32 mel kernel at n_fft, HOP and Whisper's
+Slaney bank (``mel_db(..., mel_scale="slaney", norm="slaney")``), its dB
+divided by 10 (log10 of the power clamped at 1e-10), clamped from below at
+the clip's maximum minus 8, and scaled as ``(L + 4) / 4``.  No per-speaker
+z-norm; every window has weight 1.
 """
 
 from __future__ import annotations
@@ -31,11 +42,12 @@ from sept_tpu_torch.data.prep import HOP, prepare_waves
 from sept_tpu_torch.device import f32_precision, resolve_device
 from sept_tpu_torch.ops.mel import mel_db
 
-__all__ = ["DeviceDataset", "device_ingest", "FRONTENDS", "WAVE"]
+__all__ = ["DeviceDataset", "device_ingest", "FRONTENDS", "WAVE", "WHISPER"]
 
 # the JAX package's frontend names -> the mel kernel's bf16 flag
 FRONTENDS = {"xla": False, "pallas_bf16": True}
 WAVE = "wave"  # wave windows for waveform models, no mel
+WHISPER = "whisper"  # Whisper's log-mel features, one window a clip
 _WAVE_EPS = 1e-7
 
 
@@ -108,6 +120,30 @@ def _wave_ingest(waves, lengths, labels_emo, labels_gen, *, win_len, shift_len):
             labels_gen.repeat_interleave(max_windows), wvalid.reshape(m).to(torch.float32))
 
 
+def _whisper_ingest(waves, labels_emo, labels_gen, *, n_fft, n_mels, win_len):
+    """(N, L) int16 waves -> (features (N, win_len, n_mels) f32, labels,
+    labels, weights of 1)."""
+    size, pad = win_len * HOP, n_fft // 2
+    x = waves[:, :size].to(torch.float32) / 32768.0
+    x = torch.nn.functional.pad(x, (0, size - x.shape[1]))
+    x = torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    log = mel_db(x, win_len, n_fft, HOP, n_mels, mel_scale="slaney", norm="slaney") / 10.0
+    log = torch.maximum(log, log.amax((1, 2), keepdim=True) - 8.0)
+    return ((log + 4.0) / 4.0, labels_emo, labels_gen,
+            torch.ones(waves.shape[0], device=waves.device))
+
+
+def _stacked_pcm(waveforms: list[np.ndarray]):
+    """int16 waves -> ((N, longest) int16 zero-padded, their lengths)."""
+    if any(np.asarray(w).dtype != np.int16 for w in waveforms):
+        raise ValueError("the wave and whisper frontends take int16 PCM")
+    lengths = np.asarray([len(w) for w in waveforms])
+    waves = np.zeros((len(waveforms), int(lengths.max())), dtype=np.int16)
+    for i, w in enumerate(waveforms):
+        waves[i, :len(w)] = w
+    return waves, lengths
+
+
 def device_ingest(waveforms: list[np.ndarray], speaker_idx: np.ndarray,
                   labels_emo: np.ndarray, labels_gen: np.ndarray, n_fft: int = 800,
                   n_mels: int = 128, win_len: int = 200, shift_len: int = 50,
@@ -122,22 +158,27 @@ def device_ingest(waveforms: list[np.ndarray], speaker_idx: np.ndarray,
     operands with f32 accumulation.  ``"wave"`` (for ``wavlm-large``) makes
     (N * max_windows, win_len, HOP) windows of the normalized wave (the
     module's docstring), int16 input only; ``n_fft`` and ``n_mels`` are not
-    read.  An unknown name raises ``ValueError`` (the JAX package runs the
-    parity mode for it).
+    read.  ``"whisper"`` (for ``whisper-large-v3``) makes one (win_len,
+    n_mels) window of Whisper's features a clip (the module's docstring),
+    int16 input only; ``shift_len`` and ``speaker_idx`` are not read.  An
+    unknown name raises ``ValueError`` (the JAX package runs the parity
+    mode for it).
     """
-    if frontend not in FRONTENDS and frontend != WAVE:
+    if frontend not in FRONTENDS and frontend not in (WAVE, WHISPER):
         raise ValueError(f"unknown frontend {frontend!r}; expected one of "
-                         f"{sorted([*FRONTENDS, WAVE])}")
+                         f"{sorted([*FRONTENDS, WAVE, WHISPER])}")
     dev = resolve_device(device)
     f32_precision()
     as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)  # noqa: E731
+    if frontend == WHISPER:
+        waves, _ = _stacked_pcm(waveforms)
+        with torch.no_grad():
+            out = _whisper_ingest(torch.from_numpy(waves).to(dev), as_long(labels_emo),
+                                  as_long(labels_gen), n_fft=n_fft, n_mels=n_mels,
+                                  win_len=win_len)
+        return DeviceDataset(*out)
     if frontend == WAVE:
-        if any(np.asarray(w).dtype != np.int16 for w in waveforms):
-            raise ValueError("the wave frontend takes int16 PCM")
-        lengths = np.asarray([len(w) for w in waveforms])
-        waves = np.zeros((len(waveforms), int(lengths.max())), dtype=np.int16)
-        for i, w in enumerate(waveforms):
-            waves[i, :len(w)] = w
+        waves, lengths = _stacked_pcm(waveforms)
         with torch.no_grad():
             out = _wave_ingest(torch.from_numpy(waves).to(dev), as_long(lengths),
                                as_long(labels_emo), as_long(labels_gen), win_len=win_len,

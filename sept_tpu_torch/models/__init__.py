@@ -1,6 +1,7 @@
 """PyTorch models of the port: the model zoo (every ``--model_type`` of the
-JAX package, and ``wavlm-large``, which the JAX package does not have) and
-the cloak (noise layer and the cloaked training models)."""
+JAX package, and ``wavlm-large`` and ``whisper-large-v3``, which the JAX
+package does not have) and the cloak (noise layer and the cloaked training
+models)."""
 
 import inspect
 
@@ -17,6 +18,7 @@ from sept_tpu_torch.models.backbone import (
 )
 from sept_tpu_torch.models.cloak import CloakedModel, CloakedModelGRL, CloakNoise
 from sept_tpu_torch.models.wavlm import WavLM
+from sept_tpu_torch.models.whisper import Whisper
 
 __all__ = [
     "N_GLOBAL",
@@ -30,6 +32,7 @@ __all__ = [
     "OneDConvNet",
     "PlainConv2d",
     "WavLM",
+    "Whisper",
     "build_backbone",
     "compute_dtype",
     "pooling_for",
@@ -42,6 +45,7 @@ _CLASSES = {
     "1d-cnn-lstm-att": OneDConvNet,
     "2d-cnn": PlainConv2d,
     "wavlm-large": WavLM,
+    "whisper-large-v3": Whisper,
 }
 # Knobs that only some model types take: build_backbone drops these (and
 # only these) for a type whose class lacks them, so that the trainers can

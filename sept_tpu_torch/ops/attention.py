@@ -1,5 +1,6 @@
-"""WavLM's gated-bias attention core: CUDA kernel wrapper, its plain version
-and its autograd Function.
+"""The port's attention cores: WavLM's gated-bias attention (CUDA kernel
+wrapper, its plain version and its autograd Function) and plain
+self-attention over long sequences (Whisper's encoder).
 
 :func:`gated_bias_attention` takes the QKV product's output as it lies,
 (B, T, 3 hidden) with q, k and v each (heads, hd) a row, the f32 gate (B, T,
@@ -29,6 +30,22 @@ kernels or raises; nothing falls back to the composition.  Any T and head
 dimension run (above 128 keys or 128 dims the kernels take their general
 path).  ``gated_bias_attention.launches`` and ``.launches_bwd`` count the
 forward and backward calls that launched the kernels, one a call.
+
+:func:`self_attention` takes the same (B, T, 3 hidden) qkv and returns
+``softmax(q k^T / sqrt(hd)) v``, (B, T, hidden): no bias, gate, mask or
+dropout.  On a CPU or float32 tensor it is the plain composition
+(:func:`self_attention_plain`: the products in qkv's dtype, the f32
+softmax, P rounded to v's dtype).  On a bf16 CUDA tensor it streams: the
+forward is one launch of PyTorch's FlashAttention-2 forward (the kernel
+``torch.nn.attention.SDPBackend.FLASH_ATTENTION`` selects, called as its
+ATen op so that nothing falls back), an online softmax over key tiles on
+the tensor cores that keeps the row log-sum-exp and never holds the (B,
+heads, T, T) scores; the backward is one launch of its backward, which
+recomputes P tile by tile, and one copy of dq, dk and dv into one (B, T, 3
+hidden) gradient.  q, k and v are read where the QKV product left them
+(strided views, no copy).  Its dq is summed with atomics, so a replayed
+graph's bits may differ run to run.  Both open ``span("attention.core")``;
+``self_attention.launches`` and ``.launches_bwd`` count the calls.
 """
 
 from __future__ import annotations
@@ -41,8 +58,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from sept_tpu_torch.ops import cuda_lib
+from sept_tpu_torch.utils.profiling import span
 
-__all__ = ["gated_bias_attention", "gated_bias_attention_plain"]
+__all__ = ["gated_bias_attention", "gated_bias_attention_plain", "self_attention",
+           "self_attention_plain"]
 
 _BF = torch.bfloat16
 
@@ -174,3 +193,81 @@ def gated_bias_attention(qkv: torch.Tensor, gate: torch.Tensor, bias: torch.Tens
 
 gated_bias_attention.launches = 0  # forward kernel launches since the last reset
 gated_bias_attention.launches_bwd = 0  # backward kernel launches since the last reset
+
+
+# -- plain self-attention (Whisper) ---------------------------------------------
+
+
+def _split(qkv: torch.Tensor, heads: int):
+    """q, k, v of (B, T, 3 hidden) as (B, heads, T, hd) views."""
+    b, t, width = qkv.shape
+    return qkv.view(b, t, 3, heads, width // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def self_attention_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(hd)) v`` in torch ops, the products in qkv's
+    dtype and the softmax in f32: (B, T, hidden) in qkv's dtype."""
+    b, t, width = qkv.shape
+    q, k, v = _split(qkv, heads)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(q.shape[-1]))
+    p = torch.softmax(scores, -1)
+    return torch.matmul(p.to(v.dtype), v).transpose(1, 2).reshape(b, t, width // 3)
+
+
+def _flash_forward(qkv: torch.Tensor, heads: int):
+    """The streaming forward: the context (B, T, hidden) and the op's
+    outputs, which its backward takes: (out, lse, cum_q, cum_k, max_q,
+    max_k, rng_state, unused)."""
+    b, t, width = qkv.shape
+    q, k, v = _split(qkv, heads)
+    with span("attention.core"):
+        saved = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, False, False, scale=1.0 / math.sqrt(q.shape[-1]))[:8]
+    self_attention.launches += 1
+    return saved[0].transpose(1, 2).reshape(b, t, width // 3), saved
+
+
+class _SelfAttention(torch.autograd.Function):
+    """(B, T, 3 hidden) bf16 qkv -> (B, T, hidden), differentiable in qkv
+    once; qkv, the output and the row log-sum-exp are kept."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads):
+        ctx_out, (out, lse, cum_q, cum_k, max_q, max_k, rng, unused) = _flash_forward(qkv, heads)
+        ctx.save_for_backward(qkv, out, lse, cum_q, cum_k, rng, unused)
+        ctx.heads, ctx.max_q, ctx.max_k = heads, max_q, max_k
+        return ctx_out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dctx):
+        qkv, out, lse, cum_q, cum_k, rng, unused = ctx.saved_tensors
+        b, t, width = qkv.shape
+        q, k, v = _split(qkv, ctx.heads)
+        dout = dctx.contiguous().view(b, t, ctx.heads, -1).transpose(1, 2)
+        with span("attention.core"):
+            dq, dk, dv = torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dout, q, k, v, out, lse, cum_q, cum_k, ctx.max_q, ctx.max_k, 0.0, False, rng,
+                unused, scale=1.0 / math.sqrt(q.shape[-1]))
+            dqkv = torch.stack([g.transpose(1, 2) for g in (dq, dk, dv)], 2).view(b, t, width)
+        self_attention.launches_bwd += 1
+        return dqkv, None
+
+
+def self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Self-attention without bias, gate or mask: (B, T, 3 hidden) qkv ->
+    (B, T, hidden) in qkv's dtype.  A bf16 CUDA qkv streams (the module's
+    docstring); a CPU or float32 qkv runs :func:`self_attention_plain`."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or heads < 1 or (qkv.shape[-1] // 3) % heads:
+        raise ValueError(f"self_attention: qkv must be (B, T, 3 hidden) with hidden a multiple "
+                         f"of {heads} heads, got {tuple(qkv.shape)}")
+    if qkv.device.type != "cuda" or qkv.dtype != _BF:
+        return self_attention_plain(qkv, heads)
+    qkv = qkv.contiguous()
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _SelfAttention.apply(qkv, heads)
+    return _flash_forward(qkv, heads)[0]
+
+
+self_attention.launches = 0  # streaming forward launches since the last reset
+self_attention.launches_bwd = 0  # streaming backward launches since the last reset

@@ -18,12 +18,18 @@ shape whose buffers do not fit a block of one warp raises, by its shared
 memory.  :func:`fft_plan` (radices and float64 twiddles) and
 :func:`sparse_bank` (each band's first bin, bin count and weights) are the
 kernel's tables, built once per (n_fft, device).
+
+The filterbank spans 0-8 kHz at 16 kHz over n_mels triangles: by default
+on the HTK mel scale with no norm (the JAX package's), or, with
+``mel_scale="slaney", norm="slaney"``, Whisper's (Slaney's scale, each band
+scaled to unit area).  Only the f32 mode takes the Slaney bank.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,11 +44,18 @@ AMIN = 1e-10  # the AmplitudeToDB power clamp
 _RADICES = (4, 2, 5, 3)  # the kernel's Stockham passes, in the order they run
 
 
+def _bank(n_fft: int, n_mels: int, mel_scale: str, norm: Optional[str]) -> np.ndarray:
+    """The dense (n_fft // 2 + 1, n_mels) f32 filterbank, 0-8 kHz at 16 kHz."""
+    return F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000, norm=norm,
+                             mel_scale=mel_scale)
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(n_fft: int, n_mels: int, device: torch.device):
+def _tables(n_fft: int, n_mels: int, device: torch.device, mel_scale: str = "htk",
+            norm: Optional[str] = None):
     """(window, cos, sin, filterbank) as f32 tensors on ``device``."""
     cos_m, sin_m = F.rdft_matrices(n_fft)
-    fb = F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000)
+    fb = _bank(n_fft, n_mels, mel_scale, norm)
     return tuple(torch.tensor(a, device=device)
                  for a in (F.hann_window(n_fft), cos_m, sin_m, fb))
 
@@ -181,13 +194,15 @@ def fft_plan(n_fft: int) -> tuple[tuple[int, ...], np.ndarray]:
     return radices, np.concatenate(parts)
 
 
-def sparse_bank(n_fft: int, n_mels: int) -> tuple[np.ndarray, np.ndarray]:
+def sparse_bank(n_fft: int, n_mels: int, mel_scale: str = "htk",
+                norm: Optional[str] = None) -> tuple[np.ndarray, np.ndarray]:
     """The mel filterbank of :func:`mel_db` as the kernel reads it:
     ``index`` (3, n_mels) int32 -- each band's first bin, its bin count (its
     nonzeros are contiguous; 0 for an empty band) and its offset into
     ``weights`` -- and ``weights``, the bands' f32 values from the dense
-    table, one band after another."""
-    fb = F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, 16000)
+    table, one band after another.  ``mel_scale`` and ``norm`` as
+    ``frontend.melscale_fbanks`` takes them."""
+    fb = _bank(n_fft, n_mels, mel_scale, norm)
     index = np.zeros((3, n_mels), np.int32)
     weights = []
     for m in range(n_mels):
@@ -199,11 +214,12 @@ def sparse_bank(n_fft: int, n_mels: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _fft_tables(n_fft: int, n_mels: int, device: torch.device):
+def _fft_tables(n_fft: int, n_mels: int, device: torch.device, mel_scale: str = "htk",
+                norm: Optional[str] = None):
     """The f32 kernel's operands on ``device``: (radices, window, twiddles as
     interleaved float64 pairs, bank index, bank weights)."""
     radices, tw = fft_plan(n_fft)
-    index, weights = sparse_bank(n_fft, n_mels)
+    index, weights = sparse_bank(n_fft, n_mels, mel_scale, norm)
     pairs = np.stack([tw.real, tw.imag], -1).ravel()
     return (radices,) + tuple(torch.tensor(a, device=device) for a in (
         F.hann_window(n_fft), pairs, index, weights))
@@ -221,19 +237,22 @@ def _check_geometry(padded_waves, n_frames_max, n_fft, hop):
 
 def mel_db_plain(padded_waves: torch.Tensor, n_frames_max: int,
                  n_fft: int = 800, hop: int = 160, n_mels: int = 128,
-                 bf16: bool = False) -> torch.Tensor:
+                 bf16: bool = False, mel_scale: str = "htk",
+                 norm: Optional[str] = None) -> torch.Tensor:
     """The same function in plain torch: frames -> Hann -> rDFT GEMMs ->
     power -> mel GEMM -> 10*log10(max(., 1e-10)), (B, T, n_mels).
 
     ``bf16``: round to bf16 where the TPU kernel's bf16 mode does -- the
     waveform, the window, their product (one bf16 multiply), the cos/sin
     tables, the f32 power and the filterbank -- and multiply in f32 (exact
-    for bf16 operands; TF32 off), accumulating in f32.
+    for bf16 operands; TF32 off), accumulating in f32.  ``mel_scale`` /
+    ``norm``: the bank (HTK alone in bf16).
     """
     padded_waves = F.pcm_to_float(padded_waves)
     _check_geometry(padded_waves, n_frames_max, n_fft, hop)
+    _check_bank(bf16, mel_scale, norm)
     if not bf16:
-        window, cos_m, sin_m, fb = _tables(n_fft, n_mels, padded_waves.device)
+        window, cos_m, sin_m, fb = _tables(n_fft, n_mels, padded_waves.device, mel_scale, norm)
         frames = padded_waves.unfold(1, n_fft, hop)[:, :n_frames_max] * window
         re = frames @ cos_m
         im = frames @ sin_m
@@ -248,28 +267,37 @@ def mel_db_plain(padded_waves: torch.Tensor, n_frames_max: int,
     return 10.0 * torch.log10(torch.clamp(power @ fb.float(), min=AMIN))
 
 
+def _check_bank(bf16: bool, mel_scale: str, norm: Optional[str]) -> None:
+    if bf16 and (mel_scale, norm) != ("htk", None):
+        raise ValueError("mel_db: the bf16 mode takes the HTK bank alone")
+
+
 def mel_db(padded_waves: torch.Tensor, n_frames_max: int, n_fft: int = 800,
-           hop: int = 160, n_mels: int = 128, bf16: bool = False) -> torch.Tensor:
+           hop: int = 160, n_mels: int = 128, bf16: bool = False, mel_scale: str = "htk",
+           norm: Optional[str] = None) -> torch.Tensor:
     """Log-mel spectrogram in dB (top_db None) of reflect-padded waveforms.
 
     ``padded_waves`` (B, L) f32, or int16 PCM (normalized here, exactly),
     each row reflect-padded by n_fft//2 at its true boundary; frame t reads
     samples [t*hop, t*hop + n_fft).  Returns (B, n_frames_max, n_mels) f32.
-    Filterbank: 0-8 kHz, HTK, 16 kHz.  ``bf16``: the throughput mode, see
-    :func:`mel_db_bf16`.
+    Filterbank: 0-8 kHz, 16 kHz, HTK without a norm unless ``mel_scale`` and
+    ``norm`` say otherwise (``"slaney"``, ``"slaney"``: Whisper's).
+    ``bf16``: the throughput mode, see :func:`mel_db_bf16`, HTK alone.
     """
+    _check_bank(bf16, mel_scale, norm)
     if bf16:
         return mel_db_bf16(padded_waves, n_frames_max, n_fft, hop, n_mels)
     dev = padded_waves.device
     if dev.type == "cpu":
-        return mel_db_plain(padded_waves, n_frames_max, n_fft, hop, n_mels)
+        return mel_db_plain(padded_waves, n_frames_max, n_fft, hop, n_mels, mel_scale=mel_scale,
+                            norm=norm)
     padded_waves = F.pcm_to_float(padded_waves)
     _check_geometry(padded_waves, n_frames_max, n_fft, hop)
     fft_radices(n_fft)
     b, length = padded_waves.shape
     cuda_lib.require(padded_waves, "mel_db padded_waves", (b, length), dev)
     lib = cuda_lib.load("mel")
-    radices, window, twiddles, index, weights = _fft_tables(n_fft, n_mels, dev)
+    radices, window, twiddles, index, weights = _fft_tables(n_fft, n_mels, dev, mel_scale, norm)
     n_tw = twiddles.numel() // 2
     smem = lib.sept_mel_db_smem_bytes(n_fft, hop, int(np.prod(radices)))
     if smem > cuda_lib.max_smem_per_block(dev):

@@ -1,5 +1,7 @@
 """WavLM's gated-bias attention op (``ops/attention.py``,
-``csrc/attention.cu``) held against the composition it replaces.
+``csrc/attention.cu``) held against the composition it replaces, and the
+plain self-attention op (``self_attention``, Whisper's) against the
+softmax.
 
 On the CPU the op runs its plain version, which is ``models/wavlm.py``'s
 attention core as it stood before the kernel (restated here as
@@ -13,11 +15,14 @@ The tests marked ``card`` launch the kernels on the H100: the kernel
 against the plain version on the card at the benchmark's shape (32, 16,
 99, 64) and off it (T 1, 17, 130 and 300; head dims 8, 16 and 80), the
 masks from ``DropoutDraws``; a captured and replayed training step against
-the eager one; and the launch counters of one GRL step at 24 layers.  They
-decide inside themselves whether there is a card and skip without one.  On
-the card: ``python -m pytest tests/test_torch_attention.py --noconftest -m
-card -q`` (``--noconftest``: the suite's conftest imports JAX, which the
-card's machine does not have).  No JAX here.
+the eager one; the launch counters of one GRL step at 24 layers; the
+streaming self-attention against its f32 composition at the Whisper cell's
+shape and at T 99, 129 and 1,500, with no (B, heads, T, T) allocation, and
+its counters under a graph replay.  They decide inside themselves whether
+there is a card and skip without one.  On the card: ``python -m pytest
+tests/test_torch_attention.py --noconftest -m card -q`` (``--noconftest``:
+the suite's conftest imports JAX, which the card's machine does not have).
+No JAX here.
 """
 
 import math
@@ -309,3 +314,126 @@ def test_card_counters_of_one_published_grl_step(card):
     make_cloak_grl_step(0.1, 0.1)(state, batch)
     torch.cuda.synchronize()
     assert (gated_bias_attention.launches, gated_bias_attention.launches_bwd) == (48, 48)
+
+
+# ---------------------------------------------------------------------------
+# plain self-attention (Whisper): the composition on the CPU, the streaming
+# path on the card
+
+
+def _self_reference(qkv, heads):
+    """softmax(q k^T / sqrt(hd)) v in float64 from qkv's values."""
+    b, t, width = qkv.shape
+    q, k, v = qkv.double().view(b, t, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1]), -1)
+    return (p @ v).transpose(1, 2).reshape(b, t, width // 3)
+
+
+def _self_qkv(b, t, heads, hd, seed, dtype, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(b, t, 3 * heads * hd, generator=g).to(dtype).to(device).requires_grad_()
+
+
+@pytest.mark.parametrize("t", [40, 300])
+@pytest.mark.parametrize("dtype", [BF, torch.float32], ids=["bf16", "f32"])
+def test_self_attention_plain_follows_the_softmax(t, dtype):
+    """On the CPU the op is the composition: in f32 a few float32 units
+    from the float64 softmax of the same values, output and gradient; in
+    bf16 the scores and P rounded to bf16 and the context stored in bf16, a
+    few bf16 units (2^-8) of the unit-scale context."""
+    from sept_tpu_torch.ops.attention import self_attention, self_attention_plain
+
+    qkv = _self_qkv(2, t, 4, 16, 3, dtype)
+    out = self_attention(qkv, 4)
+    assert out.dtype == dtype and out.shape == (2, t, 64)
+    assert torch.equal(out, self_attention_plain(qkv, 4))
+    ref_qkv = qkv.detach().double().requires_grad_()
+    ref = _self_reference(ref_qkv, 4)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((out.detach().double() - ref).abs().max()) <= tol
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+    (g,) = torch.autograd.grad(out, qkv, dout.to(dtype))
+    (g_ref,) = torch.autograd.grad(ref, ref_qkv, dout.double())
+    assert _gap(g, g_ref) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_self_attention_refusals():
+    from sept_tpu_torch.ops.attention import self_attention
+
+    with pytest.raises(ValueError, match="heads"):
+        self_attention(torch.zeros(1, 4, 3 * 10), 4)
+    with pytest.raises(ValueError, match="3 hidden"):
+        self_attention(torch.zeros(4, 30), 2)
+
+
+# (B, T, heads, hd): the benchmark's shape, and T on, one past and over the
+# 128-key tile, at the cell's 64-wide heads
+SELF_SHAPES = [(8, 1500, 20, 64), (4, 99, 4, 64), (4, 129, 4, 64), (2, 1500, 4, 64)]
+# the streaming path's output and gradients against the composition's in
+# f32 from the same bf16 values: P and the context rounded to bf16 on the
+# path, nothing rounded in the composition: a bf16 unit of the norm, 2x room
+SELF_GAP = 8e-3
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", SELF_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_card_self_attention_streams(card, shape):
+    """The bf16 op on the card against the f32 composition of the same
+    values: the context and dq, dk, dv within SELF_GAP of the norm, one
+    launch each way, and no (B, heads, T, T) tensor: the peak memory over
+    the inputs stays under a quarter of one bf16 score matrix's bytes."""
+    from sept_tpu_torch.ops.attention import self_attention, self_attention_plain
+
+    b, t, heads, hd = shape
+    qkv = _self_qkv(b, t, heads, hd, 7, BF, card)
+    dout = torch.randn((b, t, heads * hd), generator=torch.Generator().manual_seed(8)).to(
+        card).to(BF)
+    ref_qkv = qkv.detach().float().requires_grad_()
+    ref = self_attention_plain(ref_qkv, heads)
+    (g_ref,) = torch.autograd.grad(ref, ref_qkv, dout.float())
+    torch.cuda.synchronize()
+    before = (self_attention.launches, self_attention.launches_bwd)
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    out = self_attention(qkv, heads)
+    (g,) = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert (self_attention.launches, self_attention.launches_bwd) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert out.dtype == BF and g.shape == qkv.shape
+    assert _gap(out.float(), ref) <= SELF_GAP
+    for i, name in enumerate(("dq", "dk", "dv")):
+        part = slice(i * heads * hd, (i + 1) * heads * hd)
+        assert _gap(g[..., part].float(), g_ref[..., part]) <= SELF_GAP, name
+    assert peak < 0.25 * 2 * b * heads * t * t + 16 * b * t * heads * hd, peak
+
+
+@pytest.mark.card
+def test_card_self_attention_counts_under_replay(card):
+    """Four bf16 GRL steps of a 2-layer Whisper through the epoch runner
+    (one eager step, a capture, replays): each step counts 4 forward and 4
+    backward calls (2 layers, 2 backbones), the replays as the eager
+    step."""
+    from sept_tpu_torch.ops.attention import self_attention
+
+    sizes = dict(d_model=64, encoder_layers=2, encoder_attention_heads=4, encoder_ffn_dim=128,
+                 num_mel_bins=16, max_source_positions=40, classifier_proj_size=16)
+    torch.manual_seed(0)
+    model = CloakedModelGRL(*(build_backbone("whisper-large-v3", pred=p, compute_dtype=BF,
+                                             **sizes) for p in ("emotion", "gender")),
+                            win_len=80, n_feats=16)
+    exp = preset("cloak_grl", batch_size=2)
+    state = init_state(model, make_cloak_optimizer(exp, 4, model, ("noise", "gender_backbone")),
+                       3, card)
+    g = torch.Generator().manual_seed(1)
+    n, b = 4, 2
+    x = torch.randn((n * b, 80, 16), generator=g).to(card)
+    runner = make_cloak_epoch_runner(0.1, 0.1, grl=True)
+    self_attention.launches = self_attention.launches_bwd = 0
+    runner(state, x, torch.arange(n * b, device=card) % 4, torch.arange(n * b, device=card) % 2,
+           torch.ones(n * b, device=card), torch.arange(n * b, device=card), None, n_batches=n,
+           batch_size=b)
+    torch.cuda.synchronize()
+    assert runner.graph_replays == 2
+    assert (self_attention.launches, self_attention.launches_bwd) == (16, 16)
